@@ -1,0 +1,100 @@
+"""Fused segment-expand + merge COO join kernel (``coo_expand``).
+
+The device join tier (``repro_torch.core.joins_device``) unrolls per-key
+match runs into a static ``cap``-slot buffer. The kernel fuses the whole
+expansion: one pass over the output slots finds each slot's segment by a
+binary search over the segment end offsets, gathers both operands and
+their coordinates from the compacted (nnz-sized) side buffers, applies
+the merge in registers, and writes only the final ``idx``/``val``.
+
+Inputs (``ns`` = probe-side entries, ``nb`` = partner-side entries):
+
+* ``ends   [ns] int32`` — inclusive prefix sum of per-segment counts;
+* ``delta  [ns] int32`` — partner-run base minus own segment start: slot
+  ``t`` in segment ``s`` reads partner position ``t + delta[s]``;
+* ``a_vals [ns]``, ``a_coords [ns, ca]`` — probe-side values + coords;
+* ``b_vals [nb]``, ``b_coords [nb, cb]`` — partner values + coords.
+
+Returns ``(idx [cap, ca+cb], val [cap])``. Slots at or past the true total
+hold clamped values the caller masks with its ``valid`` vector.
+
+``coo_expand_plain`` is the plain PyTorch version (any device);
+``coo_expand_cuda`` launches the kernel of ``csrc/coo_expand.cu`` on a
+CUDA tensor and raises on anything else.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Callable, Tuple
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.merge_codes import merge_code
+
+_VALUE_CODES = {torch.float32: 0, torch.float64: 1}
+_COORD_CODES = {torch.int16: 0, torch.int32: 1}
+
+
+def coo_expand_plain(ends: torch.Tensor, delta: torch.Tensor,
+                     a_vals: torch.Tensor, a_coords: torch.Tensor,
+                     b_vals: torch.Tensor, b_coords: torch.Tensor, *,
+                     merge: Callable, cap: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version: segment ids by searchsorted-right over ``ends``
+    (clamped to the last segment, as the kernel and the JAX package's
+    ``repeat`` padding do), then gathers and the merge."""
+    ns, nb = ends.shape[0], b_vals.shape[0]
+    t = torch.arange(cap, dtype=torch.int32, device=ends.device)
+    seg = torch.searchsorted(ends, t, right=True).clamp_(max=ns - 1)
+    sb = (t.to(torch.int64) + delta[seg]).clamp_(0, nb - 1)
+    val = merge(a_vals[seg], b_vals[sb])
+    idx = torch.cat([a_coords[seg], b_coords[sb]], dim=1)
+    return idx, val
+
+
+def coo_expand_cuda(ends: torch.Tensor, delta: torch.Tensor,
+                    a_vals: torch.Tensor, a_coords: torch.Tensor,
+                    b_vals: torch.Tensor, b_coords: torch.Tensor, *,
+                    merge: Callable, cap: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel (one thread per output slot)."""
+    ins = (ends, delta, a_vals, a_coords, b_vals, b_coords)
+    dev = ends.device
+    if dev.type != "cuda" or any(x.device != dev for x in ins):
+        raise ValueError("coo_expand_cuda needs every input on one CUDA "
+                         f"device, got {[str(x.device) for x in ins]}")
+    ns, nb = ends.shape[0], b_vals.shape[0]
+    if ends.dtype != torch.int32 or delta.dtype != torch.int32 \
+            or delta.shape != (ns,):
+        raise TypeError("ends and delta must be int32 [ns]")
+    if a_vals.dtype != b_vals.dtype or a_vals.dtype not in _VALUE_CODES:
+        raise TypeError(f"values must share float32/float64, got "
+                        f"{a_vals.dtype}, {b_vals.dtype}")
+    if a_coords.dtype != b_coords.dtype or a_coords.dtype not in _COORD_CODES:
+        raise TypeError(f"coords must share int16/int32, got "
+                        f"{a_coords.dtype}, {b_coords.dtype}")
+    if a_vals.shape != (ns,) or a_coords.ndim != 2 \
+            or a_coords.shape[0] != ns or b_vals.shape != (nb,) \
+            or b_coords.ndim != 2 or b_coords.shape[0] != nb:
+        raise ValueError("side buffer shapes disagree")
+    if ns == 0 or nb == 0:
+        raise ValueError("coo_expand needs non-empty side buffers")
+    if not all(x.is_contiguous() for x in ins):
+        raise ValueError("coo_expand_cuda needs contiguous inputs")
+    code = merge_code(merge)
+    ca, cb = a_coords.shape[1], b_coords.shape[1]
+    idx = torch.empty((cap, ca + cb), dtype=a_coords.dtype, device=dev)
+    val = torch.empty((cap,), dtype=a_vals.dtype, device=dev)
+    if cap == 0:
+        return idx, val
+    lib = build.library()
+    rc = lib.coo_expand_launch(
+        _VALUE_CODES[a_vals.dtype], _COORD_CODES[a_coords.dtype],
+        ends.data_ptr(), delta.data_ptr(), a_vals.data_ptr(),
+        a_coords.data_ptr(), b_vals.data_ptr(), b_coords.data_ptr(),
+        ns, nb, ca, cb, ctypes.c_longlong(cap), code.op, *code.coeffs,
+        idx.data_ptr(), val.data_ptr(), build.stream_ptr(ends))
+    build.check(rc, "coo_expand")
+    build.count_launch("coo_expand")
+    return idx, val

@@ -1,0 +1,108 @@
+"""Block-skip overlay-join kernel (``merge_join``).
+
+Direct/transpose overlay joins (paper §4.3) evaluate an elementwise merge
+over two matrices. With a sparsity-inducing merge (§4.7) whole blocks are
+skipped: the kernel receives both block masks and a ``mode`` saying which
+side(s) the merge induces on, and a dead tile gets only its zero store —
+its inputs are never read.
+
+``merge_join_plain`` is the plain PyTorch version (any device);
+``merge_join_cuda`` launches the kernel of ``csrc/merge_join.cu`` on a
+CUDA tensor and raises on anything else.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Callable
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.merge_codes import merge_code
+
+# compute-gating modes derived from the sparsity profile of the merge fn
+MODE_BOTH = 0   # inducing on x and y: compute where maskA & maskB
+MODE_X = 1      # inducing on x:       compute where maskA
+MODE_Y = 2      # inducing on y:       compute where maskB
+MODE_ALL = 3    # not inducing:        compute everywhere
+
+_VALUE_CODES = {torch.float32: 0, torch.float64: 1}
+
+
+def mode_for(inducing_x: bool, inducing_y: bool) -> int:
+    """The single profile→mode rule (``core.matrix.mask_overlay`` is its
+    block-mask twin — keep the two in lockstep)."""
+    if inducing_x and inducing_y:
+        return MODE_BOTH
+    if inducing_x:
+        return MODE_X
+    if inducing_y:
+        return MODE_Y
+    return MODE_ALL
+
+
+def live_tiles(mask_a: torch.Tensor, mask_b: torch.Tensor,
+               mode: int) -> torch.Tensor:
+    """Per-tile gate of ``mode`` over the two block masks."""
+    if mode == MODE_BOTH:
+        return mask_a & mask_b
+    if mode == MODE_X:
+        return mask_a
+    if mode == MODE_Y:
+        return mask_b
+    return torch.ones_like(mask_a)
+
+
+def merge_join_plain(a: torch.Tensor, b: torch.Tensor, mask_a: torch.Tensor,
+                     mask_b: torch.Tensor, *, merge: Callable,
+                     mode: int = MODE_ALL,
+                     block_size: int = 256) -> torch.Tensor:
+    live = live_tiles(mask_a, mask_b, mode)
+    big = live.repeat_interleave(block_size, 0) \
+        .repeat_interleave(block_size, 1)[: a.shape[0], : a.shape[1]]
+    out = merge(a, b).to(a.dtype)
+    return torch.where(big, out, torch.zeros((), dtype=a.dtype,
+                                             device=a.device))
+
+
+def merge_join_cuda(a: torch.Tensor, b: torch.Tensor, mask_a: torch.Tensor,
+                    mask_b: torch.Tensor, *, merge: Callable,
+                    mode: int = MODE_ALL,
+                    block_size: int = 256) -> torch.Tensor:
+    """Launch the CUDA kernel (one CTA per ``block_size``² tile)."""
+    dev = a.device
+    ins = (a, b, mask_a, mask_b)
+    if dev.type != "cuda" or any(x.device != dev for x in ins):
+        raise ValueError("merge_join_cuda needs every input on one CUDA "
+                         f"device, got {[str(x.device) for x in ins]}")
+    if a.dtype != b.dtype or a.dtype not in _VALUE_CODES:
+        raise TypeError(f"a and b must share float32/float64, got "
+                        f"{a.dtype}, {b.dtype}")
+    if a.ndim != 2 or a.shape != b.shape:
+        raise ValueError(f"shapes {tuple(a.shape)} vs {tuple(b.shape)}")
+    m, n = a.shape
+    bs = int(block_size)
+    grid = (-(-m // bs), -(-n // bs))
+    if tuple(mask_a.shape) != grid or tuple(mask_b.shape) != grid \
+            or mask_a.dtype != torch.bool or mask_b.dtype != torch.bool:
+        raise ValueError(f"masks must be bool {grid}, got "
+                         f"{tuple(mask_a.shape)}, {tuple(mask_b.shape)}")
+    if mode not in (MODE_BOTH, MODE_X, MODE_Y, MODE_ALL):
+        raise ValueError(f"unknown mode {mode}")
+    code = merge_code(merge)
+    a, b = a.contiguous(), b.contiguous()
+    mask_a, mask_b = mask_a.contiguous(), mask_b.contiguous()
+    out = torch.empty_like(a)
+    if a.numel() == 0:
+        return out
+    width = 16 // a.element_size()
+    vec = int(n % width == 0 and bs % width == 0
+              and all(x.data_ptr() % 16 == 0 for x in (a, b, out)))
+    rc = build.library().merge_join_launch(
+        _VALUE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
+        mask_a.data_ptr(), mask_b.data_ptr(), out.data_ptr(),
+        ctypes.c_longlong(m), ctypes.c_longlong(n), bs, mode, vec,
+        code.op, *code.coeffs, build.stream_ptr(a))
+    build.check(rc, "merge_join")
+    build.count_launch("merge_join")
+    return out

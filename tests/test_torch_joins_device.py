@@ -1,0 +1,222 @@
+"""The port's device COO tier against the JAX package's device tier and
+against the port's own host tier, over densities 0 / 0.05 / 0.3 / 1.0.
+
+Reference calls keep fixed shapes per join family (fixed expansion and
+side capacities), so the JAX side compiles its ops once per family.
+Coordinates and validity exact; f32 values atol/rtol 1e-5."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import joins_device as jdev
+from repro.core.joins import join_sparse as j_join_sparse
+from repro.core.matrix import BlockMatrix as JBlockMatrix
+from repro.core.predicates import parse_join as j_parse_join
+from repro.core.sparsity import (
+    analyze_merge as j_analyze, product_merge as j_product,
+)
+from repro_torch.core import joins_device as tdev
+from repro_torch.core.expr import MergeFn
+from repro_torch.core.joins import join_sparse, join_sparse_device
+from repro_torch.core.matrix import BlockMatrix
+from repro_torch.core.predicates import Field, parse_join
+from repro_torch.core.sparsity import analyze_merge, product_merge, sum_merge
+
+BS = 8
+DENSITIES = [0.0, 0.05, 0.3, 1.0]
+MERGES = [product_merge(), sum_merge(),
+          MergeFn("affdev", lambda x, y: 2 * x * y + x)]
+
+
+def _sparse(rng, m, n, density, round_vals=True):
+    v = rng.normal(size=(m, n)).astype(np.float32)
+    out = np.where(rng.uniform(size=(m, n)) < density, v, 0).astype(np.float32)
+    return np.round(out, 1) if round_vals else out
+
+
+def _bm(a):
+    return BlockMatrix.from_dense(torch.as_tensor(a), BS)
+
+
+def _dimvals(rng, m, n, density, limit):
+    v = rng.integers(1, limit, size=(m, n)).astype(np.float32)
+    return np.where(rng.uniform(size=(m, n)) < density, v, 0) \
+        .astype(np.float32)
+
+
+def _operands(rng, pred_s, density):
+    a = _sparse(rng, 12, 10, density)
+    b = _sparse(rng, 12, 14, density)
+    if pred_s == "CID=CID":
+        a, b = a.T.copy(), b.T.copy()
+    return a, b
+
+
+# expansion capacity per family, fixed so reference shapes never change
+_CAP = {"RID=RID": 12 * 10 * 14, "CID=CID": 12 * 10 * 14,
+        "VAL=VAL": 4096, "CROSS": 120 * 168}
+
+
+_JITTED = {}
+
+
+def _reference_device(pred_s, a, b):
+    """The JAX device tier, jit-compiled once per family (it is built to
+    trace; one compile beats dozens of per-op ones)."""
+    fn = _JITTED.get(pred_s)
+    if fn is None:
+        pred = j_parse_join(pred_s)
+        prof = j_analyze(j_product())
+        cap, ca, cb = _CAP[pred_s], a.size, b.size
+        mul = _MUL
+        if pred_s in ("RID=RID", "CID=CID"):
+            body = lambda x, y: jdev.d2d_device(  # noqa: E731
+                x, y, pred.left, pred.right, mul, prof, cap, cap_a=ca,
+                cap_b=cb)
+        elif pred_s == "VAL=VAL":
+            body = lambda x, y: jdev.v2v_device(  # noqa: E731
+                x, y, mul, prof, cap, cap_a=ca, cap_b=cb, use_bloom=True)
+        else:
+            body = lambda x, y: jdev.cross_device(  # noqa: E731
+                x, y, mul, prof, cap, cap_a=ca, cap_b=cb)
+        fn = _JITTED[pred_s] = jax.jit(body)
+    return fn(jnp.asarray(a), jnp.asarray(b))
+
+
+def _MUL(x, y):
+    return x * y
+
+
+def _device_both(pred_s, a, b):
+    """Run one join through both device tiers with identical capacities."""
+    pred = parse_join(pred_s)
+    prof = analyze_merge(product_merge())
+    cap, ca, cb = _CAP[pred_s], a.size, b.size
+    ta, tb = torch.as_tensor(a), torch.as_tensor(b)
+    if pred_s in ("RID=RID", "CID=CID"):
+        t = tdev.d2d_device(ta, tb, pred.left, pred.right, _MUL, prof, cap,
+                            cap_a=ca, cap_b=cb)
+    elif pred_s == "VAL=VAL":
+        t = tdev.v2v_device(ta, tb, _MUL, prof, cap, cap_a=ca, cap_b=cb,
+                            use_bloom=True)
+    else:
+        t = tdev.cross_device(ta, tb, _MUL, prof, cap, cap_a=ca, cap_b=cb)
+    return _reference_device(pred_s, a, b), t
+
+
+@pytest.mark.parametrize("density", DENSITIES)
+@pytest.mark.parametrize("pred_s", ["RID=RID", "CID=CID", "VAL=VAL",
+                                    "CROSS"])
+def test_device_tier_matches_reference_device_tier(rng, pred_s, density):
+    a, b = _operands(rng, pred_s, density)
+    j, t = _device_both(pred_s, a, b)
+    assert int(t.total) == int(j.total)
+    valid = t.valid.numpy()
+    assert np.array_equal(valid, np.asarray(j.valid))
+    assert t.idx.dtype == torch.int16        # every dimension fits int16
+    assert np.array_equal(t.idx.numpy()[valid].astype(np.int64),
+                          np.asarray(j.idx)[valid].astype(np.int64))
+    np.testing.assert_allclose(t.val.numpy()[valid], np.asarray(j.val)[valid],
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("density", DENSITIES)
+@pytest.mark.parametrize("merge", MERGES, ids=lambda m: m.name)
+@pytest.mark.parametrize("pred_s", ["RID=RID", "CID=CID", "VAL=VAL",
+                                    "CROSS"])
+def test_device_tier_matches_host_tier(rng, pred_s, merge, density):
+    a, b = _operands(rng, pred_s, density)
+    pred = parse_join(pred_s)
+    host = join_sparse(_bm(a), _bm(b), pred, merge)
+    dev = join_sparse_device(_bm(a), _bm(b), pred, merge)
+    assert dev.val.dtype == host.val.dtype
+    assert dev.shape == host.shape
+    np.testing.assert_allclose(dev.to_dense(), host.to_dense(), atol=1e-5)
+
+
+@pytest.mark.parametrize("density", [0.0, 0.3, 1.0])
+@pytest.mark.parametrize("pred_s", ["RID=VAL", "VAL=RID"])
+def test_dimension_entry_joins(rng, pred_s, density):
+    for merge in (product_merge(), sum_merge()):
+        if pred_s == "RID=VAL":
+            a = _sparse(rng, 24, 12, 0.4)
+            b = _dimvals(rng, 6, 5, density, limit=24)
+        else:
+            a = _dimvals(rng, 6, 5, density, limit=24)
+            b = _sparse(rng, 24, 12, 0.4)
+        pred = parse_join(pred_s)
+        host = join_sparse(_bm(a), _bm(b), pred, merge)
+        dev = join_sparse_device(_bm(a), _bm(b), pred, merge)
+        np.testing.assert_allclose(dev.to_dense(), host.to_dense(),
+                                   atol=1e-5, err_msg=merge.name)
+
+
+@pytest.mark.parametrize("pred_s", ["RID=RID", "CID=CID", "VAL=VAL",
+                                    "CROSS", "RID=VAL"])
+def test_host_tier_matches_reference_host_tier(rng, pred_s):
+    """The host families are numpy in both packages: identical entries in
+    identical order."""
+    if pred_s == "RID=VAL":
+        a = _sparse(rng, 24, 12, 0.4)
+        b = _dimvals(rng, 6, 5, 0.3, limit=24)
+    else:
+        a, b = _operands(rng, pred_s, 0.3)
+    want = j_join_sparse(JBlockMatrix.from_dense(jnp.asarray(a), BS),
+                         JBlockMatrix.from_dense(jnp.asarray(b), BS),
+                         j_parse_join(pred_s), j_product())
+    got = join_sparse(_bm(a), _bm(b), parse_join(pred_s), product_merge())
+    assert got.shape == want.shape
+    assert np.array_equal(got.idx, want.idx)
+    np.testing.assert_allclose(got.val, want.val, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("pred_s", ["RID=RID", "CID=RID", "VAL=VAL",
+                                    "CROSS", "RID=VAL", "VAL=CID"])
+def test_exact_capacity_matches_reference(rng, pred_s):
+    a = _sparse(rng, 12, 12, 0.3)
+    b = _dimvals(rng, 12, 12, 0.3, limit=12) if "VAL" in pred_s \
+        and pred_s != "VAL=VAL" else _sparse(rng, 12, 12, 0.3)
+    if pred_s == "VAL=CID":
+        a, b = b, a
+    for merge, jmerge in ((product_merge(), j_product()),):
+        got = tdev.exact_capacity(a, b, parse_join(pred_s),
+                                  analyze_merge(merge))
+        want = jdev.exact_capacity(a, b, j_parse_join(pred_s),
+                                   j_analyze(jmerge))
+        assert got == want
+
+
+def test_capacity_too_small_raises(rng):
+    a = _sparse(rng, 16, 16, 0.5)
+    with pytest.raises(ValueError, match="capacity"):
+        join_sparse_device(_bm(a), _bm(a), parse_join("RID=RID"),
+                           sum_merge(), cap=8)
+
+
+def test_cross_total_int32_wrap_still_overflows():
+    """A dense 256×256 non-inducing cross has 2³² slots — the int32 wrap to
+    zero; the float32 shadow product still flags the overflow."""
+    a = np.ones((256, 256), np.float32)
+    with pytest.raises(ValueError, match="capacity"):
+        join_sparse_device(_bm(a), _bm(a), parse_join("CROSS"), sum_merge(),
+                           cap=64)
+
+
+def test_wide_dimension_uses_int32_coordinates(rng):
+    a = _sparse(rng, 2, 1 << 15, 0.001)
+    b = _sparse(rng, 2, 3, 1.0)
+    out = tdev.d2d_device(torch.as_tensor(a), torch.as_tensor(b), Field.RID,
+                          Field.RID, lambda x, y: x * y,
+                          analyze_merge(product_merge()), 512)
+    assert out.idx.dtype == torch.int32
+    host = join_sparse(_bm(a), _bm(b), parse_join("RID=RID"),
+                       product_merge())
+    dev = tdev.coo_to_host(out, host.shape)
+    np.testing.assert_allclose(dev.to_dense(), host.to_dense(), atol=1e-5)
+
+
+def test_round_capacity_matches_reference():
+    for c in (0, 1, 7, 8, 9, 4397299, 1 << 23):
+        assert tdev.round_capacity(c) == jdev.round_capacity(c)

@@ -1,0 +1,92 @@
+"""The port stands alone: ``import repro_torch`` pulls in neither JAX nor
+the JAX package, no port source (nor ``chip_smoke.py``) imports them, and
+a session without an explicit device needs a card."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax  # noqa: F401  (both frameworks load in the test process)
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.core import Session
+from repro_torch.device import resolve_device
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _imported_modules(path: Path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, repro_torch, repro_torch.core, repro_torch.plan, "
+            "repro_torch.kernels.ops; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
+            "print(bad); sys.exit(1 if bad else 0)")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_imports_jax_or_repro(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+
+
+def test_package_has_the_reference_layout():
+    for sub in ("core", "plan", "kernels", "obs"):
+        assert (PORT / sub / "__init__.py").exists()
+    assert (PORT / "core" / "joins_device.py").exists()
+    assert repro_torch.resolve_device is resolve_device
+
+
+def test_session_without_device_needs_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Session()
+    with pytest.raises(RuntimeError):
+        Session(device="cuda")
+    assert Session(device="cpu").device.type == "cpu"
+
+
+def test_unported_session_options_raise():
+    with pytest.raises(NotImplementedError):
+        Session(device="cpu", n_workers=2)
+    with pytest.raises(NotImplementedError):
+        Session(device="cpu", ledger=object())
+    with pytest.raises(NotImplementedError):
+        Session(device="cpu", cost_model=object())
+
+
+def test_chip_smoke_without_a_card_fails_and_prints_no_result(monkeypatch,
+                                                              capsys):
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit) as exc:
+        smoke.main([])
+    assert exc.value.code not in (0, None)   # a message: exit status 1
+    assert '"ok"' not in capsys.readouterr().out
