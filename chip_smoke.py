@@ -26,7 +26,8 @@ just after; every kernel must have launched. Then each kernel is run on
 the inputs the main path handed it (captured during the run), beside its
 plain PyTorch version: integers and bitsets exact, f32 values within
 atol/rtol 1e-5; its time by CUDA events is printed beside the plain
-version's time and the least time the card could take (the bound).
+version's time, the least time the card could take (the bound) and, where
+one PyTorch call computes the same function, that call's time.
 
 Output: the card's name and power limit (``nvidia-smi``), the build time,
 one line per query and kernel, a ``{"kernels": [...]}`` JSON line, and as
@@ -55,6 +56,7 @@ OVERLAY_DENSITY = 1e-2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 ATOL = RTOL = 1e-5
+REPS = 20                      # kernel launches per CUDA-event timing
 
 KERNEL_ROWS = {
     "coo_expand": ("src/repro_torch/kernels/csrc/coo_expand.cu",
@@ -278,7 +280,7 @@ def capture_calls():
     return calls, restore
 
 
-def cuda_time_ms(fn, reps: int) -> float:
+def cuda_time_ms(fn, reps: int = REPS) -> float:
     import torch
     fn()
     torch.cuda.synchronize()
@@ -317,8 +319,16 @@ def warm_profile(records):
     return walls, sum(e.self_device_time_total for e in dev) / 1e6, top
 
 
-def kernel_phase(name, calls, reps):
-    """Kernel vs plain on every captured call; times summed over calls."""
+def kernel_phase(name, calls):
+    """Kernel vs plain on every captured call; times summed over calls.
+
+    ``library_ms`` is the time of one PyTorch call computing the same
+    function on the same inputs. Only ``merge_join`` has one: the merge
+    itself over the whole operands (``torch.mul`` for x*y), which equals
+    the kernel's output wherever every dead tile holds zeros and the merge
+    maps zeros to zero, as on the main path's block masks taken from the
+    data. No single call does ``coo_expand``'s segment search + gathers
+    or ``bloom_probe``'s multiply-shift hashing + bit tests."""
     import torch
     from repro_torch.kernels.bloom_probe import (
         bloom_probe_cuda, bloom_probe_plain,
@@ -328,9 +338,10 @@ def kernel_phase(name, calls, reps):
         live_tiles, merge_join_cuda, merge_join_plain,
     )
     row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-           "bound_by": "bytes"}
+           "bound_by": "bytes", "library_ms": None}
     details = []
     for args, kw in calls:
+        library = None
         if name == "coo_expand":
             ends, delta, av, ac, bv, bc = args
             cap = kw["cap"]
@@ -363,6 +374,9 @@ def kernel_phase(name, calls, reps):
             plain = lambda: merge_join_plain(*args, **kw)  # noqa: E731
             got, want = kern(), plain()
             torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+            library = lambda: kw["merge"](a, b)  # noqa: E731
+            assert torch.equal(library(), got), \
+                "merge_join: the merge over the whole operands differs"
             err = float((got - want).abs().max())
             live = int(live_tiles(ma, mb, mode).sum()) * bs * bs
             nbytes = 2 * live * a.element_size() + ma.nbytes + mb.nbytes \
@@ -370,8 +384,11 @@ def kernel_phase(name, calls, reps):
             ops = live
             shape = f"{tuple(a.shape)} live tiles {live // (bs * bs)}" \
                     f"/{ma.numel()}"
-        ms = cuda_time_ms(kern, reps)
-        pms = cuda_time_ms(plain, max(1, reps // 4))
+        ms = cuda_time_ms(kern)
+        pms = cuda_time_ms(plain, REPS // 4)
+        lms = None if library is None else cuda_time_ms(library)
+        if lms is not None:
+            row["library_ms"] = (row["library_ms"] or 0.0) + lms
         bms, by = bound(nbytes, ops)
         row["ms"] += ms
         row["plain_ms"] += pms
@@ -379,8 +396,9 @@ def kernel_phase(name, calls, reps):
         row["max_abs_err"] = max(row["max_abs_err"], err)
         if by == "operations":
             row["bound_by"] = by
+        lib = "" if lms is None else f", library {lms:.4f} ms"
         details.append(f"  {name} [{shape}]: {ms:.4f} ms (plain {pms:.4f} "
-                       f"ms, bound {bms:.4f} ms by {by}, "
+                       f"ms{lib}, bound {bms:.4f} ms by {by}, "
                        f"{nbytes / 1e6:.1f} MB), max |err| {err:.3g}")
     return row, details
 
@@ -393,7 +411,6 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--small", action="store_true",
                     help=f"{SMALL_N}² matrices (the CPU rehearsal)")
-    ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
 
     import torch
@@ -457,14 +474,15 @@ def main(argv=None) -> int:
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
-        row, details = kernel_phase(name, calls[name], args.reps)
+        row, details = kernel_phase(name, calls[name])
         print("\n".join(details))
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                      "plain_ms": row["plain_ms"],
                      "bound_ms": row["bound_ms"],
-                     "bound_by": row["bound_by"], "library_ms": None})
+                     "bound_by": row["bound_by"],
+                     "library_ms": row["library_ms"]})
     walls, busy_s, top = warm_profile(records)
     print("warm rerun: " + ", ".join(
         f"{r['query'].split()[0]} {w:.4f} s" for r, w in zip(records, walls))

@@ -133,19 +133,3 @@ def merge_code(merge: Union[MergeFn, Callable]) -> MergeCode:
             "it (ROADMAP: general merge functions)") from hit
     return hit
 
-
-def apply_code(code: MergeCode, x, y):
-    """Evaluate an op code with tensor arithmetic, term by term as the
-    CUDA kernels do (zero coefficients drop their term)."""
-    if code.op == SAFE_DIV:
-        from repro_torch.core.sparsity import safe_div
-        return safe_div(x, y)
-    c0, cx, cy, cxy = code.coeffs
-    out = c0
-    if cx:
-        out = out + cx * x
-    if cy:
-        out = out + cy * y
-    if cxy:
-        out = out + cxy * (x * y)
-    return out

@@ -233,25 +233,18 @@ SUPPORTED = {
 
 
 @pytest.mark.parametrize("name", sorted(SUPPORTED))
-def test_merge_code_of_supported_merges(rng, name):
+def test_merge_code_of_supported_merges(name):
     fn, coeffs = SUPPORTED[name]
     code = merge_codes.merge_code(fn)
     assert code.op == merge_codes.BILINEAR
     assert code.coeffs == tuple(float(c) for c in coeffs)
-    x = torch.as_tensor(rng.normal(size=64).astype(np.float32))
-    y = torch.as_tensor(rng.normal(size=64).astype(np.float32))
-    torch.testing.assert_close(merge_codes.apply_code(code, x, y),
-                               fn(x, y).to(torch.float32), atol=1e-5,
-                               rtol=1e-5)
 
 
-def test_merge_code_of_safe_division(rng):
+def test_merge_code_of_safe_division():
     for merge in (safe_div_merge(), safe_div):
         code = merge_codes.merge_code(merge)
         assert code.op == merge_codes.SAFE_DIV
-    x = torch.tensor([0.0, 1.0, 2.0, 0.0])
-    y = torch.tensor([0.0, 0.0, 4.0, 3.0])
-    assert merge_codes.apply_code(code, x, y).tolist() == [0.0, 1.0, 0.5, 0.0]
+        assert code.coeffs == (0.0, 0.0, 0.0, 0.0)
 
 
 @pytest.mark.parametrize("fn", [
