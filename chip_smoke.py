@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main query path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main query path and the PNMF path on one
+NVIDIA card.
 
     python3 chip_smoke.py                      # on the card: full size
     python3 chip_smoke.py --device cpu --small # CPU rehearsal, plain versions
 
-Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs six
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs ten
 queries through ``Session(device="cuda")`` and ``Matrix.collect()`` over
 16384 × 16384 float32 matrices (1 GiB each dense), made from ``--seed``
 with numpy. Each result is checked against an independent float64 numpy
@@ -16,18 +17,27 @@ computation over the generating entry lists:
   Q4 A ⋈[RID=RID] B           x*y, D2D on the device tier
   Q5 Aq ⋈[VAL=VAL] Bq         x*y, V2V with the Bloom pre-filter
   Q6 σ[rows≠NULL](Xd)         X with every 7th row zeroed
+  Q7 (Ap / (W×H)) × Hᵀ        PNMF's W-update numerator: masked_matmul
+  Q8–Q10 Σ(Ap ∘ (W×H))        by row, column, all: sddmm_agg
+                              Ap: |normal|, 70% of the 256² blocks empty,
+                              density 1e-2 inside; W, H: |normal|, K = 32
 
 16384 is the largest power-of-two size whose D2D output (~n³·density²
 slots) stays under the device tier's capacity of 2²³ slots
 (``SPARSE_DEVICE_CAP``); that reduction of scale is printed.
 
-The kernel launch counts are zeroed just before the six queries and read
-just after; every kernel must have launched. Then each kernel is run on
-the inputs the main path handed it (captured during the run), beside its
-plain PyTorch version: integers and bitsets exact, f32 values within
-atol/rtol 1e-5; its time by CUDA events is printed beside the plain
-version's time, the least time the card could take (the bound) and, where
-one PyTorch call computes the same function, that call's time.
+The kernel launch counts are zeroed just before the ten queries and read
+just after; every kernel must have launched. The PNMF phase
+(``repro_torch.pnmf``: three iterations of ``pnmf_opt_step`` on Ap, W,
+H) is counted the same way on its own, and its first step is held to a
+float64 numpy update. Then each kernel is run on the inputs the queries
+handed it (captured during the run), beside its plain PyTorch version:
+integers and bitsets exact, f32 values within atol/rtol 1e-5, the
+``sddmm_agg`` sums within rtol 1e-4 (another summation order) and
+bit-identical from launch to launch; its time by CUDA events is printed
+beside the plain version's time, the least time the card could take (the
+bound) and, where one PyTorch call computes the same function, that
+call's time.
 
 Output: the card's name and power limit (``nvidia-smi``), the build time,
 one line per query and kernel, a ``{"kernels": [...]}`` JSON line, and as
@@ -56,7 +66,10 @@ OVERLAY_DENSITY = 1e-2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 ATOL = RTOL = 1e-5
+SUM_RTOL = 1e-4                # reductions in another order (Q1, Q7–Q10)
 REPS = 20                      # kernel launches per CUDA-event timing
+PNMF_K = 32                    # benchmarks/bench_pnmf.py's K
+PNMF_ITERS = 3
 
 KERNEL_ROWS = {
     "coo_expand": ("src/repro_torch/kernels/csrc/coo_expand.cu",
@@ -65,6 +78,10 @@ KERNEL_ROWS = {
                     "src/repro/kernels/bloom_probe.py:60"),
     "merge_join": ("src/repro_torch/kernels/csrc/merge_join.cu",
                    "src/repro/kernels/merge_join.py:75"),
+    "masked_matmul": ("src/repro_torch/kernels/csrc/masked_matmul.cu",
+                      "src/repro/kernels/masked_matmul.py:57"),
+    "sddmm_agg": ("src/repro_torch/kernels/csrc/sddmm_agg.cu",
+                  "src/repro/kernels/sddmm_agg.py:143"),
 }
 
 
@@ -123,6 +140,7 @@ def block_sparse_entries(rng, n, bs, empty_frac, density) -> Entries:
 
 
 def make_data(seed: int, n: int, bs: int):
+    """Entry lists by name, and the dense PNMF factors W [n, K], H [K, n]."""
     rng = np.random.default_rng(seed)
     normal = lambda k: rng.normal(size=k)  # noqa: E731
     vmax = 65536 if n == FULL_N else 1024
@@ -139,7 +157,32 @@ def make_data(seed: int, n: int, bs: int):
     }
     keep = x.rows % 7 != 0
     d["Xd"] = Entries(n, x.keys[keep], x.vals[keep])
-    return d
+    # PNMF operands, drawn after the others so those stay the same for a
+    # seed. PNMF needs A >= 0, and A block-sparse: a live block share above
+    # 0.5 demotes the masked nodes to a dense product (plan/masks.py)
+    ap = block_sparse_entries(rng, n, bs, 0.7, OVERLAY_DENSITY)
+    d["Ap"] = Entries(n, ap.keys, np.abs(ap.vals))
+    factors = {
+        "W": np.abs(rng.normal(size=(n, PNMF_K))).astype(np.float32),
+        "H": np.abs(rng.normal(size=(PNMF_K, n))).astype(np.float32),
+    }
+    return d, factors
+
+
+def pnmf_reference(ap: Entries, w: np.ndarray, h: np.ndarray):
+    """Float64 over A's entry list: the W-update numerator (A / (W×H)) × Hᵀ,
+    the entries of A ∘ (W×H), and one full PNMF step (W2, H2)."""
+    n, k = w.shape
+    r, c, a = ap.rows, ap.cols, ap.vals.astype(np.float64)
+    w, h = w.astype(np.float64), h.astype(np.float64)
+    wh = np.einsum("ek,ke->e", w[r], h[:, c])
+    ratio = a / wh
+    num_w = np.stack([np.bincount(r, ratio * h[i, c], n) for i in range(k)], 1)
+    w2 = w * num_w / np.maximum(h.sum(1)[None, :], 1e-9)
+    ratio2 = a / np.einsum("ek,ke->e", w2[r], h[:, c])
+    num_h = np.stack([np.bincount(c, ratio2 * w2[r, i], n) for i in range(k)])
+    h2 = h * num_h / np.maximum(w2.sum(0)[:, None], 1e-9)
+    return num_w, a * wh, (w2, h2)
 
 
 # ---------------------------------------------------------------------------
@@ -152,12 +195,35 @@ def check_close(name, got, want, rtol):
     return err
 
 
-def run_queries(m, data, n):
-    """Six queries through the public API; returns one record per query."""
+def check_elementwise(name, got, want, rtol):
+    """Largest elementwise relative error; a zero is expected exactly."""
+    got = np.asarray(got, np.float64).reshape(want.shape)
+    err = np.abs(got - want) / np.maximum(np.abs(want), 1e-30)
+    worst = float(err.max()) if err.size else 0.0
+    assert worst <= rtol, f"{name}: max elementwise rel err {worst:.3g}"
+    return worst
+
+
+def masked_node(query, kind, kernel):
+    """The plan's one masked node: it runs ``kernel`` and is not demoted to
+    a dense product (a live block share above 0.5 would demote it)."""
+    plan = query.physical_plan()
+    nodes = [nd for nd in plan.nodes if nd.kind == kind]
+    assert len(nodes) == 1, f"{len(nodes)} {kind} nodes"
+    nd = nodes[0]
+    assert nd.kernel == kernel and nd.meta["demote_dense"] is False, \
+        (nd.kernel, nd.meta.get("demote_dense"))
+    return nd
+
+
+def run_queries(m, data, ref, n):
+    """Ten queries through the public API; returns one record per query.
+    ``ref`` is ``pnmf_reference`` of Ap, W and H."""
     import torch
     from repro_torch.core import cost as costmod
     from repro_torch.core.sparsity import product_merge
     from repro_torch.obs.trace import TRACER
+    from repro_torch.plan import ops as P
 
     mul = product_merge()
     out = []
@@ -184,13 +250,15 @@ def run_queries(m, data, n):
     # Q1 trace(XᵀX) = Σ x²
     r = timed("Q1 trace(XtX)", m["X"].t().multiply(m["X"]).trace())
     got = float(r.value.reshape(-1)[0])
-    out[-1]["check"] = f"rel err {check_close('Q1', got, sq.sum(), 1e-4):.2e}"
+    out[-1]["check"] = \
+        f"rel err {check_close('Q1', got, sq.sum(), SUM_RTOL):.2e}"
     # Q2 (XᵀX)[1,1] = Σ_r x[r,1]²
     r = timed("Q2 sel(XtX)[1,1]",
               m["X"].t().multiply(m["X"]).select("RID=1 AND CID=1"))
     got = float(r.value.reshape(-1)[0])
     want = sq[x.cols == 1].sum()
-    out[-1]["check"] = f"rel err {check_close('Q2', got, want, 1e-4):.2e}"
+    out[-1]["check"] = \
+        f"rel err {check_close('Q2', got, want, SUM_RTOL):.2e}"
 
     # Q3 block-sparse overlay x*y: the merge_join route (0.5 < live < 1)
     ao, bo = data["Ao"], data["Bo"]
@@ -251,7 +319,69 @@ def run_queries(m, data, n):
     want = np.unique(data["Xd"].rows).size
     assert r.shape == (want, n), f"Q6 shape {r.shape} vs {(want, n)}"
     out[-1]["check"] = f"{want} of {n} rows kept"
+
+    # Q7 PNMF's W-update numerator (A / (W×H)) × Hᵀ: masked_matmul
+    ap = data["Ap"]
+    num_w, prod, _ = ref
+    q7 = m["Ap"].ediv(m["W"].multiply(m["H"])).multiply(m["H"].t())
+    r = timed("Q7 (Ap/(WxH))xHt", q7)
+    masked_node(q7, P.MASKED_ELEMWISE, "masked_matmul")
+    err = check_elementwise("Q7", r.value.double().cpu(), num_w, SUM_RTOL)
+    out[-1]["check"] = (f"{tuple(num_w.shape)} max rel err {err:.2e}; "
+                        "masked_matmul node, not demoted")
+
+    # Q8–Q10 Σ(A ∘ (W×H)) by row, column and in total: sddmm_agg
+    wants = {"r": np.bincount(ap.rows, prod, n)[:, None],
+             "c": np.bincount(ap.cols, prod, n)[None, :],
+             "a": np.asarray([[prod.sum()]])}
+    for qn, dim in (("Q8", "r"), ("Q9", "c"), ("Q10", "a")):
+        q = m["Ap"].emul(m["W"].multiply(m["H"])).sum(dim)
+        r = timed(f"{qn} sum_{dim}(Ap*(WxH))", q)
+        masked_node(q, P.MASKED_AGG, "sddmm_agg")
+        err = check_elementwise(qn, r.value.double().cpu(), wants[dim],
+                                SUM_RTOL)
+        out[-1]["check"] = (f"{wants[dim].shape} max rel err {err:.2e}; "
+                            "sddmm_agg node, not demoted")
     return out
+
+
+def pnmf_phase(env, ref, on_card):
+    """``repro_torch.pnmf`` on Ap, W, H and Ap's block mask: the first
+    step against float64 numpy (Frobenius relative error), and the
+    objective after each of the steps. Returns the launch counts and a
+    line to print."""
+    import torch
+    from repro_torch import pnmf
+    from repro_torch.kernels import build
+    a, w, h = env["Ap"].value, env["W"].value, env["H"].value
+    mask = env["Ap"].block_mask
+    build.reset_launches()
+    t0 = time.perf_counter()
+    objs = [float(pnmf.objective(a, mask, w, h))]
+    first = None
+    for _ in range(PNMF_ITERS):
+        w, h = pnmf.pnmf_opt_step(a, mask, w, h)
+        first = first or (w, h)
+        objs.append(float(pnmf.objective(a, mask, w, h)))
+    if on_card:
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    errs = []
+    for name, got, want in zip(("W2", "H2"), first, ref[2]):
+        got = got.double().cpu().numpy()
+        e = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        assert e <= SUM_RTOL, f"PNMF first step {name}: Frobenius rel err {e}"
+        errs.append(e)
+    assert all(b < a_ for a_, b in zip(objs, objs[1:])), \
+        f"PNMF objective does not decrease: {objs}"
+    if on_card:
+        assert launches["masked_matmul"] > 0, "PNMF ran no masked_matmul"
+    line = (f"PNMF: {PNMF_ITERS} iterations (step + objective) in {dt:.3f} "
+            f"s; objective {' > '.join(f'{o:.6g}' for o in objs)}; first "
+            f"step Frobenius rel err W2 {errs[0]:.2e}, H2 {errs[1]:.2e}; "
+            "kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    return launches, line
 
 
 # ---------------------------------------------------------------------------
@@ -319,6 +449,15 @@ def warm_profile(records):
     return walls, sum(e.self_device_time_total for e in dev) / 1e6, top
 
 
+def live_elements(mask, shape, bs) -> int:
+    """Elements of the ``shape`` matrix that lie in live ``bs``² tiles."""
+    import torch
+    sizes = [torch.full((g,), bs, dtype=torch.int64) for g in mask.shape]
+    for sz, dim in zip(sizes, shape):
+        sz[-1] = dim - bs * (sz.numel() - 1)
+    return int((sizes[0][:, None] * sizes[1][None, :])[mask.cpu()].sum())
+
+
 def kernel_phase(name, calls):
     """Kernel vs plain on every captured call; times summed over calls.
 
@@ -327,21 +466,29 @@ def kernel_phase(name, calls):
     itself over the whole operands (``torch.mul`` for x*y), which equals
     the kernel's output wherever every dead tile holds zeros and the merge
     maps zeros to zero, as on the main path's block masks taken from the
-    data. No single call does ``coo_expand``'s segment search + gathers
-    or ``bloom_probe``'s multiply-shift hashing + bit tests."""
+    data. No single call does ``coo_expand``'s segment search + gathers,
+    ``bloom_probe``'s multiply-shift hashing + bit tests,
+    ``masked_matmul``'s gated product (``torch.matmul(w, h)`` fills the
+    dead tiles too; its time is printed as a dense product, not the same
+    function) or ``sddmm_agg``'s fused sum (the factorized form is three
+    calls)."""
     import torch
     from repro_torch.kernels.bloom_probe import (
         bloom_probe_cuda, bloom_probe_plain,
     )
     from repro_torch.kernels.coo_join import coo_expand_cuda, coo_expand_plain
+    from repro_torch.kernels.masked_matmul import (
+        masked_matmul_cuda, masked_matmul_plain,
+    )
     from repro_torch.kernels.merge_join import (
         live_tiles, merge_join_cuda, merge_join_plain,
     )
+    from repro_torch.kernels.sddmm_agg import sddmm_agg_cuda, sddmm_agg_plain
     row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
            "bound_by": "bytes", "library_ms": None}
     details = []
     for args, kw in calls:
-        library = None
+        library = dense = None
         if name == "coo_expand":
             ends, delta, av, ac, bv, bc = args
             cap = kw["cap"]
@@ -367,6 +514,36 @@ def kernel_phase(name, calls):
             nbytes = vals.nbytes + words.nbytes + vals.numel()
             ops = vals.numel() * kw["num_hashes"] * 10
             shape = f"n={vals.numel()} words={words.numel()}"
+        elif name == "masked_matmul":
+            w, h, mask = args
+            bs = kw["block_size"]
+            kern = lambda: masked_matmul_cuda(*args, **kw)  # noqa: E731
+            plain = lambda: masked_matmul_plain(*args, **kw)  # noqa: E731
+            got, want = kern(), plain()
+            torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+            err = float((got - want).abs().max())
+            dense = lambda: torch.matmul(w, h)  # noqa: E731
+            live = live_elements(mask, got.shape, bs)
+            nbytes = w.nbytes + h.nbytes + got.nbytes + mask.nbytes
+            ops = 2 * w.shape[1] * live
+            shape = f"{tuple(w.shape)}x{tuple(h.shape)} live tiles " \
+                    f"{int(mask.sum())}/{mask.numel()}"
+        elif name == "sddmm_agg":
+            sp, w, h, mask = args
+            bs = kw["block_size"]
+            kern = lambda: sddmm_agg_cuda(*args, **kw)  # noqa: E731
+            plain = lambda: sddmm_agg_plain(*args, **kw)  # noqa: E731
+            got, want = kern(), plain()
+            torch.testing.assert_close(got, want, atol=0.0, rtol=SUM_RTOL)
+            assert torch.equal(kern(), got), \
+                "sddmm_agg: two launches differ"
+            err = float((got - want).abs().max())
+            live = live_elements(mask, sp.shape, bs)
+            nbytes = live * sp.element_size() + w.nbytes + h.nbytes \
+                + got.nbytes + mask.nbytes
+            ops = (2 * w.shape[1] + 2) * live
+            shape = f"{kw['dim']} {tuple(sp.shape)} K={w.shape[1]} live " \
+                    f"tiles {int(mask.sum())}/{mask.numel()}"
         else:
             a, b, ma, mb = args
             mode, bs = kw["mode"], kw["block_size"]
@@ -397,6 +574,14 @@ def kernel_phase(name, calls):
         if by == "operations":
             row["bound_by"] = by
         lib = "" if lms is None else f", library {lms:.4f} ms"
+        if dense is not None:
+            # the store-only and the all-compute ends of the same kernel
+            split = {g: cuda_time_ms(lambda g=g: masked_matmul_cuda(
+                w, h, torch.full_like(mask, g), **kw)) for g in (False, True)}
+            lib += (f", dense torch.matmul over all tiles (not the same "
+                    f"function) {cuda_time_ms(dense):.4f} ms; kernel with "
+                    f"every tile dead {split[False]:.4f} ms, live "
+                    f"{split[True]:.4f} ms")
         details.append(f"  {name} [{shape}]: {ms:.4f} ms (plain {pms:.4f} "
                        f"ms{lib}, bound {bms:.4f} ms by {by}, "
                        f"{nbytes / 1e6:.1f} MB), max |err| {err:.3g}")
@@ -441,20 +626,23 @@ def main(argv=None) -> int:
         "~n^3 * density^2 slots, stays under the device tier's 2^23-slot "
         "capacity; 32768 would need ~3.5e7)"))
     t0 = time.perf_counter()
-    data = make_data(args.seed, n, bs)
+    data, factors = make_data(args.seed, n, bs)
     s = Session(block_size=bs, device=args.device)
     mats = {name: s.load(e.dense(s.device), name) for name, e in data.items()}
+    mats.update((name, s.load(v, name)) for name, v in factors.items())
     if on_card:
         torch.cuda.synchronize()
+    ref = pnmf_reference(data["Ap"], factors["W"], factors["H"])
     print(f"data: {len(mats)} matrices, "
-          f"{sum(e.keys.size for e in data.values())} entries, seed "
-          f"{args.seed}, {time.perf_counter() - t0:.2f} s")
+          f"{sum(e.keys.size for e in data.values())} entries + W, H "
+          f"{n}x{PNMF_K}, seed {args.seed}, {time.perf_counter() - t0:.2f} s "
+          "(float64 numpy references included)")
 
     if on_card:
         calls, restore = capture_calls()
     build.reset_launches()
     t0 = time.perf_counter()
-    records = run_queries(mats, data, n)
+    records = run_queries(mats, data, ref, n)
     main_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     if on_card:
@@ -463,8 +651,11 @@ def main(argv=None) -> int:
         split = ", ".join(f"{k} {v:.3f}" for k, v in rec["phases"].items())
         print(f"{rec['query']}: {rec['wall_s']:.3f} s [{split}] - "
               f"{rec['check']}")
-    print(f"main path: {main_s:.2f} s wall for six queries (checks included)")
+    print(f"main path: {main_s:.2f} s wall for ten queries (checks "
+          "included)")
     print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
+    _, line = pnmf_phase(s.env, ref, on_card)
+    print(line)
     if not on_card:
         print(json.dumps({"ok": True, "device": {
             "platform": "cpu", "kind": "cpu", "count": 0}}))

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"coo_expand": 0, "bloom_probe": 0,
-                            "merge_join": 0}
+                            "merge_join": 0, "masked_matmul": 0,
+                            "sddmm_agg": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
@@ -116,8 +117,19 @@ def _bind(lib: ctypes.CDLL) -> None:
         I, P, P, P, P, P,     # value dtype code, a, b, mask_a, mask_b, out
         L, L, I, I, I,        # m, n, block size, mode, vectorised
         I, D, D, D, D, P]     # merge op, c0, cx, cy, cxy, stream
+    lib.masked_matmul_launch.argtypes = [
+        I, P, P, P, P,        # value dtype code, a, b, mask, out
+        L, L, L,              # m, n, k
+        L, L, L, L,           # strides of a, strides of b
+        I, P]                 # block size, stream
+    lib.sddmm_agg_launch.argtypes = [
+        I, P, P, P, P, P, P,  # value dtype code, sp, w, h, mask, part, out
+        L, L, L,              # m, n, k
+        L, L, L, L, L, L,     # strides of sp, w, h
+        I, I, I, P]           # block size, dim, vectorised, stream
     for fn in (lib.coo_expand_launch, lib.bloom_probe_launch,
-               lib.merge_join_launch):
+               lib.merge_join_launch, lib.masked_matmul_launch,
+               lib.sddmm_agg_launch):
         fn.restype = I
     lib.repro_torch_error_string.argtypes = [I]
     lib.repro_torch_error_string.restype = ctypes.c_char_p

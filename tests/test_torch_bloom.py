@@ -13,6 +13,7 @@ PARAMS = [(20, 3), (10, 3), (12, 5), (16, 1)]
 
 def _values(rng, n, zero_frac=0.3):
     v = np.round(rng.normal(size=n) * 100, 1).astype(np.float32)
+    v[v == 0] = 0.1   # a value rounded to zero: only zero_frac are zeros
     v[rng.uniform(size=n) < zero_frac] = 0.0
     return v
 

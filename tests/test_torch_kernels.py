@@ -19,13 +19,15 @@ from repro_torch.core import bloom as tbloom
 from repro_torch.core.sparsity import (
     left_merge, product_merge, safe_div, safe_div_merge, sum_merge,
 )
-from repro_torch.kernels import merge_codes, registry
+from repro_torch.kernels import build, merge_codes, registry
 from repro_torch.kernels.bloom_probe import bloom_probe_cuda
 from repro_torch.kernels.coo_join import coo_expand_cuda, coo_expand_plain
+from repro_torch.kernels.masked_matmul import masked_matmul_cuda
 from repro_torch.kernels.merge_join import (
     MODE_ALL, MODE_BOTH, MODE_X, MODE_Y, merge_join_cuda, merge_join_plain,
     mode_for,
 )
+from repro_torch.kernels.sddmm_agg import sddmm_agg_cuda
 
 DENSITIES = [0.0, 0.01, 0.05, 0.2, 1.0]
 MERGES = {
@@ -285,21 +287,28 @@ def test_backend_that_disagrees_with_the_device_raises():
                           merge=MERGES["mul"], block_size=8)
 
 
-def test_pnmf_kernels_have_no_cuda_kernel_yet():
-    for name in ("masked_matmul", "sddmm_agg"):
-        with pytest.raises(NotImplementedError, match="PNMF"):
-            registry.get(name).impls[registry.CUDA]()
-
-
-def test_cuda_wrappers_refuse_cpu_tensors():
+def _refused_calls():
     x = torch.zeros(1, 4)
     m = torch.ones(1, 1, dtype=torch.bool)
-    with pytest.raises(ValueError, match="CUDA"):
-        merge_join_cuda(x, x, m, m, merge=MERGES["mul"], mode=MODE_ALL)
-    with pytest.raises(ValueError, match="CUDA"):
-        bloom_probe_cuda(torch.zeros(1 << 15, dtype=torch.int32), x)
     i = torch.zeros(2, dtype=torch.int32)
+    return {
+        "merge_join": lambda: merge_join_cuda(x, x, m, m, merge=MERGES["mul"],
+                                              mode=MODE_ALL),
+        "bloom_probe": lambda: bloom_probe_cuda(
+            torch.zeros(1 << 15, dtype=torch.int32), x),
+        "coo_expand": lambda: coo_expand_cuda(
+            i, i, x[0, :2], i.reshape(1, 2).to(torch.int16).expand(2, 2),
+            x[0, :2], i[:, None].to(torch.int16), merge=MERGES["mul"],
+            cap=4),
+        "masked_matmul": lambda: masked_matmul_cuda(x.T, x, m, block_size=4),
+        "sddmm_agg": lambda: sddmm_agg_cuda(x, x.T, x, m, dim="row",
+                                            block_size=4),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_refused_calls()))
+def test_cuda_wrappers_refuse_cpu_tensors(name):
+    before = dict(build.LAUNCHES)
     with pytest.raises(ValueError, match="CUDA"):
-        coo_expand_cuda(i, i, x[0, :2], i.reshape(1, 2).to(torch.int16)
-                        .expand(2, 2), x[0, :2], i[:, None].to(torch.int16),
-                        merge=MERGES["mul"], cap=4)
+        _refused_calls()[name]()
+    assert build.LAUNCHES == before        # a refusal counts no launch
