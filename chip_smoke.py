@@ -33,11 +33,13 @@ H) is counted the same way on its own, and its first step is held to a
 float64 numpy update. Then each kernel is run on the inputs the queries
 handed it (captured during the run), beside its plain PyTorch version:
 integers and bitsets exact, f32 values within atol/rtol 1e-5, the
-``sddmm_agg`` sums within rtol 1e-4 (another summation order) and
-bit-identical from launch to launch; its time by CUDA events is printed
-beside the plain version's time, the least time the card could take (the
-bound) and, where one PyTorch call computes the same function, that
-call's time.
+``sddmm_agg`` sums within rtol 1e-4 (another summation order), and
+``masked_matmul`` and ``sddmm_agg`` bit-identical from launch to launch;
+its time by CUDA events is printed beside the plain version's time, the
+least time the card could take (the bound) and, where one PyTorch call
+computes the same function, that call's time. ``masked_matmul``'s line
+adds its all-dead end (TB/s of zero stores), its all-live end (TFLOP/s)
+and its persistent pool (SMs × CTAs per SM).
 
 Output: the card's name and power limit (``nvidia-smi``), the build time,
 one line per query and kernel, a ``{"kernels": [...]}`` JSON line, and as
@@ -355,16 +357,19 @@ def pnmf_phase(env, ref, on_card):
     from repro_torch.kernels import build
     a, w, h = env["Ap"].value, env["W"].value, env["H"].value
     mask = env["Ap"].block_mask
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
     build.reset_launches()
     t0 = time.perf_counter()
     objs = [float(pnmf.objective(a, mask, w, h))]
     first = None
+    iters = []
     for _ in range(PNMF_ITERS):
+        t1 = time.perf_counter()
         w, h = pnmf.pnmf_opt_step(a, mask, w, h)
         first = first or (w, h)
         objs.append(float(pnmf.objective(a, mask, w, h)))
-    if on_card:
-        torch.cuda.synchronize()
+        sync()
+        iters.append(time.perf_counter() - t1)
     dt = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     errs = []
@@ -377,8 +382,10 @@ def pnmf_phase(env, ref, on_card):
         f"PNMF objective does not decrease: {objs}"
     if on_card:
         assert launches["masked_matmul"] > 0, "PNMF ran no masked_matmul"
+    per_iter = ", ".join(f"{1e3 * x:.2f}" for x in iters)
     line = (f"PNMF: {PNMF_ITERS} iterations (step + objective) in {dt:.3f} "
-            f"s; objective {' > '.join(f'{o:.6g}' for o in objs)}; first "
+            f"s, per iteration {per_iter} ms; objective "
+            f"{' > '.join(f'{o:.6g}' for o in objs)}; first "
             f"step Frobenius rel err W2 {errs[0]:.2e}, H2 {errs[1]:.2e}; "
             "kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
     return launches, line
@@ -480,6 +487,7 @@ def kernel_phase(name, calls):
     from repro_torch.kernels.masked_matmul import (
         masked_matmul_cuda, masked_matmul_plain,
     )
+    from repro_torch.kernels.masked_matmul import pool as masked_matmul_pool
     from repro_torch.kernels.merge_join import (
         live_tiles, merge_join_cuda, merge_join_plain,
     )
@@ -521,6 +529,8 @@ def kernel_phase(name, calls):
             plain = lambda: masked_matmul_plain(*args, **kw)  # noqa: E731
             got, want = kern(), plain()
             torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+            assert torch.equal(kern(), got), \
+                "masked_matmul: two launches differ"
             err = float((got - want).abs().max())
             dense = lambda: torch.matmul(w, h)  # noqa: E731
             live = live_elements(mask, got.shape, bs)
@@ -578,10 +588,15 @@ def kernel_phase(name, calls):
             # the store-only and the all-compute ends of the same kernel
             split = {g: cuda_time_ms(lambda g=g: masked_matmul_cuda(
                 w, h, torch.full_like(mask, g), **kw)) for g in (False, True)}
+            tbs = got.nbytes / split[False] / 1e9
+            tflops = 2 * w.shape[1] * got.numel() / split[True] / 1e9
+            sms, per_sm = masked_matmul_pool()
             lib += (f", dense torch.matmul over all tiles (not the same "
                     f"function) {cuda_time_ms(dense):.4f} ms; kernel with "
-                    f"every tile dead {split[False]:.4f} ms, live "
-                    f"{split[True]:.4f} ms")
+                    f"every tile dead {split[False]:.4f} ms ({tbs:.3f} TB/s "
+                    f"of zero stores), live {split[True]:.4f} ms "
+                    f"({tflops:.2f} TFLOP/s); pool {sms} SMs x {per_sm} "
+                    "CTAs")
         details.append(f"  {name} [{shape}]: {ms:.4f} ms (plain {pms:.4f} "
                        f"ms{lib}, bound {bms:.4f} ms by {by}, "
                        f"{nbytes / 1e6:.1f} MB), max |err| {err:.3g}")

@@ -121,7 +121,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         I, P, P, P, P,        # value dtype code, a, b, mask, out
         L, L, L,              # m, n, k
         L, L, L, L,           # strides of a, strides of b
-        I, P]                 # block size, stream
+        I, P, P]              # block size, stream, work counter
+    lib.masked_matmul_pool.argtypes = [
+        I, ctypes.POINTER(I), ctypes.POINTER(I)]  # dtype code, SMs, per SM
     lib.sddmm_agg_launch.argtypes = [
         I, P, P, P, P, P, P,  # value dtype code, sp, w, h, mask, part, out
         L, L, L,              # m, n, k
@@ -129,7 +131,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         I, I, I, P]           # block size, dim, vectorised, stream
     for fn in (lib.coo_expand_launch, lib.bloom_probe_launch,
                lib.merge_join_launch, lib.masked_matmul_launch,
-               lib.sddmm_agg_launch):
+               lib.masked_matmul_pool, lib.sddmm_agg_launch):
         fn.restype = I
     lib.repro_torch_error_string.argtypes = [I]
     lib.repro_torch_error_string.restype = ctypes.c_char_p

@@ -7,31 +7,80 @@
 // promote_types(a.dtype, f32) followed by .astype(a.dtype). float32 runs
 // as IEEE FFMA, never TF32.
 //
-// Bound on the H100: device-memory bytes on the PNMF path (K = 32). Every
-// output element is written once (1 GiB at 16384^2 float32), while the
-// live tiles need 2K operations per element, which the 67 TFLOP/s
-// float32 rate covers about four times faster than the writes.
-// Design: one CTA of 256 threads per 64 x 64 output sub-tile (a 1-D grid,
-// so any tile count fits). The CTA first reads the mask entries its
-// sub-tile overlaps. If none is live it stores zeros and reads no A or B
-// panel. Otherwise it walks K in chunks of 32: an A panel [64, 32] and a
-// B panel [32, 64] are staged in shared memory as float, and each thread
-// accumulates a 4 x 4 register tile with FFMA. When bs is a multiple of 64
-// (256 on the main path) a sub-tile lies under one mask entry; otherwise
-// the store zeroes each element whose own mask entry is dead. Each thread
-// stores four consecutive columns with one vector store when n % 4 == 0.
-// A and B come with their strides (a transposed view is read in place);
-// ragged M, N and K are bounds-checked here, so the wrapper pads nothing.
+// Bound on the H100: device-memory bytes. On the PNMF path (W 16384 x 32,
+// H 32 x 16384, 1229 of 4096 256^2 tiles live) every output element is
+// written once, 1.07 GB: 0.32 ms at 3.35 TB/s, while the live tiles'
+// 5.2 GFLOP take 0.08 ms at the 67 TFLOP/s float32 rate. The kernel this
+// design replaced, one CTA per 64^2 sub-tile, was far from both ends of
+// that: its zero stores ran at 1.92 TB/s with every tile dead, its 4 x 4
+// register tiles at 10.8 TFLOP/s with every tile live.
+//
+// Design:
+//  - A persistent pool of SMs x CTAs-per-SM CTAs (from the occupancy
+//    query: two of 256 threads at <= 128 registers). Each CTA takes
+//    128 x 128 output units, in row-major order, from one atomic counter
+//    that the wrapper zeroes for every call, until the units run out;
+//    thread 0 draws one index ahead, so the atomic's round trip overlaps
+//    a unit's work. A unit is written whole by one CTA in a fixed order,
+//    so the output is bit-identical from launch to launch whoever takes
+//    which unit.
+//  - The gate: the CTA reads the mask entries its unit overlaps, one when
+//    bs % 128 == 0 (256 on the main path). Where a unit spans several
+//    entries (bs 16 or 64, ragged edges) a live unit is computed whole and
+//    the store zeroes each element whose own entry is dead.
+//  - A dead unit reads no A or B: each thread stores 16 bytes of zeros at
+//    a time with evict-first stores, neighbours on neighbouring addresses
+//    (4 KB per CTA-wide instruction), scalar where n is not a multiple of
+//    16 bytes. Nothing but the counter stands between two dead units, so
+//    the all-dead end is a stream of stores.
+//  - A live unit walks K in chunks of 32, staged in shared memory as float
+//    in k-major panels A [32][128] and B [32][128], two buffers of each
+//    (66 KB dynamic). Each of the 16 x 16 threads accumulates an 8 x 8
+//    register tile: rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns
+//    likewise in tx, so per k four LDS.128 (free of bank conflicts) feed
+//    64 FFMA, against two for 16 in a 4 x 4 tile. While one buffer is
+//    multiplied, the other takes the next chunk or, after a unit's last
+//    chunk, the first chunk of the CTA's next live unit. The second CTA on
+//    the SM can compute while this one waits on the counter, its A loads
+//    or its stores.
+//    The 64 accumulators leave no register to spare: values derived from
+//    threadIdx are recomputed where they are used (tid()), which keeps
+//    ptxas at 127 registers and no spills.
+//  - Two load paths. B (H [32, 16384], row-major on the main path) goes by
+//    cp.async (16 bytes, .cg, zero-filled past the edges) into the other
+//    buffer, when it is float32 with unit column stride and 16-byte
+//    aligned rows. A (W [16384, 32]) must be transposed into its k-major
+//    panel, which cp.async cannot do: it is read with 16-byte loads (four
+//    consecutive k of one row; a warp reads 16 rows x 32 bytes, whole
+//    sectors) and stored transposed through registers, conflict-free,
+//    when it is float32 with unit k stride and 16-byte aligned rows. Every
+//    other operand (bfloat16, a transposed or misaligned view) takes the
+//    plain path: element loads converted to float. The main path takes
+//    cp.async for B and the 16-byte loads for A. Both paths put the same
+//    floats in shared memory, so they give bit-identical results.
+//  - Accumulation is fmaf with k ascending, chunk after chunk (the order
+//    of the one-CTA-per-64^2 kernel this replaces). Ragged M, N and K are
+//    bounds-checked here (zero-filled panels), so the wrapper pads
+//    nothing; A and B come with their strides.
+// Its times on the card, beside the bound and both ends, are printed by
+// chip_smoke.py's masked_matmul line and kept in PERF.md.
+#include <climits>
 #include <cstdint>
+#include <mutex>
+#include <type_traits>
 
 #include <cuda_bf16.h>
 
 namespace {
 
-constexpr int TILE = 64;     // output sub-tile edge
-constexpr int KC = 32;       // K chunk staged in shared memory
-constexpr int THREADS = 256; // 16 x 16 threads, 4 x 4 outputs each
-constexpr int PAD = 4;       // keeps float4 alignment of the panel rows
+constexpr int UNIT = 128;      // output unit edge
+constexpr int HALF = UNIT / 2; // a thread's two row (column) groups
+constexpr int KC = 32;         // K chunk staged in shared memory
+constexpr int THREADS = 256;   // 16 x 16 threads, 8 x 8 outputs each
+constexpr int MIN_CTAS = 2;    // per SM: 128 registers a thread at most
+constexpr int LD = UNIT + 4;   // panel row in floats, keeps float4 alignment
+constexpr int PANEL = KC * LD; // floats per panel
+constexpr int SMEM = 2 * 2 * PANEL * (int)sizeof(float);  // {A, B} x 2
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -46,130 +95,402 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16(x);
 }
 
-// four consecutive elements in one store (16 bytes for float, 8 for bf16)
+// four consecutive elements in one evict-first store (16 bytes for float,
+// 8 for bf16)
 __device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
 }
 __device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
   uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&lo);
-  u.y = *reinterpret_cast<uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  __stcs(reinterpret_cast<uint2*>(p), u);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// every group but the newest has landed
+__device__ __forceinline__ void cp_async_wait_older() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Row and column indices are int (the launch refuses m, n or k near
+// INT_MAX); element offsets are long long.
+struct Shape {
+  int m, n, k;
+  long long sa0, sa1, sb0, sb1;
+  int gn;                 // mask columns
+  int bs;
+  int units_n, units;     // units along n, in all
+  int chunks;             // K chunks (one zero-filled chunk when k == 0)
+  int a_vec, b_async;     // float32 load paths (ignored for bf16)
+};
+
+__device__ __forceinline__ int imin(int x, int y) { return x < y ? x : y; }
+
+// threadIdx.x, read where it is used: a volatile read keeps the compiler
+// from hoisting every value derived from it into a register that lives
+// across the accumulator loop
+__device__ __forceinline__ int tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;" : "=r"(t));
+  return t;
+}
+
+__device__ __forceinline__ int unit_row(const Shape& s, int unit) {
+  return unit / s.units_n * UNIT;
+}
+__device__ __forceinline__ int unit_col(const Shape& s, int unit) {
+  return unit % s.units_n * UNIT;
+}
+
+// Take the next unit from the queue and read its gate. Every thread of the
+// CTA calls it together, and all get the same unit and the same gate.
+// Thread 0 hands out the index it drew at the last take and draws the
+// following one now, so the atomic's round trip overlaps a unit's work.
+// A CTA stops at the first index past the last unit; the one it drew
+// after that is past the end too, so no unit is left untaken.
+__device__ __forceinline__ int take(int* counter,
+                                    const bool* __restrict__ mask,
+                                    const Shape& s, int* slot, int* drawn,
+                                    bool* live) {
+  if (tid() == 0) {
+    *slot = *drawn;
+    *drawn = atomicAdd(counter, 1);
+  }
+  __syncthreads();
+  const int unit = *slot;
+  int seen = 0;
+  if (unit < s.units) {
+    const int r0 = unit_row(s, unit), c0 = unit_col(s, unit);
+    const int r1 = imin(r0 + UNIT, s.m) - 1, c1 = imin(c0 + UNIT, s.n) - 1;
+    const int mr0 = r0 / s.bs, mc0 = c0 / s.bs;
+    const int nc = c1 / s.bs - mc0 + 1;
+    const int entries = (r1 / s.bs - mr0 + 1) * nc;
+    for (int e = tid(); e < entries; e += THREADS)
+      seen |= mask[(long long)(mr0 + e / nc) * s.gn + mc0 + e % nc];
+  }
+  *live = __syncthreads_or(seen);
+  return unit;
+}
+
+// Stage chunk `chunk` of `unit` in one buffer: A rows r0.. x k0.. into
+// `as`, B rows k0.. x columns c0.. into the panel after it, both k-major,
+// zero past the edges.
+template <typename T>
+__device__ __forceinline__ void load_panels(const T* __restrict__ a,
+                                            const T* __restrict__ b,
+                                            const Shape& s, int unit,
+                                            int chunk, float* as) {
+  float* bp = as + PANEL;
+  constexpr bool f32 = std::is_same<T, float>::value;
+  const int t = tid();
+  const int r0 = unit_row(s, unit), c0 = unit_col(s, unit);
+  const int k0 = chunk * KC;
+  // B: a warp copies one panel row of 128 columns, 16 bytes a thread;
+  // thread t holds column c0 + 4 (t % 32) of rows k0 + t / 32 + 8 it
+  if (f32 && s.b_async) {
+    const int c = (t % 32) * 4, gc = c0 + c;
+    const int bytes = gc < s.n ? 4 * imin(s.n - gc, 4) : 0;
+    const float* bf = reinterpret_cast<const float*>(b);
+    const float* src = bf + (long long)(k0 + t / 32) * s.sb0 + gc;
+    float* dst = bp + (t / 32) * LD + c;
+#pragma unroll
+    for (int it = 0; it < KC / 8; ++it) {
+      const bool in = k0 + t / 32 + 8 * it < s.k && bytes > 0;
+      cp_async16(dst + 8 * it * LD, in ? src + 8 * it * s.sb0 : bf,
+                 in ? bytes : 0);
+    }
+  } else {
+    for (int e = t; e < KC * UNIT; e += THREADS) {
+      const int kk = e / UNIT, c = e % UNIT;
+      const int gk = k0 + kk, gc = c0 + c;
+      bp[kk * LD + c] = (gk < s.k && gc < s.n)
+                            ? to_f(b[gk * s.sb0 + gc * s.sb1]) : 0.f;
+    }
+  }
+  // A: lane l of warp w holds row 16w + l % 16 and, in step it, the four
+  // k from 4 * (l / 16) + 8 * it; stored transposed, 32 banks a warp
+  const int lane = t % 32;
+  const int row = lane % 16 + 16 * (t / 32), gr = r0 + row;
+  const int kq = 4 * (lane / 16);
+  if (f32 && s.a_vec && gr < s.m && k0 + KC <= s.k) {
+    const float4* src = reinterpret_cast<const float4*>(
+        reinterpret_cast<const float*>(a) + gr * s.sa0 + k0 + kq);
+    float4 x[KC / 8];
+#pragma unroll
+    for (int it = 0; it < KC / 8; ++it) x[it] = src[2 * it];
+#pragma unroll
+    for (int it = 0; it < KC / 8; ++it) {
+      float* d = as + (kq + 8 * it) * LD + row;
+      d[0] = x[it].x; d[LD] = x[it].y; d[2 * LD] = x[it].z; d[3 * LD] = x[it].w;
+    }
+  } else {
+    for (int it = 0; it < KC / 8; ++it) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int gk = k0 + kq + 8 * it + q;
+        as[(kq + 8 * it + q) * LD + row] =
+            (gr < s.m && gk < s.k) ? to_f(a[gr * s.sa0 + gk * s.sa1]) : 0.f;
+      }
+    }
+  }
+}
+
+// acc[i][j] += A[row i] * B[column j] over one staged chunk; row i is
+// ty*4 + i for i < 4 and HALF + ty*4 + i - 4 after, columns likewise.
+__device__ __forceinline__ void multiply(const float* __restrict__ as,
+                                         const float* __restrict__ bp,
+                                         float acc[8][8]) {
+  const int ty = tid() / 16, tx = tid() % 16;
+  as += ty * 4;
+  bp += tx * 4;
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk) {
+    const float4 a0 = *reinterpret_cast<const float4*>(as + kk * LD);
+    const float4 a1 = *reinterpret_cast<const float4*>(as + kk * LD + HALF);
+    const float4 b0 = *reinterpret_cast<const float4*>(bp + kk * LD);
+    const float4 b1 = *reinterpret_cast<const float4*>(bp + kk * LD + HALF);
+    const float x[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float y[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(x[i], y[j], acc[i][j]);
+  }
+}
+
+// Store a live unit: every element in the matrix. When the unit spans
+// several mask entries, zero each element whose own entry is dead.
+template <typename T>
+__device__ __forceinline__ void store_live(T* __restrict__ out,
+                                           const bool* __restrict__ mask,
+                                           const Shape& s, int unit,
+                                           const float acc[8][8]) {
+  const int ty = tid() / 16, tx = tid() % 16;
+  const int r0 = unit_row(s, unit), c0 = unit_col(s, unit);
+  const int r1 = imin(r0 + UNIT, s.m) - 1, c1 = imin(c0 + UNIT, s.n) - 1;
+  const bool uniform = r0 / s.bs == r1 / s.bs && c0 / s.bs == c1 / s.bs;
+  const bool vec = s.n % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = r0 + (i / 4) * HALF + ty * 4 + i % 4;
+    if (r >= s.m) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + h * HALF + tx * 4;
+      if (c >= s.n) continue;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = acc[i][h * 4 + j];
+      if (!uniform) {
+        const bool* mrow = mask + (long long)(r / s.bs) * s.gn;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < s.n && !mrow[(c + j) / s.bs]) v[j] = 0.f;
+      }
+      T* o = out + (long long)r * s.n + c;
+      if (vec && c + 3 < s.n) {
+        store4(o, v);
+      } else {
+        for (int j = 0; j < 4 && c + j < s.n; ++j) o[j] = from_f<T>(v[j]);
+      }
+    }
+  }
+}
+
+// Store a dead unit: zeros, 16 bytes a thread, neighbours on neighbouring
+// addresses.
+template <typename T>
+__device__ __forceinline__ void store_dead(T* __restrict__ out,
+                                           const Shape& s, int unit) {
+  constexpr int V = 16 / (int)sizeof(T);  // elements per store
+  constexpr int PER_ROW = UNIT / V;       // threads per unit row
+  constexpr int ROWS = THREADS / PER_ROW; // unit rows per instruction
+  const int r0 = unit_row(s, unit);
+  const int t = tid();
+  const int c = unit_col(s, unit) + (t % PER_ROW) * V;
+  if (c >= s.n) return;
+  const bool vec = s.n % V == 0;
+#pragma unroll 4
+  for (int rr = t / PER_ROW; rr < UNIT; rr += ROWS) {
+    const int r = r0 + rr;
+    if (r >= s.m) break;
+    T* o = out + (long long)r * s.n + c;
+    if (vec) {
+      __stcs(reinterpret_cast<uint4*>(o), make_uint4(0u, 0u, 0u, 0u));
+    } else {
+      for (int j = 0; j < V && c + j < s.n; ++j) o[j] = from_f<T>(0.f);
+    }
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_CTAS)
 masked_matmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
                      const bool* __restrict__ mask, T* __restrict__ out,
-                     long long m, long long n, long long k, long long sa0,
-                     long long sa1, long long sb0, long long sb1, int bs,
-                     long long gn, long long tiles_n, int vec) {
-  __shared__ __align__(16) float as[KC][TILE + PAD];  // A panel, k-major
-  __shared__ __align__(16) float bsm[KC][TILE + PAD]; // B panel, k-major
-
-  const long long tile = blockIdx.x;
-  const long long r0 = (tile / tiles_n) * TILE, c0 = (tile % tiles_n) * TILE;
-  const long long r1 = (r0 + TILE < m ? r0 + TILE : m) - 1;
-  const long long c1 = (c0 + TILE < n ? c0 + TILE : n) - 1;
-  const int t = threadIdx.x, ty = t / 16, tx = t % 16;
-
-  // the gate: the mask entries under this sub-tile
-  const long long mr0 = r0 / bs, mc0 = c0 / bs;
-  const long long nr = r1 / bs - mr0 + 1, nc = c1 / bs - mc0 + 1;
-  int seen = 0;
-  for (long long e = t; e < nr * nc; e += THREADS)
-    seen |= mask[(mr0 + e / nc) * gn + mc0 + e % nc];
-  const bool live = __syncthreads_or(seen);
-  const bool uniform = nr == 1 && nc == 1;
-
-  float acc[4][4] = {};
-  if (live) {
-    for (long long k0 = 0; k0 < k; k0 += KC) {
-      // A panel: rows r0.., columns k0..; consecutive threads walk k
-      for (int e = t; e < TILE * KC; e += THREADS) {
-        const int row = e / KC, kk = e % KC;
-        const long long gr = r0 + row, gk = k0 + kk;
-        as[kk][row] = (gr < m && gk < k) ? to_f(a[gr * sa0 + gk * sa1]) : 0.f;
-      }
-      // B panel: rows k0.., columns c0..; consecutive threads walk columns
-      for (int e = t; e < TILE * KC; e += THREADS) {
-        const int kk = e / TILE, col = e % TILE;
-        const long long gk = k0 + kk, gc = c0 + col;
-        bsm[kk][col] = (gk < k && gc < n) ? to_f(b[gk * sb0 + gc * sb1]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < KC; ++kk) {
-        const float4 x = *reinterpret_cast<const float4*>(&as[kk][ty * 4]);
-        const float4 y = *reinterpret_cast<const float4*>(&bsm[kk][tx * 4]);
-        const float xa[4] = {x.x, x.y, x.z, x.w};
-        const float ya[4] = {y.x, y.y, y.z, y.w};
+                     int* counter, const Shape s) {
+  extern __shared__ __align__(16) float panels[];  // [buffer][A, B][KC][LD]
+  __shared__ int slot;
+  int drawn = tid() == 0 ? atomicAdd(counter, 1) : 0;  // thread 0's draw
+  int buf = 0;
+  bool live, staged = false;  // staged: the unit's first chunk is in `buf`
+  int unit = take(counter, mask, s, &slot, &drawn, &live);
+  while (unit < s.units) {
+    if (!live) {
+      store_dead(out, s, unit);
+      unit = take(counter, mask, s, &slot, &drawn, &live);
+      continue;
+    }
+    if (!staged) {
+      load_panels(a, b, s, unit, 0, panels + buf * 2 * PANEL);
+      cp_async_commit();
+    }
+    bool next_live;
+    const int next = take(counter, mask, s, &slot, &drawn, &next_live);
+    float acc[8][8];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xa[i], ya[j], acc[i][j]);
-      }
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < s.chunks; ++c) {
+      // the loads that follow chunk c: chunk c + 1 of this unit or, after
+      // its last chunk, the first chunk of the next unit if that is live
+      const bool more = c + 1 < s.chunks;
+      if (more || next_live)
+        load_panels(a, b, s, more ? unit : next, more ? c + 1 : 0,
+                    panels + (buf ^ 1) * 2 * PANEL);
+      cp_async_commit();
+      cp_async_wait_older();
       __syncthreads();
+      const float* cur = panels + buf * 2 * PANEL;
+      multiply(cur, cur + PANEL, acc);
+      __syncthreads();
+      buf ^= 1;
+    }
+    store_live(out, mask, s, unit, acc);
+    unit = next;
+    live = staged = next_live;
+  }
+  cp_async_wait_all();
+}
+
+struct Pool {
+  int sms = 0, per_sm = 0;
+};
+
+// The pool for the current device, queried once per device and value type.
+template <typename T>
+cudaError_t pool(Pool* p) {
+  constexpr int MAX_DEVICES = 64;
+  static std::mutex mu;
+  static Pool cache[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  Pool& c = cache[dev];
+  if (c.per_sm == 0) {
+    err = cudaFuncSetAttribute(masked_matmul_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount,
+                                   dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &c.per_sm, masked_matmul_kernel<T>, THREADS, SMEM);
+    if (err == cudaSuccess && c.per_sm < 1) err = cudaErrorInvalidConfiguration;
+    if (err != cudaSuccess) {
+      c = Pool();
+      return err;
     }
   }
-
-  // store: every element of the sub-tile is written, zero where dead
-  const long long c = c0 + tx * 4;
-  for (int i = 0; i < 4; ++i) {
-    const long long r = r0 + ty * 4 + i;
-    if (r >= m) break;
-    float v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      bool keep = live;
-      if (live && !uniform && c + j < n)
-        keep = mask[(r / bs) * gn + (c + j) / bs];
-      v[j] = keep ? acc[i][j] : 0.f;
-    }
-    T* o = out + r * n + c;
-    if (vec && c + 3 < n) {
-      store4(o, v);
-    } else {
-      for (int j = 0; j < 4 && c + j < n; ++j) o[j] = from_f<T>(v[j]);
-    }
-  }
+  *p = c;
+  return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t launch(const void* a, const void* b, const void* mask, void* out,
                    long long m, long long n, long long k, long long sa0,
                    long long sa1, long long sb0, long long sb1, int bs,
-                   cudaStream_t stream) {
-  const long long tiles_m = (m + TILE - 1) / TILE;
-  const long long tiles_n = (n + TILE - 1) / TILE;
-  const long long gn = (n + bs - 1) / bs;
-  const long long tiles = tiles_m * tiles_n;
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  masked_matmul_kernel<T><<<(unsigned)tiles, THREADS, 0, stream>>>(
-      (const T*)a, (const T*)b, (const bool*)mask, (T*)out, m, n, k, sa0, sa1,
-      sb0, sb1, bs, gn, tiles_n, (int)(n % 4 == 0));
+                   cudaStream_t stream, void* counter) {
+  Pool p;
+  cudaError_t err = pool<T>(&p);
+  if (err != cudaSuccess) return err;
+  // row, column and chunk indices run a unit or a chunk past the edges
+  if (m > INT_MAX - 2 * UNIT || n > INT_MAX - 2 * UNIT ||
+      k > INT_MAX - 2 * KC)
+    return cudaErrorInvalidValue;
+  const long long units_n = (n + UNIT - 1) / UNIT;
+  const long long units = (m + UNIT - 1) / UNIT * units_n;
+  const long long slots = (long long)p.sms * p.per_sm;
+  // every CTA draws two indices past the last unit before it stops
+  if (units + 2 * slots > INT_MAX) return cudaErrorInvalidValue;
+  constexpr bool f32 = std::is_same<T, float>::value;
+  Shape s;
+  s.m = (int)m; s.n = (int)n; s.k = (int)k;
+  s.sa0 = sa0; s.sa1 = sa1; s.sb0 = sb0; s.sb1 = sb1;
+  s.gn = (int)((n + bs - 1) / bs);
+  s.bs = bs;
+  s.units_n = (int)units_n;
+  s.units = (int)units;
+  s.chunks = k > 0 ? (int)((k + KC - 1) / KC) : 1;
+  s.a_vec = f32 && sa1 == 1 && sa0 % 4 == 0 &&
+            reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  s.b_async = f32 && sb1 == 1 && sb0 % 4 == 0 &&
+              reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  const unsigned grid = (unsigned)(units < slots ? units : slots);
+  masked_matmul_kernel<T><<<grid, THREADS, SMEM, stream>>>(
+      (const T*)a, (const T*)b, (const bool*)mask, (T*)out, (int*)counter, s);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// value_code: 0 float32, 1 bfloat16. The output is contiguous [m, n].
+// value_code: 0 float32, 1 bfloat16. The output is contiguous [m, n];
+// counter is one int32 on the device, zero at launch (the work queue).
 extern "C" int masked_matmul_launch(int value_code, const void* a,
                                     const void* b, const void* mask,
                                     void* out, long long m, long long n,
                                     long long k, long long sa0, long long sa1,
                                     long long sb0, long long sb1, int bs,
-                                    void* stream) {
+                                    void* stream, void* counter) {
   if (m <= 0 || n <= 0) return 0;
-  if (bs <= 0 || k < 0) return (int)cudaErrorInvalidValue;
+  if (bs <= 0 || k < 0 || counter == nullptr)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (value_code == 0)
     return (int)launch<float>(a, b, mask, out, m, n, k, sa0, sa1, sb0, sb1,
-                              bs, s);
+                              bs, s, counter);
   if (value_code == 1)
-    return (int)launch<__nv_bfloat16>(a, b, mask, out, m, n, k, sa0, sa1, sb0,
-                                      sb1, bs, s);
+    return (int)launch<__nv_bfloat16>(a, b, mask, out, m, n, k, sa0, sa1,
+                                      sb0, sb1, bs, s, counter);
   return (int)cudaErrorInvalidValue;
+}
+
+// The persistent pool on the current device: SMs and CTAs per SM.
+extern "C" int masked_matmul_pool(int value_code, int* sms, int* ctas_per_sm) {
+  Pool p;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (value_code == 0) err = pool<float>(&p);
+  if (value_code == 1) err = pool<__nv_bfloat16>(&p);
+  if (err != cudaSuccess) return (int)err;
+  *sms = p.sms;
+  *ctas_per_sm = p.per_sm;
+  return 0;
 }

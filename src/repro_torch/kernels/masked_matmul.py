@@ -8,9 +8,16 @@ dtype.
 
 ``masked_matmul_plain`` is the plain PyTorch version (any device);
 ``masked_matmul_cuda`` launches the kernel of ``csrc/masked_matmul.cu`` on
-CUDA tensors and raises on anything else.
+CUDA tensors and raises on anything else. That kernel is a persistent
+pool of CTAs (``pool()``: SMs × CTAs per SM) that take 128 × 128 output
+units from an atomic work counter: a dead unit is a stream of 16-byte
+zero stores, a live one an FFMA product with an 8 × 8 register tile per
+thread.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import Tuple
 
 import torch
 
@@ -35,14 +42,21 @@ def masked_matmul_plain(a: torch.Tensor, b: torch.Tensor,
 def masked_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
                        out_block_mask: torch.Tensor, *,
                        block_size: int = 256) -> torch.Tensor:
-    """Launch the CUDA kernel (one CTA per 64 × 64 output sub-tile).
+    """Launch the CUDA kernel: a persistent pool of CTAs over 128 × 128
+    output units.
 
     ``a`` [M, K] and ``b`` [K, N] share float32 or bfloat16; float64 raises
     ``TypeError`` (the card kernel accumulates in float32 only).
     ``out_block_mask`` is bool [ceil(M/bs), ceil(N/bs)]. The operands'
     strides go to the kernel, so a transposed view is read in place and
-    no operand is copied; the mask is made contiguous. The output is a new
-    contiguous [M, N] tensor in which every element is written."""
+    no operand is copied (float32 operands with unit inner stride and
+    16-byte aligned rows take the kernel's 16-byte load paths, others its
+    element loads; both give the same bits); the mask is made contiguous.
+    The work counter, the last argument of the launch, is a fresh int32
+    zero on the device for every call, so no call sees a count left by
+    another. The output is a new contiguous [M, N] tensor in which every
+    element is written, each 128 × 128 unit by one CTA in a fixed order:
+    the same inputs give the same bits on every launch."""
     dev = a.device
     ins = (a, b, out_block_mask)
     if dev.type != "cuda" or any(x.device != dev for x in ins):
@@ -68,10 +82,21 @@ def masked_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     if m == 0 or n == 0:
         return out
     mask = out_block_mask.contiguous()
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
     rc = build.library().masked_matmul_launch(
         _VALUE_CODES[a.dtype], a.data_ptr(), b.data_ptr(), mask.data_ptr(),
         out.data_ptr(), m, n, k, *a.stride(), *b.stride(), bs,
-        build.stream_ptr(a))
+        build.stream_ptr(a), counter.data_ptr())
     build.check(rc, "masked_matmul")
     build.count_launch("masked_matmul")
     return out
+
+
+def pool() -> Tuple[int, int]:
+    """(SMs, CTAs per SM) of ``masked_matmul_cuda``'s persistent pool for
+    float32 on the current CUDA device, as the launch sizes its grid."""
+    sms, per_sm = ctypes.c_int(), ctypes.c_int()
+    rc = build.library().masked_matmul_pool(
+        _VALUE_CODES[torch.float32], ctypes.byref(sms), ctypes.byref(per_sm))
+    build.check(rc, "masked_matmul pool query")
+    return sms.value, per_sm.value

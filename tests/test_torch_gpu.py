@@ -21,7 +21,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.bloom_probe import bloom_probe_cuda, bloom_probe_plain
 from repro_torch.kernels.coo_join import coo_expand_cuda, coo_expand_plain
 from repro_torch.kernels.masked_matmul import (
-    masked_matmul_cuda, masked_matmul_plain,
+    masked_matmul_cuda, masked_matmul_plain, pool,
 )
 from repro_torch.kernels.merge_join import (
     MODE_ALL, MODE_BOTH, MODE_X, MODE_Y, merge_join_cuda, merge_join_plain,
@@ -164,7 +164,7 @@ def test_session_on_the_card_launches_the_kernels_and_matches_cpu(cuda):
 # ---------------------------------------------------------------------------
 
 PNMF_SHAPES = [(300, 257), (1024, 768)]
-PNMF_BS = [16, 64, 256]
+PNMF_BS = [16, 64, 128, 256, 512]
 PNMF_K = [1, 7, 32, 300]
 PNMF_DENSITY = [0.0, 0.4, 1.0]
 MM_TOL = {torch.float32: dict(atol=1e-4, rtol=1e-4),
@@ -209,6 +209,18 @@ def test_masked_matmul_kernel_matches_plain(cuda, shape, bs, k, density,
 def test_masked_matmul_writes_every_dead_element(cuda):
     """The output comes from ``torch.empty``: dead tiles must be stored as
     zeros, not left as what the allocator handed back."""
+    _check_dead_elements_written(cuda)
+
+
+def test_masked_matmul_counter_starts_at_zero_on_every_call(cuda):
+    """The same NaN-filled check twice in a row: a work counter left at
+    its end count by the first call would make the second skip units and
+    leave NaN behind."""
+    _check_dead_elements_written(cuda)
+    _check_dead_elements_written(cuda)
+
+
+def _check_dead_elements_written(cuda):
     rng = np.random.default_rng(5)
     m, k, n, bs = 1000, 32, 1000, 256
     junk = torch.full((m, n), float("nan"), device=cuda)
@@ -235,6 +247,87 @@ def test_masked_matmul_reads_transposed_views_in_place(cuda):
     got = masked_matmul_cuda(a.T, h.T, mask, block_size=64)
     want = masked_matmul_cuda(a.T.contiguous(), h.T.contiguous(), mask,
                               block_size=64)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def _mm_operands(rng, m, k, n, device):
+    a = torch.as_tensor(rng.normal(size=(m, k)), dtype=torch.float32,
+                        device=device)
+    b = torch.as_tensor(rng.normal(size=(k, n)), dtype=torch.float32,
+                        device=device)
+    return a, b
+
+
+@pytest.mark.parametrize("live", [False, True])
+def test_masked_matmul_4096_all_dead_and_all_live(cuda, live):
+    """The two ends of the PNMF shapes (K = 32): every unit dead is zeros
+    exactly, every unit live is the whole product."""
+    rng = np.random.default_rng(12)
+    m = n = 4096
+    a, b = _mm_operands(rng, m, 32, n, cuda)
+    mask = torch.full((m // 256, n // 256), live, device=cuda)
+    got = masked_matmul_cuda(a, b, mask, block_size=256)
+    if live:
+        want = masked_matmul_plain(a, b, mask, block_size=256)
+        torch.testing.assert_close(got, want, **MM_TOL[torch.float32])
+    else:
+        assert not bool(got.any())
+
+
+def test_masked_matmul_grid_smaller_than_pool(cuda):
+    """A 64 × 64 output is one unit: the launch has fewer units than the
+    pool has CTAs, and every element is still written."""
+    sms, per_sm = pool()
+    assert sms >= 1 and per_sm >= 2
+    rng = np.random.default_rng(13)
+    a, b = _mm_operands(rng, 64, 7, 64, cuda)
+    mask = _mask(rng, (64, 64), 16, 0.5, cuda)
+    junk = torch.full((64, 64), float("nan"), device=cuda)
+    del junk
+    got = masked_matmul_cuda(a, b, mask, block_size=16)
+    want = masked_matmul_plain(a, b, mask, block_size=16)
+    torch.testing.assert_close(got, want, **MM_TOL[torch.float32])
+    assert bool((got[~_expand(mask, (64, 64), 16)] == 0).all())
+
+
+@pytest.mark.parametrize("bs", [16, 256])
+def test_masked_matmul_is_bit_identical_across_launches(cuda, bs):
+    rng = np.random.default_rng(14)
+    a, b = _mm_operands(rng, 1024, 300, 768, cuda)
+    mask = _mask(rng, (1024, 768), bs, 0.4, cuda)
+    first = masked_matmul_cuda(a, b, mask, block_size=bs)
+    for _ in range(3):
+        assert torch.equal(masked_matmul_cuda(a, b, mask, block_size=bs),
+                           first)
+
+
+@pytest.mark.parametrize("view", ["transposed", "offset", "padded rows"])
+def test_masked_matmul_load_paths_agree_bit_for_bit(cuda, view):
+    """Aligned float32 operands take the 16-byte load paths (cp.async for
+    B); the same values as a transposed or misaligned view take the
+    element loads. Both stage the same floats, so the results are equal.
+    "padded rows": B's 299 columns in rows of 300 floats take cp.async,
+    zero-filled past column 299, against the contiguous B's element
+    loads."""
+    rng = np.random.default_rng(15)
+    m, k = 520, 40
+    n = 299 if view == "padded rows" else 300
+    a, b = _mm_operands(rng, m, k, n, cuda)
+    if view == "transposed":
+        a2, b2 = a.T.contiguous().T, b.T.contiguous().T
+    elif view == "offset":
+        a2 = torch.empty(m * k + 1, device=cuda)[1:].view(m, k)
+        b2 = torch.empty(k * n + 1, device=cuda)[1:].view(k, n)
+        a2.copy_(a)
+        b2.copy_(b)
+    else:
+        a2 = a
+        b2 = torch.empty(k, n + 1, device=cuda)[:, :n]
+        b2.copy_(b)
+    assert torch.equal(a2, a) and torch.equal(b2, b)
+    mask = _mask(rng, (m, n), 64, 0.6, cuda)
+    got = masked_matmul_cuda(a2, b2, mask, block_size=64)
+    want = masked_matmul_cuda(a, b, mask, block_size=64)
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
