@@ -39,7 +39,11 @@ its time by CUDA events is printed beside the plain version's time, the
 least time the card could take (the bound) and, where one PyTorch call
 computes the same function, that call's time. ``masked_matmul``'s line
 adds its all-dead end (TB/s of zero stores), its all-live end (TFLOP/s)
-and its persistent pool (SMs × CTAs per SM).
+and its persistent pool (SMs × CTAs per SM); ``sddmm_agg``'s lines add
+the ``torch.einsum`` path, the kernel's device time by torch.profiler
+(its three launches without the host's enqueue gaps), the all-dead end
+(also by torch.profiler: at a few microseconds the CUDA events time the
+host's enqueue), the all-live end (TB/s of sp and TFLOP/s) and the pool.
 
 Output: the card's name and power limit (``nvidia-smi``), the build time,
 one line per query and kernel, a ``{"kernels": [...]}`` JSON line, and as
@@ -431,6 +435,24 @@ def cuda_time_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_time_ms(fn, reps: int = REPS) -> float:
+    """Device time of one call of ``fn``: the CUDA self time of every
+    kernel it launches, by torch.profiler. Unlike ``cuda_time_ms`` it
+    leaves out the gaps where the card waits on the host's enqueue."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) \
+        / reps / 1e3
+
+
 def bound(bytes_moved: float, ops: float):
     tb, to = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
@@ -469,16 +491,17 @@ def kernel_phase(name, calls):
     """Kernel vs plain on every captured call; times summed over calls.
 
     ``library_ms`` is the time of one PyTorch call computing the same
-    function on the same inputs. Only ``merge_join`` has one: the merge
-    itself over the whole operands (``torch.mul`` for x*y), which equals
-    the kernel's output wherever every dead tile holds zeros and the merge
-    maps zeros to zero, as on the main path's block masks taken from the
-    data. No single call does ``coo_expand``'s segment search + gathers,
-    ``bloom_probe``'s multiply-shift hashing + bit tests,
-    ``masked_matmul``'s gated product (``torch.matmul(w, h)`` fills the
-    dead tiles too; its time is printed as a dense product, not the same
-    function) or ``sddmm_agg``'s fused sum (the factorized form is three
-    calls)."""
+    function on the same inputs. ``merge_join`` has one: the merge itself
+    over the whole operands (``torch.mul`` for x*y), and so has
+    ``sddmm_agg``: ``torch.einsum("ik,kj,ij->i", w, h, sp)`` (``->j``,
+    ``->`` for columns and everything). Neither reads the mask, so each
+    equals the kernel's output wherever every dead tile holds zeros (and,
+    for the merge, the merge maps zeros to zero), as on the main path's
+    block masks taken from the data; both are asserted. No single call
+    does ``coo_expand``'s segment search + gathers, ``bloom_probe``'s
+    multiply-shift hashing + bit tests or ``masked_matmul``'s gated
+    product (``torch.matmul(w, h)`` fills the dead tiles too; its time is
+    printed as a dense product, not the same function)."""
     import torch
     from repro_torch.kernels.bloom_probe import (
         bloom_probe_cuda, bloom_probe_plain,
@@ -492,11 +515,12 @@ def kernel_phase(name, calls):
         live_tiles, merge_join_cuda, merge_join_plain,
     )
     from repro_torch.kernels.sddmm_agg import sddmm_agg_cuda, sddmm_agg_plain
+    from repro_torch.kernels.sddmm_agg import pool as sddmm_agg_pool
     row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
            "bound_by": "bytes", "library_ms": None}
     details = []
     for args, kw in calls:
-        library = dense = None
+        library = dense = agg = None
         if name == "coo_expand":
             ends, delta, av, ac, bv, bc = args
             cap = kw["cap"]
@@ -548,6 +572,14 @@ def kernel_phase(name, calls):
             assert torch.equal(kern(), got), \
                 "sddmm_agg: two launches differ"
             err = float((got - want).abs().max())
+            # operands in this order: the default left-to-right path forms
+            # W·H and never an m x n x K intermediate
+            spec = {"row": "ik,kj,ij->i", "col": "ik,kj,ij->j",
+                    "all": "ik,kj,ij->"}[kw["dim"]]
+            library = lambda: torch.einsum(spec, w, h, sp)  # noqa: E731
+            torch.testing.assert_close(library().reshape(got.shape), got,
+                                       atol=0.0, rtol=SUM_RTOL)
+            agg = (w, h, sp, mask, kw)
             live = live_elements(mask, sp.shape, bs)
             nbytes = live * sp.element_size() + w.nbytes + h.nbytes \
                 + got.nbytes + mask.nbytes
@@ -597,6 +629,26 @@ def kernel_phase(name, calls):
                     f"of zero stores), live {split[True]:.4f} ms "
                     f"({tflops:.2f} TFLOP/s); pool {sms} SMs x {per_sm} "
                     "CTAs")
+        if agg is not None:
+            # the all-dead (schedule and sums only) and all-live ends of
+            # the same kernel on the same inputs
+            w, h, sp, mask, kw = agg
+            ends = {g: (lambda g=g: sddmm_agg_cuda(
+                sp, w, h, torch.full_like(mask, g), **kw))
+                for g in (False, True)}
+            split = {g: cuda_time_ms(fn) for g, fn in ends.items()}
+            tbs = sp.nbytes / split[True] / 1e9
+            tflops = (2 * w.shape[1] + 2) * sp.numel() / split[True] / 1e9
+            sms, per_sm = sddmm_agg_pool()
+            opt = torch.backends.opt_einsum
+            path = (f"opt_einsum {opt.strategy}" if opt.is_available()
+                    and opt.enabled else "left to right")
+            dev = device_time_ms(kern)
+            lib += (f" (torch.einsum, {path}); device {dev:.4f} ms; "
+                    f"kernel with every tile dead {split[False]:.4f} ms "
+                    f"(device {device_time_ms(ends[False]):.4f} ms), live "
+                    f"{split[True]:.4f} ms ({tbs:.3f} TB/s of sp, "
+                    f"{tflops:.2f} TFLOP/s); pool {sms} SMs x {per_sm} CTAs")
         details.append(f"  {name} [{shape}]: {ms:.4f} ms (plain {pms:.4f} "
                        f"ms{lib}, bound {bms:.4f} ms by {by}, "
                        f"{nbytes / 1e6:.1f} MB), max |err| {err:.3g}")

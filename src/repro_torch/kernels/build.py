@@ -125,13 +125,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.masked_matmul_pool.argtypes = [
         I, ctypes.POINTER(I), ctypes.POINTER(I)]  # dtype code, SMs, per SM
     lib.sddmm_agg_launch.argtypes = [
-        I, P, P, P, P, P, P,  # value dtype code, sp, w, h, mask, part, out
+        I, P, P, P, P,        # value dtype code, sp, w, h, mask
+        P, P, P,              # unit list, partials, out
         L, L, L,              # m, n, k
         L, L, L, L, L, L,     # strides of sp, w, h
-        I, I, I, P]           # block size, dim, vectorised, stream
+        I, I, P]              # block size, dim, stream
+    lib.sddmm_agg_pool.argtypes = [
+        I, ctypes.POINTER(I), ctypes.POINTER(I)]  # dtype code, SMs, per SM
     for fn in (lib.coo_expand_launch, lib.bloom_probe_launch,
                lib.merge_join_launch, lib.masked_matmul_launch,
-               lib.masked_matmul_pool, lib.sddmm_agg_launch):
+               lib.masked_matmul_pool, lib.sddmm_agg_launch,
+               lib.sddmm_agg_pool):
         fn.restype = I
     lib.repro_torch_error_string.argtypes = [I]
     lib.repro_torch_error_string.restype = ctypes.c_char_p

@@ -8,9 +8,18 @@ the shapes ``core.executor.agg_dense`` gives for ``AggFn.SUM``.
 ``sddmm_agg_plain`` is the plain PyTorch version (any device): the
 factorized form, never forming the m×n product either.
 ``sddmm_agg_cuda`` launches the kernel of ``csrc/sddmm_agg.cu`` on CUDA
-tensors and raises on anything else.
+tensors and raises on anything else. That kernel lists the live
+128 × 128 units on the device, then a persistent pool of CTAs
+(``pool()``: SMs × CTAs per SM) takes them by a static stride: each is
+an FFMA product with an 8 × 8 register tile per thread while the unit's
+tile of ``sp`` streams into shared memory, reduced to partials that a
+last launch sums in a fixed order. A dead unit costs nothing but its mask
+entries.
 """
 from __future__ import annotations
+
+import ctypes
+from typing import Tuple
 
 import torch
 
@@ -18,6 +27,7 @@ from repro_torch.kernels import build
 
 DIMS = ("row", "col", "all")
 _VALUE_CODES = {torch.float32: 0, torch.float64: 1}
+_UNIT = 128  # the kernel's unit edge, which sizes the partials
 
 
 def sddmm_agg_plain(sp: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
@@ -42,14 +52,22 @@ def sddmm_agg_plain(sp: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
 def sddmm_agg_cuda(sp: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
                    out_block_mask: torch.Tensor, *, dim: str,
                    block_size: int = 256) -> torch.Tensor:
-    """Launch the CUDA kernel: per-tile partials, then a fixed-order sum
-    (two launches, counted as one; bit-identical from run to run).
+    """Launch the CUDA kernel: a schedule lists the live 128 × 128 units,
+    a persistent pool of CTAs writes their partials, and a last launch
+    sums them in a fixed order (three launches, counted as one).
 
     ``sp`` [M, N], ``w`` [M, K] and ``h`` [K, N] share float32 or float64;
     ``out_block_mask`` is bool [ceil(M/bs), ceil(N/bs)]. A dead tile
     contributes exactly zero, even where ``sp`` is nonzero under it. The
     operands' strides go to the kernel, so a transposed view is read in
-    place and no operand is copied; the mask is made contiguous."""
+    place and no operand is copied (float32 operands with unit inner
+    stride and 16-byte aligned rows take the kernel's 16-byte load paths,
+    others its element loads; both give the same bits); the mask is made
+    contiguous. The unit list and the partials are scratch from
+    ``torch.empty`` that the launch writes before it reads; the list's
+    count stays on the card, so nothing here waits on it. Each unit is
+    summed whole by one CTA in a fixed order, so the same inputs give the
+    same bits on every launch."""
     if dim not in DIMS:
         raise ValueError(f"dim {dim!r} not in {DIMS}")
     dev = sp.device
@@ -79,17 +97,27 @@ def sddmm_agg_cuda(sp: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
     shape = {"row": (m, 1), "col": (1, n), "all": (1, 1)}[dim]
     if m == 0 or n == 0:
         return torch.zeros(shape, dtype=sp.dtype, device=dev)
-    part = torch.empty({"row": gn * m, "col": gm * n, "all": gm * gn}[dim],
+    um, un = -(-m // _UNIT), -(-n // _UNIT)
+    part = torch.empty({"row": un * m, "col": um * n, "all": um * un}[dim],
                        dtype=sp.dtype, device=dev)
     out = torch.empty(shape, dtype=sp.dtype, device=dev)
+    units = torch.empty(um * un + 1, dtype=torch.int32, device=dev)
     mask = out_block_mask.contiguous()
-    vec = int(sp.stride(1) == 1 and sp.stride(0) % 4 == 0
-              and sp.data_ptr() % 16 == 0 and bs % 4 == 0)
     rc = build.library().sddmm_agg_launch(
         _VALUE_CODES[sp.dtype], sp.data_ptr(), w.data_ptr(), h.data_ptr(),
-        mask.data_ptr(), part.data_ptr(), out.data_ptr(), m, n, k,
-        *sp.stride(), *w.stride(), *h.stride(), bs, DIMS.index(dim), vec,
-        build.stream_ptr(sp))
+        mask.data_ptr(), units.data_ptr(), part.data_ptr(), out.data_ptr(),
+        m, n, k, *sp.stride(), *w.stride(), *h.stride(), bs,
+        DIMS.index(dim), build.stream_ptr(sp))
     build.check(rc, "sddmm_agg")
     build.count_launch("sddmm_agg")
     return out
+
+
+def pool() -> Tuple[int, int]:
+    """(SMs, CTAs per SM) of ``sddmm_agg_cuda``'s persistent pool for
+    float32 on the current CUDA device, as the launch sizes its grid."""
+    sms, per_sm = ctypes.c_int(), ctypes.c_int()
+    rc = build.library().sddmm_agg_pool(
+        _VALUE_CODES[torch.float32], ctypes.byref(sms), ctypes.byref(per_sm))
+    build.check(rc, "sddmm_agg pool query")
+    return sms.value, per_sm.value

@@ -26,6 +26,7 @@ from repro_torch.kernels.masked_matmul import (
 from repro_torch.kernels.merge_join import (
     MODE_ALL, MODE_BOTH, MODE_X, MODE_Y, merge_join_cuda, merge_join_plain,
 )
+from repro_torch.kernels.sddmm_agg import pool as sddmm_agg_pool
 from repro_torch.kernels.sddmm_agg import sddmm_agg_cuda, sddmm_agg_plain
 
 pytestmark = pytest.mark.gpu
@@ -414,6 +415,95 @@ def test_sddmm_agg_reads_transposed_views_in_place(cuda):
         got = sddmm_agg_cuda(*col_major, mask, dim=dim, block_size=64)
         want = sddmm_agg_cuda(sp, w, h, mask, dim=dim, block_size=64)
         torch.testing.assert_close(got, want, atol=1e-12, rtol=1e-12)
+
+
+@pytest.mark.parametrize("dim", ["row", "col", "all"])
+@pytest.mark.parametrize("live", [False, True])
+def test_sddmm_agg_4096_all_dead_and_all_live(cuda, live, dim):
+    """The two ends of the PNMF shapes (K = 32): every unit dead is zeros
+    exactly, even with sp nonzero everywhere; every unit live is the whole
+    sum."""
+    rng = np.random.default_rng(16)
+    m = n = 4096
+    sp, w, h, _ = _agg_inputs(rng, (m, n), 32, 256, 1.0, torch.float32,
+                              cuda)
+    mask = torch.full((m // 256, n // 256), live, device=cuda)
+    got = sddmm_agg_cuda(sp, w, h, mask, dim=dim, block_size=256)
+    if live:
+        want = sddmm_agg_plain(sp, w, h, mask, dim=dim, block_size=256)
+        torch.testing.assert_close(got, want, **AGG_TOL[torch.float32])
+    else:
+        assert bool((sp != 0).any()) and not bool(got.any())
+
+
+@pytest.mark.parametrize("dim", ["row", "col", "all"])
+def test_sddmm_agg_grid_smaller_than_pool(cuda, dim):
+    """A 64 × 64 sp is one unit in one batch: the launch has fewer draws
+    than the pool has CTAs."""
+    sms, per_sm = sddmm_agg_pool()
+    assert sms >= 1 and per_sm >= 2
+    rng = np.random.default_rng(17)
+    sp, w, h, mask = _agg_inputs(rng, (64, 64), 7, 16, 0.5, torch.float32,
+                                 cuda)
+    got = sddmm_agg_cuda(sp, w, h, mask, dim=dim, block_size=16)
+    want = sddmm_agg_plain(sp, w, h, mask, dim=dim, block_size=16)
+    torch.testing.assert_close(got, want, **AGG_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dim", ["row", "col", "all"])
+def test_sddmm_agg_scratch_is_rewritten_on_every_call(cuda, dim):
+    """Two calls in a row, the blocks of the partials and of the unit list
+    filled with NaN and with a unit count past the end before each: the
+    launch must write the list and every partial it reads (a dead unit's
+    partial is read but never added)."""
+    rng = np.random.default_rng(18)
+    shape, bs = (1000, 1000), 256
+    sp, w, h, mask = _agg_inputs(rng, shape, 32, bs, 0.4, torch.float32,
+                                 cuda)
+    want = sddmm_agg_plain(sp, w, h, mask, dim=dim, block_size=bs)
+    um, un = -(-shape[0] // 128), -(-shape[1] // 128)   # 128² units
+    size = {"row": un * shape[0], "col": um * shape[1], "all": um * un}[dim]
+    for _ in range(2):
+        junk = (torch.full((size,), float("nan"), device=cuda),
+                torch.full((um * un + 1,), um * un, dtype=torch.int32,
+                           device=cuda))
+        del junk                  # the caching allocator reuses the blocks
+        got = sddmm_agg_cuda(sp, w, h, mask, dim=dim, block_size=bs)
+        torch.testing.assert_close(got, want, **AGG_TOL[torch.float32])
+
+
+@pytest.mark.parametrize("view", ["transposed", "offset", "padded rows"])
+def test_sddmm_agg_load_paths_agree_bit_for_bit(cuda, view):
+    """Aligned float32 operands take the 16-byte load paths (cp.async for
+    sp and H); the same values as a transposed or misaligned view take
+    the element loads. Both stage the same floats, so the results are
+    equal. "padded rows": sp and H with 299 columns in rows of 300 floats
+    take cp.async, zero-filled past column 299, against the contiguous
+    operands' element loads."""
+    rng = np.random.default_rng(19)
+    m, k = 520, 40
+    n = 299 if view == "padded rows" else 300
+    sp, w, h, mask = _agg_inputs(rng, (m, n), k, 64, 0.6, torch.float32,
+                                 cuda)
+    if view == "transposed":
+        views = [x.T.contiguous().T for x in (sp, w, h)]
+    elif view == "offset":
+        views = []
+        for x in (sp, w, h):
+            y = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+            y.copy_(x)
+            views.append(y)
+    else:
+        views = []
+        for x in (sp, w, h):
+            y = torch.empty(x.shape[0], 300, device=cuda)[:, : x.shape[1]]
+            y.copy_(x)
+            views.append(y)
+    assert all(torch.equal(y, x) for x, y in zip((sp, w, h), views))
+    for dim in ("row", "col", "all"):
+        got = sddmm_agg_cuda(*views, mask, dim=dim, block_size=64)
+        want = sddmm_agg_cuda(sp, w, h, mask, dim=dim, block_size=64)
+        torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
 def test_pnmf_queries_on_the_card_launch_the_kernels_and_match_cpu(cuda):
