@@ -44,9 +44,15 @@ the ``torch.einsum`` path, the kernel's device time by torch.profiler
 (its three launches without the host's enqueue gaps), the all-dead end
 (also by torch.profiler: at a few microseconds the CUDA events time the
 host's enqueue), the all-live end (TB/s of sp and TFLOP/s) and the pool.
+``coo_expand``'s and ``bloom_probe``'s lines add their device time by
+torch.profiler (also ``device_ms`` in their JSON rows), and
+``coo_expand``'s the TB/s of its counted bytes by both clocks.
+``coo_expand`` is held to its plain version on every slot, past the
+join's total too.
 
 Output: the card's name and power limit (``nvidia-smi``), the build time,
-one line per query and kernel, a ``{"kernels": [...]}`` JSON line, and as
+after a fresh build the ptxas registers and spills of each ``coo_expand``
+instance, one line per query and kernel, a ``{"kernels": [...]}`` JSON line, and as
 the last line ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any
 failure raises and exits non-zero without that line.
 """
@@ -55,6 +61,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -520,23 +527,23 @@ def kernel_phase(name, calls):
            "bound_by": "bytes", "library_ms": None}
     details = []
     for args, kw in calls:
-        library = dense = agg = None
+        library = dense = agg = rate = None
         if name == "coo_expand":
             ends, delta, av, ac, bv, bc = args
             cap = kw["cap"]
             kern = lambda: coo_expand_cuda(*args, **kw)  # noqa: E731
             plain = lambda: coo_expand_plain(*args, **kw)  # noqa: E731
             (ik, vk), (ip, vp) = kern(), plain()
-            total = min(int(ends[-1]), cap)
-            assert torch.equal(ik[:total], ip[:total]), "coo_expand idx"
-            err = float((vk[:total].double() - vp[:total].double()).abs()
-                        .max()) if total else 0.0
-            torch.testing.assert_close(vk[:total], vp[:total].to(vk.dtype),
-                                       atol=ATOL, rtol=RTOL)
+            # every slot, past the total too: the clamp is the same rule
+            assert torch.equal(ik, ip), "coo_expand idx"
+            err = float((vk.double() - vp.double()).abs().max())
+            torch.testing.assert_close(vk, vp.to(vk.dtype), atol=ATOL,
+                                       rtol=RTOL)
             nbytes = sum(t.nbytes for t in args) + ik.nbytes + vk.nbytes
             ops = cap * (2 * math.ceil(math.log2(max(ends.numel(), 2))) + 8)
             shape = f"cap={cap} ns={ends.numel()} nb={bv.numel()} " \
                     f"coords={ac.dtype}"
+            rate = nbytes
         elif name == "bloom_probe":
             words, vals = args
             kern = lambda: bloom_probe_cuda(words, vals, **kw)  # noqa: E731
@@ -649,10 +656,40 @@ def kernel_phase(name, calls):
                     f"(device {device_time_ms(ends[False]):.4f} ms), live "
                     f"{split[True]:.4f} ms ({tbs:.3f} TB/s of sp, "
                     f"{tflops:.2f} TFLOP/s); pool {sms} SMs x {per_sm} CTAs")
+        if name in ("coo_expand", "bloom_probe"):
+            # small calls: the CUDA events may time the host's enqueue
+            dev = device_time_ms(kern)
+            row["device_ms"] = row.get("device_ms", 0.0) + dev
+            lib += f"; device {dev:.4f} ms"
+            if rate is not None:
+                lib += (f", {rate / ms / 1e9:.3f} TB/s (events), "
+                        f"{rate / dev / 1e9:.3f} TB/s (device)")
         details.append(f"  {name} [{shape}]: {ms:.4f} ms (plain {pms:.4f} "
                        f"ms{lib}, bound {bms:.4f} ms by {by}, "
                        f"{nbytes / 1e6:.1f} MB), max |err| {err:.3g}")
     return row, details
+
+
+_TYPES = {"f": "float", "d": "double", "s": "int16", "i": "int32"}
+
+
+def ptxas_usage(log: str, kernel: str = "coo_expand_kernel") -> list:
+    """One line per instance of ``kernel`` from nvcc's ``-Xptxas -v`` log:
+    its registers, stack frame and spills."""
+    pat = re.compile(kernel + r"I([fdsi])([fdsi])Li(\d+)ELi(\d+)E")
+    usage, entry = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = pat.search(line)
+            entry = None if m is None else (
+                f"{kernel}<{_TYPES[m[1]]}, {_TYPES[m[2]]}, {m[3]}, {m[4]}>")
+        elif entry and "bytes stack frame" in line:
+            usage[entry] = line.strip()
+        elif entry and "Used" in line and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)[1]
+            usage[entry] = f"{regs} registers, {usage.get(entry, '')}"
+            entry = None
+    return [f"ptxas {name}: {u}" for name, u in sorted(usage.items())]
 
 
 # ---------------------------------------------------------------------------
@@ -684,6 +721,8 @@ def main(argv=None) -> int:
         print(f"build: kernels ready in {time.perf_counter() - t0:.2f} s "
               f"({'compiled' if build.BUILD_INFO['built'] else 'cached'}: "
               f"{Path(build.BUILD_INFO['path']).name})")
+        for line in ptxas_usage(build.BUILD_INFO["log"] or ""):
+            print(line)
 
     n = SMALL_N if args.small else FULL_N
     bs = 256
@@ -741,6 +780,8 @@ def main(argv=None) -> int:
                      "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
                      "library_ms": row["library_ms"]})
+        if "device_ms" in row:
+            rows[-1]["device_ms"] = row["device_ms"]
     walls, busy_s, top = warm_profile(records)
     print("warm rerun: " + ", ".join(
         f"{r['query'].split()[0]} {w:.4f} s" for r, w in zip(records, walls))

@@ -126,6 +126,21 @@ def _entry_compact(live: torch.Tensor, cap: int):
     return idx, count, s < count
 
 
+def _order_key(v: torch.Tensor) -> torch.Tensor:
+    """Integer keys that order floats as ``jnp.sort``/``jnp.searchsorted``
+    do: -0.0 equals +0.0, every NaN equals every other NaN and sorts after
+    +inf. ``torch.searchsorted`` over floats treats NaN otherwise, so the
+    V2V tier sorts and searches on these keys. NaN becomes one pattern and
+    -0.0 becomes +0.0, the bits are read as a signed integer, and the
+    non-sign bits of negatives are flipped (more negative, smaller key)."""
+    itype = torch.int64 if v.dtype == torch.float64 else torch.int32
+    v = v if itype is torch.int64 else v.float()
+    v = torch.where(v == 0, 0.0, v)
+    v = torch.where(torch.isnan(v), float("nan"), v)
+    bits = v.view(itype)
+    return torch.where(bits < 0, bits ^ torch.iinfo(itype).max, bits)
+
+
 def _live(v: torch.Tensor, inducing: bool) -> torch.Tensor:
     return (v != 0) if inducing else torch.ones_like(v, dtype=torch.bool)
 
@@ -243,11 +258,15 @@ def v2v_device(a: torch.Tensor, b: torch.Tensor, merge: Callable,
             log2_bits=bloom_params.log2_bits)
         slot_a = slot_a & hits
     sort_key = torch.where(slot_b, bv[idx_b], float("inf"))
+    # sort and search on the reference's total order (see _order_key);
     # stable, as jnp.argsort: equal values keep their row-major order
-    order_b = torch.argsort(sort_key, stable=True).to(torch.int32)
+    ikey = _order_key(sort_key)
+    order_b = torch.argsort(ikey, stable=True).to(torch.int32)
     skey = sort_key[order_b].contiguous()
-    lo = torch.searchsorted(skey, avc, side="left").to(torch.int32)
-    hi = torch.searchsorted(skey, avc, side="right").to(torch.int32)
+    ikey = ikey[order_b].contiguous()
+    qkey = _order_key(avc)
+    lo = torch.searchsorted(ikey, qkey, side="left").to(torch.int32)
+    hi = torch.searchsorted(ikey, qkey, side="right").to(torch.int32)
     counts = torch.where(slot_a, hi - lo, 0)
     # pre-gather output coordinates (and values) into nnz-sized sorted
     # buffers so the fused expansion reads cache-resident arrays

@@ -2,10 +2,11 @@
 
 The device join tier (``repro_torch.core.joins_device``) unrolls per-key
 match runs into a static ``cap``-slot buffer. The kernel fuses the whole
-expansion: one pass over the output slots finds each slot's segment by a
-binary search over the segment end offsets, gathers both operands and
-their coordinates from the compacted (nnz-sized) side buffers, applies
-the merge in registers, and writes only the final ``idx``/``val``.
+expansion: each slot's segment comes from a load-balanced search over
+the merge of the segment end offsets with the slots (see the kernel's
+source), both operands and their coordinates are gathered from the
+compacted (nnz-sized) side buffers, the merge is applied in registers,
+and only the final ``idx``/``val`` are written.
 
 Inputs (``ns`` = probe-side entries, ``nb`` = partner-side entries):
 
@@ -58,7 +59,7 @@ def coo_expand_cuda(ends: torch.Tensor, delta: torch.Tensor,
                     b_vals: torch.Tensor, b_coords: torch.Tensor, *,
                     merge: Callable, cap: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel (one thread per output slot)."""
+    """Launch the CUDA kernel; it writes every slot below ``cap``."""
     ins = (ends, delta, a_vals, a_coords, b_vals, b_coords)
     dev = ends.device
     if dev.type != "cuda" or any(x.device != dev for x in ins):
@@ -80,6 +81,10 @@ def coo_expand_cuda(ends: torch.Tensor, delta: torch.Tensor,
         raise ValueError("side buffer shapes disagree")
     if ns == 0 or nb == 0:
         raise ValueError("coo_expand needs non-empty side buffers")
+    if cap + ns >= 2 ** 31:
+        raise ValueError(f"coo_expand_cuda counts slots and segments in "
+                         f"int32: cap + ns = {cap + ns} must stay below "
+                         "2**31")
     if not all(x.is_contiguous() for x in ins):
         raise ValueError("coo_expand_cuda needs contiguous inputs")
     code = merge_code(merge)
@@ -98,3 +103,4 @@ def coo_expand_cuda(ends: torch.Tensor, delta: torch.Tensor,
     build.check(rc, "coo_expand")
     build.count_launch("coo_expand")
     return idx, val
+

@@ -18,14 +18,29 @@ struct MergeCode {
   double c0, cx, cy, cxy;
 };
 
+// The merge with its coefficients converted to T once, for a loop of
+// merges.
+template <typename T>
+struct TypedMerge {
+  int op;
+  bool hx, hy, hxy;
+  T c0, cx, cy, cxy;
+  __device__ explicit TypedMerge(const MergeCode& m)
+      : op(m.op), hx(m.cx != 0.0), hy(m.cy != 0.0), hxy(m.cxy != 0.0),
+        c0(T(m.c0)), cx(T(m.cx)), cy(T(m.cy)), cxy(T(m.cxy)) {}
+  __device__ __forceinline__ T operator()(T x, T y) const {
+    if (op == MERGE_SAFE_DIV) {
+      return x == T(0) ? T(0) : x / (y == T(0) ? T(1) : y);
+    }
+    T r = c0;
+    if (hx) r = r + cx * x;
+    if (hy) r = r + cy * y;
+    if (hxy) r = r + cxy * (x * y);
+    return r;
+  }
+};
+
 template <typename T>
 __device__ __forceinline__ T apply_merge(const MergeCode& m, T x, T y) {
-  if (m.op == MERGE_SAFE_DIV) {
-    return x == T(0) ? T(0) : x / (y == T(0) ? T(1) : y);
-  }
-  T r = T(m.c0);
-  if (m.cx != 0.0) r = r + T(m.cx) * x;
-  if (m.cy != 0.0) r = r + T(m.cy) * y;
-  if (m.cxy != 0.0) r = r + T(m.cxy) * (x * y);
-  return r;
+  return TypedMerge<T>(m)(x, y);
 }

@@ -87,6 +87,143 @@ def test_coo_expand_kernel_matches_plain(cuda, density, merge, dtype, cdt,
     torch.testing.assert_close(val_k, val_p.to(dtype), atol=tol, rtol=tol)
 
 
+EXPAND_RUN = 256 * 8      # merge items a CTA takes (kThreads × kVt)
+EXPAND_TYPES = [(torch.float32, torch.int16, 1), (torch.float32, torch.int32, 2),
+                (torch.float64, torch.int16, 2), (torch.float64, torch.int32, 1)]
+
+
+def _counts_case(rng, case):
+    """Segment counts and a capacity for one shape of the merge path."""
+    rand = rng.integers(0, 6, 3000)
+    total = int(rand.sum())
+    cases = {
+        # one segment longer than a CTA's run, between short ones
+        "long segment": (np.r_[rand[:50], 20011, rand[50:100]], None),
+        # more empty segments in a row than a CTA's run holds, at the
+        # start, in the middle and at the end
+        "empty runs": (np.r_[np.zeros(12000, int), rand[:500],
+                             np.zeros(15000, int), rand[500:900],
+                             np.zeros(11000, int)], None),
+        "ns=1": (np.array([4321]), None),
+        "cap=1": (rand, 1),
+        "cap=run-1": (rand, EXPAND_RUN - 1),
+        "cap=run": (rand, EXPAND_RUN),
+        "cap=run+1": (rand, EXPAND_RUN + 1),
+        "cap past total": (rand, total + 5 * EXPAND_RUN + 3),
+        "all empty": (np.zeros(5000, int), 3 * EXPAND_RUN),
+    }
+    counts, cap = cases[case]
+    return counts, int(counts.sum()) if cap is None else cap
+
+
+def _inputs_from_counts(rng, counts, nb, cb, dtype, cdt, device, ca=2):
+    ns = counts.size
+    ends = np.cumsum(counts).astype(np.int32)
+    delta = (rng.integers(0, max(nb - 5, 1), ns) - (ends - counts)) \
+        .astype(np.int32)
+    t = lambda x, d: torch.as_tensor(np.asarray(x), dtype=d,  # noqa: E731
+                                     device=device)
+    return (t(ends, torch.int32), t(delta, torch.int32),
+            t(rng.normal(size=ns), dtype), t(rng.integers(0, 30000, (ns, ca)),
+                                              cdt),
+            t(rng.normal(size=nb), dtype), t(rng.integers(0, 30000, (nb, cb)),
+                                             cdt))
+
+
+@pytest.mark.parametrize("case", ["long segment", "empty runs", "ns=1",
+                                  "cap=1", "cap=run-1", "cap=run",
+                                  "cap=run+1", "cap past total", "all empty"])
+@pytest.mark.parametrize("dtype,cdt,cb", EXPAND_TYPES)
+def test_coo_expand_kernel_matches_plain_on_merge_path_edges(cuda, case,
+                                                             dtype, cdt, cb):
+    """Every slot below ``cap`` equal to the plain version, past the total
+    too, where a CTA's run of the merge is all slots, all ends, cut by
+    ``cap`` or one item off a run's length."""
+    rng = np.random.default_rng(20)
+    counts, cap = _counts_case(rng, case)
+    ins = _inputs_from_counts(rng, counts, 25000, cb, dtype, cdt, cuda)
+    fn = MERGES["affine"]
+    idx_k, val_k = coo_expand_cuda(*ins, merge=fn, cap=cap)
+    idx_p, val_p = coo_expand_plain(*ins, merge=fn, cap=cap)
+    assert idx_k.shape == (cap, 2 + cb)
+    assert torch.equal(idx_k, idx_p)
+    tol = TOL[dtype]
+    torch.testing.assert_close(val_k, val_p, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("ca,cb", [(1, 1), (3, 2), (2, 3), (12, 12)])
+@pytest.mark.parametrize("cdt", [torch.int16, torch.int32])
+def test_coo_expand_kernel_matches_plain_at_other_widths(cuda, ca, cb, cdt):
+    """Coordinate counts other than the joins' 2 + 1 and 2 + 2 take the
+    kernel's run-time widths; 12 + 12 int32 coordinates need shorter runs
+    to fit shared memory."""
+    rng = np.random.default_rng(23)
+    counts, cap = _counts_case(rng, "cap past total")
+    ins = _inputs_from_counts(rng, counts, 9000, cb, torch.float32, cdt,
+                              cuda, ca=ca)
+    fn = MERGES["add"]
+    idx_k, val_k = coo_expand_cuda(*ins, merge=fn, cap=cap)
+    idx_p, val_p = coo_expand_plain(*ins, merge=fn, cap=cap)
+    assert torch.equal(idx_k, idx_p)
+    torch.testing.assert_close(val_k, val_p, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,cdt,cb", EXPAND_TYPES)
+def test_coo_expand_writes_every_slot(cuda, dtype, cdt, cb):
+    """Outputs come from ``torch.empty``: blocks the allocator hands back
+    filled with junk must come out equal to the plain version, on a cap
+    that is no multiple of a run and whose idx rows start off 16-byte
+    boundaries."""
+    rng = np.random.default_rng(21)
+    counts = rng.integers(0, 40, 4000) * (rng.uniform(size=4000) < 0.5)
+    cap = int(counts.sum()) + 777
+    ins = _inputs_from_counts(rng, counts, 9000, cb, dtype, cdt, cuda)
+    fn = MERGES["mul"]
+    want = coo_expand_plain(*ins, merge=fn, cap=cap)
+    for _ in range(2):
+        junk = (torch.full((cap, 2 + cb), -7, dtype=cdt, device=cuda),
+                torch.full((cap,), float("nan"), dtype=dtype, device=cuda))
+        del junk                  # the caching allocator reuses the blocks
+        idx, val = coo_expand_cuda(*ins, merge=fn, cap=cap)
+        assert torch.equal(idx, want[0])
+        torch.testing.assert_close(val, want[1], atol=TOL[dtype],
+                                   rtol=TOL[dtype])
+
+
+def test_v2v_join_with_nan_on_the_card_matches_cpu(cuda):
+    """The V2V NaN fault's operands and operands full of ±0.0, NaN and
+    ±inf, joined on ``VAL=VAL`` through ``coo_expand`` on the card: the
+    entries of the same query on the CPU."""
+    from repro_torch.core import Session
+    from repro_torch.core.sparsity import product_merge, sum_merge
+    rng = np.random.default_rng(22)
+    specials = np.array([np.nan, -np.nan, np.inf, -np.inf, -0.0, 1.0, 2.0],
+                        np.float32)
+
+    def operand(m, n):
+        v = np.round(rng.normal(size=(m, n)), 1).astype(np.float32)
+        v[rng.uniform(size=(m, n)) < 0.7] = 0
+        pick = rng.uniform(size=(m, n)) < 0.2
+        v[pick] = rng.choice(specials, int(pick.sum()))
+        return v
+
+    pairs = [(np.array([[np.nan, 1, 0], [2, 0, 3]], np.float32),
+              np.array([[1, 1, 0], [2, 0, np.nan]], np.float32)),
+             (operand(40, 30), operand(35, 50))]
+    for a, b in pairs:
+        for merge in (product_merge(), sum_merge()):
+            got = {}
+            for dev in ("cpu", "cuda"):
+                s = Session(block_size=16, device=dev)
+                build.reset_launches()
+                got[dev] = s.load(a, "A").join(s.load(b, "B"), "VAL=VAL",
+                                               merge).collect()
+            assert build.LAUNCHES["coo_expand"] == 1
+            assert np.array_equal(got["cuda"].idx, got["cpu"].idx)
+            np.testing.assert_allclose(got["cuda"].val, got["cpu"].val,
+                                       atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("n", [4096, 4096 + 17, 1])
 def test_bloom_probe_kernel_matches_plain(cuda, n):
     rng = np.random.default_rng(1)

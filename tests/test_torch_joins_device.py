@@ -16,6 +16,7 @@ from repro.core.matrix import BlockMatrix as JBlockMatrix
 from repro.core.predicates import parse_join as j_parse_join
 from repro.core.sparsity import (
     analyze_merge as j_analyze, product_merge as j_product,
+    sum_merge as j_sum,
 )
 from repro_torch.core import joins_device as tdev
 from repro_torch.core.expr import MergeFn
@@ -120,6 +121,97 @@ def test_device_tier_matches_reference_device_tier(rng, pred_s, density):
                           np.asarray(j.idx)[valid].astype(np.int64))
     np.testing.assert_allclose(t.val.numpy()[valid], np.asarray(j.val)[valid],
                                atol=1e-5, rtol=1e-5)
+
+
+# the operands of the V2V NaN fault: torch.searchsorted over floats puts a
+# NaN key elsewhere than jnp.searchsorted, and the tier once paired a 1
+# with the NaN and dropped the NaN pair
+NAN_A = np.array([[np.nan, 1, 0], [2, 0, 3]], np.float32)
+NAN_B = np.array([[1, 1, 0], [2, 0, np.nan]], np.float32)
+SPECIALS = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0, -1.0],
+                    np.float32)
+_V2V_CAP = 2048            # ≥ every pair of the 6×5 and 6×7 operands
+
+
+def _special(rng, m, n, density):
+    """``_sparse`` operands with ±0.0, NaN of both signs and ±inf written
+    over a third of the entries, and -0.0 over some of the zeros."""
+    v = _sparse(rng, m, n, density)
+    live = v != 0
+    pick = live & (rng.uniform(size=v.shape) < 1 / 3)
+    v[pick] = rng.choice(SPECIALS, int(pick.sum()))
+    v[~live & (rng.uniform(size=v.shape) < 0.2)] = -0.0
+    return v
+
+
+_V2V_JITTED = {}
+
+
+def _v2v_both(merge_name, a, b):
+    """One V2V join through both device tiers (Bloom pre-filter on), under
+    ``x*y`` (zeros skipped) or ``x+y`` (zeros join)."""
+    jm, tm = {"mul": (j_product(), product_merge()),
+              "add": (j_sum(), sum_merge())}[merge_name]
+    cap, ca, cb = _V2V_CAP, a.size, b.size
+    fn = _V2V_JITTED.get((merge_name, a.shape, b.shape))
+    if fn is None:
+        prof = j_analyze(jm)
+        fn = _V2V_JITTED[merge_name, a.shape, b.shape] = jax.jit(
+            lambda x, y: jdev.v2v_device(x, y, jm.fn, prof, cap, cap_a=ca,
+                                         cap_b=cb, use_bloom=True))
+    want = fn(jnp.asarray(a), jnp.asarray(b))
+    got = tdev.v2v_device(torch.as_tensor(a), torch.as_tensor(b), tm.fn,
+                          analyze_merge(tm), cap, cap_a=ca, cap_b=cb,
+                          use_bloom=True)
+    return want, got
+
+
+def _assert_same_coo(t, j):
+    assert int(t.total) == int(j.total)
+    valid = t.valid.numpy()
+    assert np.array_equal(valid, np.asarray(j.valid))
+    assert np.array_equal(t.idx.numpy()[valid].astype(np.int64),
+                          np.asarray(j.idx)[valid].astype(np.int64))
+    np.testing.assert_allclose(t.val.numpy()[valid], np.asarray(j.val)[valid],
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("merge_name", ["mul", "add"])
+def test_v2v_device_tier_pairs_nan_as_the_reference(merge_name):
+    """The fault's operands: the reference gives (0,0,1,2)=nan,
+    (0,1,0,0), (0,1,0,1) and (1,0,1,0)=4 under both merges."""
+    j, t = _v2v_both(merge_name, NAN_A, NAN_B)
+    _assert_same_coo(t, j)
+    valid = t.valid.numpy()
+    assert t.idx.numpy()[valid].tolist() == [
+        [0, 0, 1, 2], [0, 1, 0, 0], [0, 1, 0, 1], [1, 0, 1, 0]]
+
+
+@pytest.mark.parametrize("density", DENSITIES)
+@pytest.mark.parametrize("merge_name", ["mul", "add"])
+def test_v2v_device_tier_matches_reference_on_special_values(rng, merge_name,
+                                                             density):
+    a, b = _special(rng, 6, 5, density), _special(rng, 6, 7, density)
+    j, t = _v2v_both(merge_name, a, b)
+    _assert_same_coo(t, j)
+
+
+def test_order_key_orders_as_the_reference():
+    """Sorting and searching on the integer keys give ``jnp.argsort``'s
+    order and ``jnp.searchsorted``'s bounds, f32 and f64."""
+    vals = np.array([np.nan, 1, -0.0, np.inf, 0.0, -np.nan, -np.inf, -1,
+                     1e-30, -1e-30, 2, 1], np.float32)
+    for dt in (np.float32, np.float64):
+        v = vals.astype(dt)
+        order = np.array(jnp.argsort(jnp.asarray(v)))
+        key = tdev._order_key(torch.as_tensor(v))
+        assert np.array_equal(torch.argsort(key, stable=True).numpy(), order)
+        sk = jnp.asarray(v[order])
+        tk = key[torch.as_tensor(order)]
+        for side in ("left", "right"):
+            assert np.array_equal(
+                torch.searchsorted(tk, key, side=side).numpy(),
+                np.asarray(jnp.searchsorted(sk, jnp.asarray(v), side=side)))
 
 
 @pytest.mark.parametrize("density", DENSITIES)

@@ -150,3 +150,46 @@ def test_reference_catalog_runs_in_the_port(rng):
     want = float(np.asarray(jx.t().multiply(jx).trace().collect().value)[0, 0])
     got = float(m["X"].t().multiply(m["X"]).trace().collect().value[0, 0])
     assert got == pytest.approx(want, rel=1e-4)
+
+
+# the V2V NaN fault's operands (the DAG engine's device tier once paired a
+# 1 with the NaN and dropped the NaN pair), and operands holding ±0.0, NaN
+# of both signs and ±inf among rounded normals
+_NAN_A = np.array([[np.nan, 1, 0], [2, 0, 3]], np.float32)
+_NAN_B = np.array([[1, 1, 0], [2, 0, np.nan]], np.float32)
+_SPECIALS = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, 1.0],
+                     np.float32)
+
+
+def _special_operand(rng, m, n):
+    v = np.round(np.where(rng.uniform(size=(m, n)) < 0.3,
+                          rng.normal(size=(m, n)), 0), 1).astype(np.float32)
+    pick = rng.uniform(size=(m, n)) < 0.3
+    v[pick] = rng.choice(_SPECIALS, int(pick.sum()))
+    return v
+
+
+@pytest.mark.parametrize("bs", [4, 256])
+@pytest.mark.parametrize("merge", ["mul", "add"])
+@pytest.mark.parametrize("operands", ["fault", "specials"])
+def test_v2v_join_with_nan_matches_reference(rng, operands, merge, bs):
+    """``VAL=VAL`` on the DAG engine (the staged device tier) against the
+    reference's ``Session``: the same entries in the same order."""
+    from repro.core.sparsity import product_merge as j_mul
+    from repro.core.sparsity import sum_merge as j_add
+    from repro_torch.core.sparsity import sum_merge
+    if operands == "fault":
+        a, b = _NAN_A, _NAN_B
+    else:
+        a, b = _special_operand(rng, 10, 9), _special_operand(rng, 8, 11)
+    tm, jm = {"mul": (product_merge(), j_mul()),
+              "add": (sum_merge(), j_add())}[merge]
+    s, js = Session(block_size=bs, device="cpu"), JSession(block_size=bs)
+    got = s.load(a, "A").join(s.load(b, "B"), "VAL=VAL", tm).collect()
+    want = js.load(a, "A").join(js.load(b, "B"), "VAL=VAL", jm).collect()
+    assert got.nnz == want.nnz
+    assert np.array_equal(got.idx, want.idx)
+    np.testing.assert_allclose(got.val, want.val, atol=1e-5, rtol=1e-5)
+    if operands == "fault":
+        assert got.idx.tolist() == [[0, 0, 1, 2], [0, 1, 0, 0], [0, 1, 0, 1],
+                                    [1, 0, 1, 0]]
