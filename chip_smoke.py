@@ -37,18 +37,25 @@ integers and bitsets exact, f32 values within atol/rtol 1e-5, the
 ``masked_matmul`` and ``sddmm_agg`` bit-identical from launch to launch;
 its time by CUDA events is printed beside the plain version's time, the
 least time the card could take (the bound) and, where one PyTorch call
-computes the same function, that call's time. ``masked_matmul``'s line
+computes the same function, that call's time. Every kernel's line adds
+its device time by torch.profiler (its launches without the host's
+enqueue gaps; ``device_ms`` in the JSON rows). ``masked_matmul``'s line
 adds its all-dead end (TB/s of zero stores), its all-live end (TFLOP/s)
 and its persistent pool (SMs × CTAs per SM); ``sddmm_agg``'s lines add
-the ``torch.einsum`` path, the kernel's device time by torch.profiler
-(its three launches without the host's enqueue gaps), the all-dead end
-(also by torch.profiler: at a few microseconds the CUDA events time the
-host's enqueue), the all-live end (TB/s of sp and TFLOP/s) and the pool.
-``coo_expand``'s and ``bloom_probe``'s lines add their device time by
-torch.profiler (also ``device_ms`` in their JSON rows), and
-``coo_expand``'s the TB/s of its counted bytes by both clocks.
-``coo_expand`` is held to its plain version on every slot, past the
-join's total too.
+the ``torch.einsum`` path, the all-dead end (also by torch.profiler: at
+a few microseconds the CUDA events time the host's enqueue), the
+all-live end (TB/s of sp and TFLOP/s) and the pool. ``coo_expand``'s
+and ``bloom_probe``'s lines add the TB/s of their counted bytes by both
+clocks and the host's microseconds a call over 1000 calls with no
+synchronize (``host_us`` in the JSON rows); ``bloom_probe``'s also its
+path (shared or global memory), grid and shared memory, and its device
+time on Q5's values at ``log2_bits`` 12 and 21 (a small bitset in
+shared memory, and the global path), each held to the plain version.
+``coo_expand`` is held to its plain
+version on every slot, past the join's total too. Q5's Bloom filter,
+which the main path builds over B's compacted entries, is held bit for
+bit to the plain ``bloom.build`` over all of B's cells (x*y skips
+zeros), with both builds' device times.
 
 Output: the card's name and power limit (``nvidia-smi``), the build time,
 after a fresh build the ptxas registers and spills of each ``coo_expand``
@@ -326,6 +333,7 @@ def run_queries(m, data, ref, n):
     assert np.array_equal(r.val[pick], av * bv), "Q5 sampled values"
     out[-1]["check"] = (f"{r.nnz} matches (cap {root.meta['cap']}), "
                         f"{pick.size} sampled entries exact")
+    out[-1]["cap_sides"] = root.meta.get("cap_sides")
 
     # Q6 σ rows≠NULL
     r = timed("Q6 rows!=NULL", m["Xd"].select("rows != NULL"))
@@ -460,6 +468,21 @@ def device_time_ms(fn, reps: int = REPS) -> float:
         / reps / 1e3
 
 
+def host_us_per_call(fn, calls: int = 1000) -> float:
+    """Host time of one call of ``fn``: ``calls`` calls back to back with
+    no synchronize between them, so the card's work overlaps and what is
+    timed is the wrapper's Python and the launch."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
 def bound(bytes_moved: float, ops: float):
     tb, to = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
@@ -510,9 +533,11 @@ def kernel_phase(name, calls):
     product (``torch.matmul(w, h)`` fills the dead tiles too; its time is
     printed as a dense product, not the same function)."""
     import torch
+    from repro_torch.core import bloom
     from repro_torch.kernels.bloom_probe import (
         bloom_probe_cuda, bloom_probe_plain,
     )
+    from repro_torch.kernels.bloom_probe import plan as bloom_plan
     from repro_torch.kernels.coo_join import coo_expand_cuda, coo_expand_plain
     from repro_torch.kernels.masked_matmul import (
         masked_matmul_cuda, masked_matmul_plain,
@@ -528,6 +553,7 @@ def kernel_phase(name, calls):
     details = []
     for args, kw in calls:
         library = dense = agg = rate = None
+        extra = ""
         if name == "coo_expand":
             ends, delta, av, ac, bv, bc = args
             cap = kw["cap"]
@@ -548,11 +574,32 @@ def kernel_phase(name, calls):
             words, vals = args
             kern = lambda: bloom_probe_cuda(words, vals, **kw)  # noqa: E731
             plain = lambda: bloom_probe_plain(words, vals, **kw)  # noqa: E731
-            assert torch.equal(kern(), plain()), "bloom_probe bits"
+            want = plain()
+            assert torch.equal(kern(), want), "bloom_probe bits"
             err = 0.0
             nbytes = vals.nbytes + words.nbytes + vals.numel()
             ops = vals.numel() * kw["num_hashes"] * 10
             shape = f"n={vals.numel()} words={words.numel()}"
+            rate = nbytes
+            p = bloom_plan(words, vals, **kw)
+            extra = (f"; path {p['path']}, cluster 1 (no multicast), grid "
+                     f"{p['grid']} x {p['threads']}, shared memory "
+                     f"{p['smem_bytes']} B, bitset by TMA {p['tma']}")
+            # both paths off the main path's size: a filter of Q5's values
+            # at a small bitset (shared) and past 128 KiB (global)
+            sweep = {}
+            for bits in (12, 21):
+                kb = dict(kw, log2_bits=bits)
+                wb = bloom.build(vals, bloom.BloomParams(
+                    log2_bits=bits, num_hashes=kw["num_hashes"]))
+                fn = lambda wb=wb, kb=kb: bloom_probe_cuda(  # noqa: E731
+                    wb, vals, **kb)
+                assert torch.equal(fn(), bloom_probe_plain(wb, vals, **kb)), \
+                    f"bloom_probe bits at log2_bits {bits}"
+                sweep[bits] = (bloom_plan(wb, vals, **kb)["path"],
+                               device_time_ms(fn))
+            extra += "; device ms by log2_bits " + ", ".join(
+                f"{b}: {t:.4f} ({path})" for b, (path, t) in sweep.items())
         elif name == "masked_matmul":
             w, h, mask = args
             bs = kw["block_size"]
@@ -650,24 +697,53 @@ def kernel_phase(name, calls):
             opt = torch.backends.opt_einsum
             path = (f"opt_einsum {opt.strategy}" if opt.is_available()
                     and opt.enabled else "left to right")
-            dev = device_time_ms(kern)
-            lib += (f" (torch.einsum, {path}); device {dev:.4f} ms; "
+            lib += (f" (torch.einsum, {path}); "
                     f"kernel with every tile dead {split[False]:.4f} ms "
                     f"(device {device_time_ms(ends[False]):.4f} ms), live "
                     f"{split[True]:.4f} ms ({tbs:.3f} TB/s of sp, "
                     f"{tflops:.2f} TFLOP/s); pool {sms} SMs x {per_sm} CTAs")
+        # the kernels' own time: the CUDA events may time the host's enqueue
+        dev = device_time_ms(kern)
+        row["device_ms"] = row.get("device_ms", 0.0) + dev
+        lib += f"; device {dev:.4f} ms"
+        if rate is not None:
+            lib += (f", {rate / ms / 1e9:.3f} TB/s (events), "
+                    f"{rate / dev / 1e9:.3f} TB/s (device)")
         if name in ("coo_expand", "bloom_probe"):
-            # small calls: the CUDA events may time the host's enqueue
-            dev = device_time_ms(kern)
-            row["device_ms"] = row.get("device_ms", 0.0) + dev
-            lib += f"; device {dev:.4f} ms"
-            if rate is not None:
-                lib += (f", {rate / ms / 1e9:.3f} TB/s (events), "
-                        f"{rate / dev / 1e9:.3f} TB/s (device)")
+            host = host_us_per_call(kern)
+            row["host_us"] = row.get("host_us", 0.0) + host
+            lib += f"; host {host:.2f} us a call (1000 calls, no synchronize)"
+        lib += extra
         details.append(f"  {name} [{shape}]: {ms:.4f} ms (plain {pms:.4f} "
                        f"ms{lib}, bound {bms:.4f} ms by {by}, "
                        f"{nbytes / 1e6:.1f} MB), max |err| {err:.3g}")
     return row, details
+
+
+def bloom_build_phase(b, records, calls) -> str:
+    """Q5's filter as the main path built it (over B's compacted entries)
+    against the plain ``bloom.build`` over all of B's cells, bit for bit,
+    and both builds' device times."""
+    import torch
+    from repro_torch.core import bloom
+    from repro_torch.core import joins_device as jd
+    (words, _), kw = calls[0]
+    params = bloom.BloomParams(log2_bits=kw["log2_bits"],
+                               num_hashes=kw["num_hashes"])
+    q5 = next(r for r in records if r["query"].startswith("Q5"))
+    cap_b = (q5.get("cap_sides") or (None, None))[1] or b.numel()
+    flat = b.reshape(-1)
+    idx_b, nb, slot_b = jd._entry_compact(jd._live(b, True), cap_b)
+    compact = lambda: bloom.build_live(flat[idx_b], slot_b, params)  # noqa
+    full = lambda: bloom.build(b, params, skip_zeros=True)  # noqa: E731
+    assert int(nb) <= cap_b, "Q5: B's entries overflow cap_b"
+    assert torch.equal(compact(), words), "Q5 filter vs compacted build"
+    assert torch.equal(full(), words), "Q5 filter vs build over all cells"
+    tc, tf = device_time_ms(compact, 5), device_time_ms(full, 5)
+    return (f"Q5 Bloom filter: the main path's, built from {int(nb)} "
+            f"compacted entries (cap_b {cap_b}), equals bloom.build over all "
+            f"{b.numel()} cells bit for bit; build device {tc:.4f} ms "
+            f"(compacted) against {tf:.4f} ms (all cells)")
 
 
 _TYPES = {"f": "float", "d": "double", "s": "int16", "i": "int32"}
@@ -780,8 +856,9 @@ def main(argv=None) -> int:
                      "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
                      "library_ms": row["library_ms"]})
-        if "device_ms" in row:
-            rows[-1]["device_ms"] = row["device_ms"]
+        rows[-1].update((k, row[k]) for k in ("device_ms", "host_us")
+                        if k in row)
+    print(bloom_build_phase(s.env["Bq"].value, records, calls["bloom_probe"]))
     walls, busy_s, top = warm_profile(records)
     print("warm rerun: " + ", ".join(
         f"{r['query'].split()[0]} {w:.4f} s" for r, w in zip(records, walls))

@@ -83,9 +83,16 @@ def build(vals: torch.Tensor, params: BloomParams = BloomParams(),
     entries scatter into one extra sentinel slot, dropped before packing.
     """
     flat = vals.reshape(-1)
-    keys = _value_keys(flat)
     live = (flat != 0) if skip_zeros else torch.ones_like(flat, dtype=torch.bool)
-    bits = torch.zeros(params.n_bits + 1, dtype=torch.bool, device=flat.device)
+    return build_live(flat, live, params)
+
+
+def build_live(vals: torch.Tensor, live: torch.Tensor,
+               params: BloomParams = BloomParams()) -> torch.Tensor:
+    """Build a bitset (uint32[n_words]) of the values where ``live`` holds
+    (``vals`` and ``live`` flat, of one length)."""
+    keys = _value_keys(vals)
+    bits = torch.zeros(params.n_bits + 1, dtype=torch.bool, device=vals.device)
     sentinel = params.n_bits
     for i in range(params.num_hashes):
         idx = torch.where(live, _hash(keys, i, params.log2_bits), sentinel)

@@ -249,15 +249,19 @@ def v2v_device(a: torch.Tensor, b: torch.Tensor, merge: Callable,
     cap_b = bv.shape[0] if cap_b is None else min(cap_b, bv.shape[0])
     idx_a, na, slot_a = _entry_compact(_live(a, skip_zeros), cap_a)
     idx_b, nb, slot_b = _entry_compact(_live(b, skip_zeros), cap_b)
-    avc = av[idx_a]
+    avc, bvc = av[idx_a], bv[idx_b]
     if use_bloom:
-        filt = bloommod.build(bv, bloom_params, skip_zeros=skip_zeros)
+        # over B's compacted entries, not its m·n cells: with every live
+        # cell in (nb <= cap_b) the live slots are the cells
+        # bloom.build(bv, skip_zeros) inserts, so the bitset is the same
+        # bit for bit; with nb > cap_b the join comes back overflowed
+        filt = bloommod.build_live(bvc, slot_b, bloom_params)
         hits = registry.dispatch(
             "bloom_probe", filt, avc, backend=kernel_backend,
             num_hashes=bloom_params.num_hashes,
             log2_bits=bloom_params.log2_bits)
         slot_a = slot_a & hits
-    sort_key = torch.where(slot_b, bv[idx_b], float("inf"))
+    sort_key = torch.where(slot_b, bvc, float("inf"))
     # sort and search on the reference's total order (see _order_key);
     # stable, as jnp.argsort: equal values keep their row-major order
     ikey = _order_key(sort_key)

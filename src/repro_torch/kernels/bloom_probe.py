@@ -7,16 +7,23 @@ built on either the host or the card probe identically on both.
 
 ``bloom_probe_plain`` is the plain PyTorch version (any device);
 ``bloom_probe_cuda`` launches the kernel of ``csrc/bloom_probe.cu`` on a
-CUDA tensor and raises on anything else.
+CUDA tensor and raises on anything else. A bitset of at most 128 KiB
+(``log2_bits`` <= 20) is probed from shared memory, copied into each CTA
+by TMA bulk copies; a larger one from global memory. ``plan`` says which
+launch a call makes.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import torch
 
 from repro_torch.core.bloom import BloomParams, probe
 from repro_torch.kernels import build
+
+_WORD_TYPES = (torch.uint32, torch.int32)
+PATHS = {1: "shared", 2: "global"}
 
 
 def bloom_probe_plain(words: torch.Tensor, vals: torch.Tensor, *,
@@ -29,27 +36,43 @@ def bloom_probe_plain(words: torch.Tensor, vals: torch.Tensor, *,
 def bloom_probe_cuda(words: torch.Tensor, vals: torch.Tensor, *,
                      num_hashes: int = 3, log2_bits: int = 20
                      ) -> torch.Tensor:
-    """Launch the CUDA kernel (one thread per value) → bool [n]."""
-    dev = vals.device
-    if dev.type != "cuda" or words.device != dev:
+    """Launch the CUDA kernel → bool, the shape of ``vals``. The checks
+    read tensor metadata only; the launch goes on the caller's stream."""
+    if not vals.is_cuda or words.get_device() != vals.get_device():
         raise ValueError("bloom_probe_cuda needs words and values on one "
                          f"CUDA device, got {words.device}, {vals.device}")
-    if words.dtype not in (torch.uint32, torch.int32) or words.ndim != 1 \
-            or words.shape[0] != (1 << log2_bits) // 32:
+    if words.dtype not in _WORD_TYPES or words.dim() != 1 \
+            or words.size(0) != (1 << log2_bits) // 32:
         raise ValueError(f"words must be uint32 [{(1 << log2_bits) // 32}], "
                          f"got {words.dtype} {tuple(words.shape)}")
     if not 5 <= log2_bits <= 31:
         raise ValueError(f"log2_bits {log2_bits} outside [5, 31]")
     if vals.dtype != torch.float32:
         vals = vals.to(torch.float32)   # keys are float32 bit patterns
-    flat = vals.reshape(-1).contiguous()
-    words = words.contiguous()
-    out = torch.empty(flat.shape, dtype=torch.bool, device=dev)
-    if flat.numel() == 0:
-        return out.reshape(vals.shape)
-    rc = build.library().bloom_probe_launch(
-        words.data_ptr(), flat.data_ptr(), ctypes.c_longlong(flat.numel()),
-        num_hashes, log2_bits, out.data_ptr(), build.stream_ptr(flat))
-    build.check(rc, "bloom_probe")
-    build.count_launch("bloom_probe")
-    return out.reshape(vals.shape)
+    flat = vals if vals.dim() == 1 and vals.is_contiguous() \
+        else vals.reshape(-1).contiguous()
+    if not words.is_contiguous():
+        words = words.contiguous()
+    out = torch.empty_like(flat, dtype=torch.bool)
+    n = out.numel()
+    if n:
+        rc = build.function("bloom_probe_launch")(
+            words.data_ptr(), flat.data_ptr(), n, num_hashes, log2_bits,
+            out.data_ptr(), build.stream_ptr(flat))
+        build.check(rc, "bloom_probe")
+        build.count_launch("bloom_probe")
+    return out if vals.dim() == 1 else out.view(vals.shape)
+
+
+def plan(words: torch.Tensor, vals: torch.Tensor, *, num_hashes: int = 3,
+         log2_bits: int = 20) -> Dict[str, int]:
+    """The launch ``bloom_probe_cuda`` makes for these tensors: path
+    (``shared`` or ``global``), grid, threads a CTA, dynamic
+    shared-memory bytes and whether TMA copies the bitset."""
+    info = (ctypes.c_int * 5)()
+    rc = build.function("bloom_probe_plan")(
+        words.data_ptr(), vals.data_ptr(), vals.numel(), num_hashes,
+        log2_bits, info)
+    build.check(rc, "bloom_probe plan")
+    return {"path": PATHS[info[0]], "grid": info[1], "threads": info[2],
+            "smem_bytes": info[3], "tma": bool(info[4])}

@@ -11,6 +11,11 @@ a source changes.
 ``LAUNCHES`` counts kernel launches by kernel name: each CUDA wrapper
 adds one where it launches its kernel, and nowhere else.
 
+A wrapper's launch path: ``function(name)`` is the bound C function,
+looked up once (the first lookup builds and loads the library, under its
+lock); ``stream_ptr(t)`` is the caller's current stream on ``t``'s
+device; ``check`` raises on a non-zero return.
+
     python -m repro_torch.kernels.build   # build now, print ptxas usage
 """
 from __future__ import annotations
@@ -25,6 +30,8 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -35,6 +42,7 @@ LAUNCHES: Dict[str, int] = {"coo_expand": 0, "bloom_probe": 0,
                             "sddmm_agg": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
+_FNS: Dict[str, ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 BUILD_INFO: Dict[str, object] = {}
 
@@ -113,6 +121,8 @@ def _bind(lib: ctypes.CDLL) -> None:
         I, D, D, D, D,        # merge op, c0, cx, cy, cxy
         P, P, P]              # idx out, val out, stream
     lib.bloom_probe_launch.argtypes = [P, P, L, I, I, P, P]
+    lib.bloom_probe_plan.argtypes = [
+        P, P, L, I, I, ctypes.POINTER(I)]  # words, vals, n, k, log2, info
     lib.merge_join_launch.argtypes = [
         I, P, P, P, P, P,     # value dtype code, a, b, mask_a, mask_b, out
         L, L, I, I, I,        # m, n, block size, mode, vectorised
@@ -133,6 +143,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.sddmm_agg_pool.argtypes = [
         I, ctypes.POINTER(I), ctypes.POINTER(I)]  # dtype code, SMs, per SM
     for fn in (lib.coo_expand_launch, lib.bloom_probe_launch,
+               lib.bloom_probe_plan,
                lib.merge_join_launch, lib.masked_matmul_launch,
                lib.masked_matmul_pool, lib.sddmm_agg_launch,
                lib.sddmm_agg_pool):
@@ -160,6 +171,14 @@ def library() -> ctypes.CDLL:
         return _LIB
 
 
+def function(name: str) -> ctypes._CFuncPtr:
+    """The library's bound C function ``name``, looked up once."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = _FNS[name] = getattr(library(), name)
+    return fn
+
+
 def check(rc: int, name: str) -> None:
     """Raise if a launch returned a CUDA error."""
     if rc != 0:
@@ -169,8 +188,8 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_ptr(t) -> int:
-    import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The caller's current CUDA stream on ``t``'s device, as an int."""
+    return torch.cuda.current_stream(t.get_device()).cuda_stream
 
 
 if __name__ == "__main__":

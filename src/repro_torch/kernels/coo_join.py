@@ -25,7 +25,6 @@ CUDA tensor and raises on anything else.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Callable, Tuple
 
 import torch
@@ -61,8 +60,8 @@ def coo_expand_cuda(ends: torch.Tensor, delta: torch.Tensor,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel; it writes every slot below ``cap``."""
     ins = (ends, delta, a_vals, a_coords, b_vals, b_coords)
-    dev = ends.device
-    if dev.type != "cuda" or any(x.device != dev for x in ins):
+    dev = ends.get_device()
+    if dev < 0 or any(x.get_device() != dev for x in ins):
         raise ValueError("coo_expand_cuda needs every input on one CUDA "
                          f"device, got {[str(x.device) for x in ins]}")
     ns, nb = ends.shape[0], b_vals.shape[0]
@@ -89,16 +88,15 @@ def coo_expand_cuda(ends: torch.Tensor, delta: torch.Tensor,
         raise ValueError("coo_expand_cuda needs contiguous inputs")
     code = merge_code(merge)
     ca, cb = a_coords.shape[1], b_coords.shape[1]
-    idx = torch.empty((cap, ca + cb), dtype=a_coords.dtype, device=dev)
-    val = torch.empty((cap,), dtype=a_vals.dtype, device=dev)
+    idx = a_coords.new_empty((cap, ca + cb))
+    val = a_vals.new_empty((cap,))
     if cap == 0:
         return idx, val
-    lib = build.library()
-    rc = lib.coo_expand_launch(
+    rc = build.function("coo_expand_launch")(
         _VALUE_CODES[a_vals.dtype], _COORD_CODES[a_coords.dtype],
         ends.data_ptr(), delta.data_ptr(), a_vals.data_ptr(),
         a_coords.data_ptr(), b_vals.data_ptr(), b_coords.data_ptr(),
-        ns, nb, ca, cb, ctypes.c_longlong(cap), code.op, *code.coeffs,
+        ns, nb, ca, cb, cap, code.op, *code.coeffs,
         idx.data_ptr(), val.data_ptr(), build.stream_ptr(ends))
     build.check(rc, "coo_expand")
     build.count_launch("coo_expand")

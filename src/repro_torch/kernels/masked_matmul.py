@@ -83,7 +83,7 @@ def masked_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
         return out
     mask = out_block_mask.contiguous()
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    rc = build.library().masked_matmul_launch(
+    rc = build.function("masked_matmul_launch")(
         _VALUE_CODES[a.dtype], a.data_ptr(), b.data_ptr(), mask.data_ptr(),
         out.data_ptr(), m, n, k, *a.stride(), *b.stride(), bs,
         build.stream_ptr(a), counter.data_ptr())
@@ -96,7 +96,7 @@ def pool() -> Tuple[int, int]:
     """(SMs, CTAs per SM) of ``masked_matmul_cuda``'s persistent pool for
     float32 on the current CUDA device, as the launch sizes its grid."""
     sms, per_sm = ctypes.c_int(), ctypes.c_int()
-    rc = build.library().masked_matmul_pool(
+    rc = build.function("masked_matmul_pool")(
         _VALUE_CODES[torch.float32], ctypes.byref(sms), ctypes.byref(per_sm))
     build.check(rc, "masked_matmul pool query")
     return sms.value, per_sm.value

@@ -98,7 +98,7 @@ def merge_join_cuda(a: torch.Tensor, b: torch.Tensor, mask_a: torch.Tensor,
     width = 16 // a.element_size()
     vec = int(n % width == 0 and bs % width == 0
               and all(x.data_ptr() % 16 == 0 for x in (a, b, out)))
-    rc = build.library().merge_join_launch(
+    rc = build.function("merge_join_launch")(
         _VALUE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
         mask_a.data_ptr(), mask_b.data_ptr(), out.data_ptr(),
         ctypes.c_longlong(m), ctypes.c_longlong(n), bs, mode, vec,

@@ -103,7 +103,7 @@ def sddmm_agg_cuda(sp: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
     out = torch.empty(shape, dtype=sp.dtype, device=dev)
     units = torch.empty(um * un + 1, dtype=torch.int32, device=dev)
     mask = out_block_mask.contiguous()
-    rc = build.library().sddmm_agg_launch(
+    rc = build.function("sddmm_agg_launch")(
         _VALUE_CODES[sp.dtype], sp.data_ptr(), w.data_ptr(), h.data_ptr(),
         mask.data_ptr(), units.data_ptr(), part.data_ptr(), out.data_ptr(),
         m, n, k, *sp.stride(), *w.stride(), *h.stride(), bs,
@@ -117,7 +117,7 @@ def pool() -> Tuple[int, int]:
     """(SMs, CTAs per SM) of ``sddmm_agg_cuda``'s persistent pool for
     float32 on the current CUDA device, as the launch sizes its grid."""
     sms, per_sm = ctypes.c_int(), ctypes.c_int()
-    rc = build.library().sddmm_agg_pool(
+    rc = build.function("sddmm_agg_pool")(
         _VALUE_CODES[torch.float32], ctypes.byref(sms), ctypes.byref(per_sm))
     build.check(rc, "sddmm_agg pool query")
     return sms.value, per_sm.value

@@ -239,6 +239,125 @@ def test_bloom_probe_kernel_matches_plain(cuda, n):
     assert bool(bloom_probe_cuda(words, members).all())
 
 
+BLOOM_SPECIALS = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0],
+                          np.float32)
+Q5_N = 268296              # the main path's Q5 probe: values a call
+
+
+def _bloom_case(rng, n, log2_bits, num_hashes, offset=0, device="cuda"):
+    """Members (small integers and the special values) built into a
+    filter, and ``n`` probe values (members, non-members and specials)
+    starting ``offset`` elements into their buffer."""
+    members = np.concatenate([rng.integers(1, 5000, 3000), BLOOM_SPECIALS])
+    params = tbloom.BloomParams(log2_bits=log2_bits, num_hashes=num_hashes)
+    words = tbloom.build(torch.as_tensor(members.astype(np.float32),
+                                         device=device), params,
+                         skip_zeros=False)
+    pool = np.concatenate([rng.integers(1, 10000, n + offset),
+                           BLOOM_SPECIALS]).astype(np.float32)
+    buf = torch.as_tensor(rng.permutation(pool)[:n + offset], device=device)
+    return words, buf[offset:], members
+
+
+def _check_bloom(words, vals, **kw):
+    got = bloom_probe_cuda(words, vals, **kw)
+    want = bloom_probe_plain(words, vals, **kw)
+    assert got.dtype == torch.bool and got.shape == vals.shape
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [0, 1, 3, 255, 257, Q5_N])
+def test_bloom_probe_matches_plain_at_every_length(cuda, n, offset):
+    """Lengths around the four-value groups and the scalar head and tail;
+    ``offset`` 1 moves the values off their 16-byte boundary."""
+    rng = np.random.default_rng(n + offset)
+    words, vals, _ = _bloom_case(rng, n, 20, 3, offset)
+    before = build.LAUNCHES["bloom_probe"]
+    _check_bloom(words, vals)
+    assert build.LAUNCHES["bloom_probe"] == before + (n > 0)
+
+
+@pytest.mark.parametrize("num_hashes", [1, 3, 5, 7])
+@pytest.mark.parametrize("log2_bits", [5, 12, 20, 21, 24])
+def test_bloom_probe_matches_plain_on_both_paths(cuda, log2_bits, num_hashes):
+    """Bitsets from 4 bytes to 2 MiB (shared path up to log2_bits 20,
+    global above) and hash counts compiled as constants (1, 3) or run in
+    a loop (5, 7); every member hits."""
+    from repro_torch.kernels.bloom_probe import plan
+    rng = np.random.default_rng(log2_bits * 10 + num_hashes)
+    words, vals, members = _bloom_case(rng, 4099, log2_bits, num_hashes, 1)
+    kw = dict(num_hashes=num_hashes, log2_bits=log2_bits)
+    assert plan(words, vals, **kw)["path"] == \
+        ("shared" if log2_bits <= 20 else "global")
+    _check_bloom(words, vals, **kw)
+    mem = torch.as_tensor(members.astype(np.float32), device=cuda)
+    assert bool(_check_bloom(words, mem, **kw).all())
+
+
+@pytest.mark.parametrize("log2_bits", [5, 12, 20, 21])
+@pytest.mark.parametrize("fill", [0, -1])
+def test_bloom_probe_on_constant_bitsets(cuda, fill, log2_bits):
+    """An all-zero bitset rejects every value, an all-ones one passes
+    every value, NaN and ±inf included."""
+    rng = np.random.default_rng(9)
+    words = torch.full(((1 << log2_bits) // 32,), fill, dtype=torch.int32,
+                       device=cuda).view(torch.uint32)
+    _, vals, _ = _bloom_case(rng, 1001, log2_bits, 3)
+    got = _check_bloom(words, vals, log2_bits=log2_bits)
+    assert bool(got.all()) if fill else not bool(got.any())
+
+
+def test_bloom_probe_main_path_copies_the_bitset_by_tma(cuda):
+    """On the main path's Q5 shape the bitset goes into shared memory by
+    TMA, one CTA an SM at most, and probes as the plain version does."""
+    from repro_torch.kernels.bloom_probe import plan
+    rng = np.random.default_rng(1)
+    words, vals, _ = _bloom_case(rng, Q5_N, 20, 3)
+    p = plan(words, vals)
+    assert (p["path"], p["tma"]) == ("shared", True)
+    assert p["grid"] <= torch.cuda.get_device_properties(0) \
+        .multi_processor_count
+    _check_bloom(words, vals)
+
+
+def test_bloom_probe_is_bit_identical_across_launches(cuda):
+    rng = np.random.default_rng(4)
+    for log2_bits in (20, 21):
+        words, vals, _ = _bloom_case(rng, Q5_N, log2_bits, 3, 1)
+        first = bloom_probe_cuda(words, vals, log2_bits=log2_bits)
+        assert torch.equal(bloom_probe_cuda(words, vals, log2_bits=log2_bits),
+                           first)
+
+
+def test_bloom_probe_refusals_launch_nothing(cuda):
+    words = torch.zeros(1 << 15, dtype=torch.int32, device=cuda)
+    vals = torch.ones(8, device=cuda)
+    refused = [
+        lambda: bloom_probe_cuda(words.cpu(), vals),           # two devices
+        lambda: bloom_probe_cuda(words.float(), vals),         # word type
+        lambda: bloom_probe_cuda(words[:-1], vals),            # word count
+        lambda: bloom_probe_cuda(words[:0], vals, log2_bits=4),  # range
+    ]
+    before = dict(build.LAUNCHES)
+    for call in refused:
+        with pytest.raises(ValueError):
+            call()
+    assert build.LAUNCHES == before
+
+
+def test_coo_expand_refuses_int32_overflow_without_a_launch(cuda):
+    i = torch.zeros(2, dtype=torch.int32, device=cuda)
+    v = torch.zeros(2, device=cuda)
+    c = torch.zeros((2, 2), dtype=torch.int16, device=cuda)
+    before = dict(build.LAUNCHES)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        coo_expand_cuda(i, i, v, c, v, c, merge=MERGES["mul"],
+                        cap=2 ** 31 - 2)
+    assert build.LAUNCHES == before
+
+
 @pytest.mark.parametrize("mode", [MODE_BOTH, MODE_X, MODE_Y, MODE_ALL])
 @pytest.mark.parametrize("shape,bs", [((1024, 768), 256), ((300, 257), 128),
                                       ((512, 510), 256)])

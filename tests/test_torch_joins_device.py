@@ -312,3 +312,128 @@ def test_wide_dimension_uses_int32_coordinates(rng):
 def test_round_capacity_matches_reference():
     for c in (0, 1, 7, 8, 9, 4397299, 1 << 23):
         assert tdev.round_capacity(c) == jdev.round_capacity(c)
+
+
+# ---------------------------------------------------------------------------
+# The V2V Bloom filter, built over B's compacted entries.
+# ---------------------------------------------------------------------------
+
+def _bloom_operand(kind, seed):
+    """B operands for the filter: ``special`` (±0.0, NaN of both signs,
+    ±inf among rounded normals), ``zeros`` (all zero, -0.0 among them) or
+    ``ints`` (small integers, many repeats)."""
+    rng = np.random.default_rng(seed)
+    if kind == "special":
+        return _special(rng, 9, 11, 0.5)
+    if kind == "zeros":
+        v = np.zeros((9, 11), np.float32)
+        v[rng.uniform(size=v.shape) < 0.3] = -0.0
+        return v
+    return _dimvals(rng, 9, 11, 0.4, limit=7)
+
+
+def _probed_filter(a, b, merge, params):
+    """The bitset ``v2v_device`` hands the ``bloom_probe`` kernel."""
+    from repro_torch.kernels import registry
+    spec = registry.get("bloom_probe")
+    plain = spec.impls[registry.TORCH]
+    seen = []
+
+    def record(words, vals, **kw):
+        seen.append(words.clone())
+        return plain(words, vals, **kw)
+
+    spec.impls[registry.TORCH] = record
+    try:
+        tdev.v2v_device(torch.as_tensor(a), torch.as_tensor(b), merge.fn,
+                        analyze_merge(merge), _V2V_CAP, use_bloom=True,
+                        bloom_params=params)
+    finally:
+        spec.impls[registry.TORCH] = plain
+    assert len(seen) == 1
+    return seen[0]
+
+
+@pytest.mark.parametrize("log2_bits", [5, 20, 21])
+@pytest.mark.parametrize("kind", ["special", "zeros", "ints"])
+@pytest.mark.parametrize("skip_zeros", [True, False])
+def test_v2v_bloom_filter_from_compacted_entries_matches_reference_build(
+        kind, skip_zeros, log2_bits):
+    """``bloom.build_live`` over B's compacted entries, and the filter
+    ``v2v_device`` probes with, equal the JAX package's ``bloom.build``
+    over all of B's cells word for word (x*y skips zeros, x+y does not)."""
+    from repro.core import bloom as jbloom
+    from repro_torch.core import bloom as tbloom
+    b = _bloom_operand(kind, 40 + log2_bits)
+    want = np.asarray(jbloom.build(
+        jnp.asarray(b), jbloom.BloomParams(log2_bits=log2_bits),
+        skip_zeros=skip_zeros))
+    tb = torch.as_tensor(b)
+    idx_b, nb, slot_b = tdev._entry_compact(tdev._live(tb, skip_zeros),
+                                            b.size)
+    assert int(nb) <= b.size
+    params = tbloom.BloomParams(log2_bits=log2_bits)
+    built = tbloom.build_live(tb.reshape(-1)[idx_b], slot_b, params)
+    assert np.array_equal(tbloom.to_numpy_words(built), want)
+    merge = product_merge() if skip_zeros else sum_merge()
+    a = _bloom_operand("ints", 7)
+    probed = _probed_filter(a, b, merge, params)
+    assert np.array_equal(tbloom.to_numpy_words(probed), want)
+
+
+@pytest.mark.parametrize("use_bloom", [True, False])
+@pytest.mark.parametrize("merge_name", ["mul", "add"])
+def test_v2v_side_overflow_is_flagged(merge_name, use_bloom):
+    """With more live B cells than ``cap_b`` (nb > cap_b) the join comes
+    back overflowed, as in the JAX package, whatever the filter holds."""
+    rng = np.random.default_rng(5)
+    a = _dimvals(rng, 6, 5, 0.6, limit=5)
+    b = _dimvals(rng, 6, 7, 0.6, limit=5)
+    jm, tm = {"mul": (j_product(), product_merge()),
+              "add": (j_sum(), sum_merge())}[merge_name]
+    cap_b = int(np.count_nonzero(b)) // 2
+    want = jdev.v2v_device(jnp.asarray(a), jnp.asarray(b), jm.fn,
+                           j_analyze(jm), _V2V_CAP, cap_a=a.size,
+                           cap_b=cap_b, use_bloom=use_bloom)
+    got = tdev.v2v_device(torch.as_tensor(a), torch.as_tensor(b), tm.fn,
+                          analyze_merge(tm), _V2V_CAP, cap_a=a.size,
+                          cap_b=cap_b, use_bloom=use_bloom)
+    assert tdev.overflowed(got)
+    assert int(got.total) == int(want.total) == tdev._OVERFLOW_TOTAL
+
+
+_BLOOM_JITTED = {}
+_BLOOM_CAP = 16384         # ≥ every pair, zero pairs of x+y included
+
+
+@pytest.mark.parametrize("log2_bits", [5, 20])
+@pytest.mark.parametrize("merge_name", ["mul", "add"])
+@pytest.mark.parametrize("density", [0.05, 0.3, 1.0])
+def test_v2v_bloom_join_matches_reference_device_tier(merge_name, log2_bits,
+                                                      density):
+    """``v2v_device(use_bloom=True)`` against the JAX package's on the same
+    integer operands (many equal values; at 32 bits the filter passes
+    most non-members too): exact totals, validity and coordinates, values
+    within 1e-5."""
+    from repro.core import bloom as jbloom
+    from repro_torch.core import bloom as tbloom
+    rng = np.random.default_rng(int(density * 100) + log2_bits)
+    a = _dimvals(rng, 10, 9, density, limit=40)
+    b = _dimvals(rng, 8, 12, density, limit=40)
+    jm, tm = {"mul": (j_product(), product_merge()),
+              "add": (j_sum(), sum_merge())}[merge_name]
+    key = (merge_name, log2_bits)
+    fn = _BLOOM_JITTED.get(key)
+    if fn is None:
+        prof, jp = j_analyze(jm), jbloom.BloomParams(log2_bits=log2_bits)
+        fn = _BLOOM_JITTED[key] = jax.jit(
+            lambda x, y: jdev.v2v_device(x, y, jm.fn, prof, _BLOOM_CAP,
+                                         cap_a=x.size, cap_b=y.size,
+                                         use_bloom=True, bloom_params=jp))
+    want = fn(jnp.asarray(a), jnp.asarray(b))
+    got = tdev.v2v_device(torch.as_tensor(a), torch.as_tensor(b), tm.fn,
+                          analyze_merge(tm), _BLOOM_CAP, cap_a=a.size,
+                          cap_b=b.size, use_bloom=True,
+                          bloom_params=tbloom.BloomParams(log2_bits=log2_bits))
+    assert not tdev.overflowed(got)
+    _assert_same_coo(got, want)
