@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main query path and the PNMF path on one
-NVIDIA card.
+"""Drive the PyTorch/CUDA port's main query path, the PNMF path and the
+serving tier on one NVIDIA card.
 
     python3 chip_smoke.py                      # on the card: full size
     python3 chip_smoke.py --device cpu --small # CPU rehearsal, plain versions
@@ -47,9 +47,10 @@ a few microseconds the CUDA events time the host's enqueue), the
 all-live end (TB/s of sp and TFLOP/s) and the pool. ``coo_expand``'s
 and ``bloom_probe``'s lines add the TB/s of their counted bytes by both
 clocks and the host's microseconds a call over 1000 calls with no
-synchronize (``host_us`` in the JSON rows); ``bloom_probe``'s also its
-path (shared or global memory), grid and shared memory, and its device
-time on Q5's values at ``log2_bits`` 12 and 21 (a small bitset in
+synchronize, of the wrapper (``host_us`` in the JSON rows) and through
+``registry.dispatch`` with its fault seam and breaker (``dispatch_us``);
+``bloom_probe``'s also its path (shared or global memory), grid and
+shared memory, and its device time on Q5's values at ``log2_bits`` 12 and 21 (a small bitset in
 shared memory, and the global path), each held to the plain version.
 ``coo_expand`` is held to its plain
 version on every slot, past the join's total too. Q5's Bloom filter,
@@ -57,15 +58,33 @@ which the main path builds over B's compacted entries, is held bit for
 bit to the plain ``bloom.build`` over all of B's cells (x*y skips
 zeros), with both builds' device times.
 
+The serving phase comes last. Q1–Q10 go three times each through one
+``ServeEngine`` (cross-query CSE, two worker threads, one ticket a batch);
+every result is held to the same float64 checks and every kernel must
+launch during the phase. Then the main path's catalog is released and
+the JAX package's serving workload runs on the port
+(``repro_torch.serve.workload``: ``synthetic_catalog`` at n = 8192,
+density 0.25, a zipf-1.4 stream of 200 clients over 8 tenants, two
+worker threads, CSE on then off): qps, p50, p99 and the CSE counters per
+arm, every ticket terminal, none failed; then one ticket of each
+template through a fresh engine, held to float64 numpy on 32 sampled
+rows or columns (whole vectors for the reductions, whole matrices for
+the overlay and the selection) within ``SERVE_RTOL`` of Σ|terms| (the
+overlay within ``RTOL``, the selection exact). As a control, the gram
+template is run once more with TF32 products allowed, and its error must
+exceed ``SERVE_RTOL``: the limit tells FP32 from TF32.
+
 Output: the card's name and power limit (``nvidia-smi``), the build time,
 after a fresh build the ptxas registers and spills of each ``coo_expand``
-instance, one line per query and kernel, a ``{"kernels": [...]}`` JSON line, and as
+instance, one line per query and kernel, the serving lines (each with the
+card's name and power limit), a ``{"kernels": [...]}`` JSON line, and as
 the last line ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any
 failure raises and exits non-zero without that line.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import re
@@ -90,6 +109,18 @@ SUM_RTOL = 1e-4                # reductions in another order (Q1, Q7–Q10)
 REPS = 20                      # kernel launches per CUDA-event timing
 PNMF_K = 32                    # benchmarks/bench_pnmf.py's K
 PNMF_ITERS = 3
+# the serving phase: the JAX package's serving workload (serve/workload.py,
+# launch/serve.py's defaults), its catalog at n = 8192 (X, Y: 256 MiB each)
+SERVE_N = 8192
+SERVE_SMALL_N = 256
+SERVE_CLIENTS = 200
+SERVE_TENANTS = 8
+SERVE_THREADS = 2
+SERVE_REPEATS = 3              # Q1–Q10 submissions each through the engine
+SERVE_SAMPLE = 32              # rows / columns held to float64 per template
+# the serving templates' sums of products, of Σ|terms|: FP32 reads a few
+# 1e-7 at n = 8192 and TF32 products about 1e-5, so a TF32 switch fails
+SERVE_RTOL = 2e-6
 
 KERNEL_ROWS = {
     "coo_expand": ("src/repro_torch/kernels/csrc/coo_expand.cu",
@@ -236,120 +267,115 @@ def masked_node(query, kind, kernel):
     return nd
 
 
-def run_queries(m, data, ref, n):
-    """Ten queries through the public API; returns one record per query.
-    ``ref`` is ``pnmf_reference`` of Ap, W and H."""
+def main_queries(m, data, ref, n):
+    """The ten queries of the main path: ``(name, matrix, check)`` triples.
+    ``check(result)`` holds one result of the query against its float64
+    reference (raising on a mismatch) and returns what it checked; the
+    cold run and the serving phase use the same checks. ``ref`` is
+    ``pnmf_reference`` of Ap, W and H."""
     import torch
     from repro_torch.core import cost as costmod
     from repro_torch.core.sparsity import product_merge
-    from repro_torch.obs.trace import TRACER
     from repro_torch.plan import ops as P
 
     mul = product_merge()
-    out = []
-
-    def timed(name, matrix):
-        """collect() under a span trace: wall time plus its split into the
-        lifecycle phases (optimize, lower, mask_propagation, execute, ...)."""
-        tr = TRACER.start("query", sample=True)
-        t0 = time.perf_counter()
-        with TRACER.activate(tr):
-            res = matrix.collect()      # collect() synchronizes the card
-        dt = time.perf_counter() - t0
-        tr.finish()
-        phases = {}
-        for sp in tr.root.children:
-            phases[sp.name] = phases.get(sp.name, 0.0) + sp.duration
-        phases["other"] = dt - sum(phases.values())
-        out.append({"query": name, "wall_s": dt, "phases": phases,
-                    "matrix": matrix})
-        return res
-
+    queries = []
     x = data["X"]
     sq = x.vals.astype(np.float64) ** 2
-    # Q1 trace(XᵀX) = Σ x²
-    r = timed("Q1 trace(XtX)", m["X"].t().multiply(m["X"]).trace())
-    got = float(r.value.reshape(-1)[0])
-    out[-1]["check"] = \
-        f"rel err {check_close('Q1', got, sq.sum(), SUM_RTOL):.2e}"
-    # Q2 (XᵀX)[1,1] = Σ_r x[r,1]²
-    r = timed("Q2 sel(XtX)[1,1]",
-              m["X"].t().multiply(m["X"]).select("RID=1 AND CID=1"))
-    got = float(r.value.reshape(-1)[0])
-    want = sq[x.cols == 1].sum()
-    out[-1]["check"] = \
-        f"rel err {check_close('Q2', got, want, SUM_RTOL):.2e}"
+
+    def q1(r):      # trace(XᵀX) = Σ x²
+        got = float(r.value.reshape(-1)[0])
+        return f"rel err {check_close('Q1', got, sq.sum(), SUM_RTOL):.2e}"
+    queries.append(("Q1 trace(XtX)", m["X"].t().multiply(m["X"]).trace(),
+                    q1))
+
+    def q2(r):      # (XᵀX)[1,1] = Σ_r x[r,1]²
+        got = float(r.value.reshape(-1)[0])
+        want = sq[x.cols == 1].sum()
+        return f"rel err {check_close('Q2', got, want, SUM_RTOL):.2e}"
+    queries.append(("Q2 sel(XtX)[1,1]",
+                    m["X"].t().multiply(m["X"]).select("RID=1 AND CID=1"),
+                    q2))
 
     # Q3 block-sparse overlay x*y: the merge_join route (0.5 < live < 1)
     ao, bo = data["Ao"], data["Bo"]
     q3 = m["Ao"].join(m["Bo"], "RID=RID AND CID=CID", mul)
-    r = timed("Q3 overlay x*y", q3)
-    common, ia, ib = np.intersect1d(ao.keys, bo.keys, return_indices=True)
-    want = ao.vals[ia] * bo.vals[ib]                      # float32 products
-    flat = r.value.reshape(-1)
-    nz = torch.nonzero(flat).reshape(-1)
-    assert torch.equal(nz.cpu(), torch.as_tensor(common)), "Q3 positions"
-    assert np.array_equal(flat[nz].cpu().numpy(), want), "Q3 values"
-    live = q3.physical_plan().node(q3.physical_plan().root).meta["mask"]
-    share = float(live.mean())
-    assert 0.5 < share < 1.0, f"Q3 live share {share}"
-    out[-1]["check"] = (f"{common.size} entries exact, live block share "
-                        f"{share:.3f}")
+
+    def q3_check(r):
+        common, ia, ib = np.intersect1d(ao.keys, bo.keys,
+                                        return_indices=True)
+        want = ao.vals[ia] * bo.vals[ib]                  # float32 products
+        flat = r.value.reshape(-1)
+        nz = torch.nonzero(flat).reshape(-1)
+        assert torch.equal(nz.cpu(), torch.as_tensor(common)), "Q3 positions"
+        assert np.array_equal(flat[nz].cpu().numpy(), want), "Q3 values"
+        live = q3.physical_plan().node(q3.physical_plan().root).meta["mask"]
+        share = float(live.mean())
+        assert 0.5 < share < 1.0, f"Q3 live share {share}"
+        return f"{common.size} entries exact, live block share {share:.3f}"
+    queries.append(("Q3 overlay x*y", q3, q3_check))
 
     # Q4 D2D RID=RID x*y on the device tier
     a, b = data["A"], data["B"]
     q4 = m["A"].join(m["B"], "RID=RID", mul)
-    r = timed("Q4 D2D x*y", q4)
-    root = q4.physical_plan().node(q4.physical_plan().root)
-    assert root.strategy == "coo-group-join" and root.meta["device"], \
-        (root.strategy, root.meta.get("device"))
-    want = int((np.bincount(a.rows, minlength=n).astype(np.int64)
-                * np.bincount(b.rows, minlength=n)).sum())
-    assert r.nnz == want, f"Q4 matches {r.nnz} vs {want}"
-    rng = np.random.default_rng(1)
-    pick = rng.integers(0, r.nnz, min(4096, r.nnz))
-    i, j, l_ = r.idx[pick].T
-    exp = a.lookup(i, j) * b.lookup(i, l_)
-    assert np.array_equal(r.val[pick], exp), "Q4 sampled values"
-    out[-1]["check"] = (f"{r.nnz} matches (cap {root.meta['cap']}), "
-                        f"{pick.size} sampled values exact")
+
+    def q4_check(r):
+        root = q4.physical_plan().node(q4.physical_plan().root)
+        assert root.strategy == "coo-group-join" and root.meta["device"], \
+            (root.strategy, root.meta.get("device"))
+        want = int((np.bincount(a.rows, minlength=n).astype(np.int64)
+                    * np.bincount(b.rows, minlength=n)).sum())
+        assert r.nnz == want, f"Q4 matches {r.nnz} vs {want}"
+        rng = np.random.default_rng(1)
+        pick = rng.integers(0, r.nnz, min(4096, r.nnz))
+        i, j, l_ = r.idx[pick].T
+        exp = a.lookup(i, j) * b.lookup(i, l_)
+        assert np.array_equal(r.val[pick], exp), "Q4 sampled values"
+        return (f"{r.nnz} matches (cap {root.meta['cap']}), "
+                f"{pick.size} sampled values exact")
+    queries.append(("Q4 D2D x*y", q4, q4_check))
 
     # Q5 V2V VAL=VAL x*y with the Bloom pre-filter
     aq, bq = data["Aq"], data["Bq"]
     q5 = m["Aq"].join(m["Bq"], "VAL=VAL", mul)
-    r = timed("Q5 V2V x*y", q5)
-    root = q5.physical_plan().node(q5.physical_plan().root)
-    assert root.strategy == costmod.BLOOM_SORTMERGE and root.meta["device"], \
-        (root.strategy, root.meta.get("device"))
-    va, ca = np.unique(aq.vals, return_counts=True)
-    vb, cb = np.unique(bq.vals, return_counts=True)
-    _, xa, xb = np.intersect1d(va, vb, return_indices=True)
-    want = int((ca[xa].astype(np.int64) * cb[xb]).sum())
-    assert r.nnz == want, f"Q5 matches {r.nnz} vs {want}"
-    pick = rng.integers(0, r.nnz, min(4096, r.nnz))
-    i, j, k, l_ = r.idx[pick].T
-    av, bv = aq.lookup(i, j), bq.lookup(k, l_)
-    assert np.array_equal(av, bv), "Q5 sampled keys"
-    assert np.array_equal(r.val[pick], av * bv), "Q5 sampled values"
-    out[-1]["check"] = (f"{r.nnz} matches (cap {root.meta['cap']}), "
-                        f"{pick.size} sampled entries exact")
-    out[-1]["cap_sides"] = root.meta.get("cap_sides")
 
-    # Q6 σ rows≠NULL
-    r = timed("Q6 rows!=NULL", m["Xd"].select("rows != NULL"))
-    want = np.unique(data["Xd"].rows).size
-    assert r.shape == (want, n), f"Q6 shape {r.shape} vs {(want, n)}"
-    out[-1]["check"] = f"{want} of {n} rows kept"
+    def q5_check(r):
+        root = q5.physical_plan().node(q5.physical_plan().root)
+        assert root.strategy == costmod.BLOOM_SORTMERGE \
+            and root.meta["device"], (root.strategy, root.meta.get("device"))
+        va, ca = np.unique(aq.vals, return_counts=True)
+        vb, cb = np.unique(bq.vals, return_counts=True)
+        _, xa, xb = np.intersect1d(va, vb, return_indices=True)
+        want = int((ca[xa].astype(np.int64) * cb[xb]).sum())
+        assert r.nnz == want, f"Q5 matches {r.nnz} vs {want}"
+        rng = np.random.default_rng(2)
+        pick = rng.integers(0, r.nnz, min(4096, r.nnz))
+        i, j, k, l_ = r.idx[pick].T
+        av, bv = aq.lookup(i, j), bq.lookup(k, l_)
+        assert np.array_equal(av, bv), "Q5 sampled keys"
+        assert np.array_equal(r.val[pick], av * bv), "Q5 sampled values"
+        return (f"{r.nnz} matches (cap {root.meta['cap']}), "
+                f"{pick.size} sampled entries exact")
+    queries.append(("Q5 V2V x*y", q5, q5_check))
+
+    def q6(r):      # σ rows≠NULL
+        want = np.unique(data["Xd"].rows).size
+        assert r.shape == (want, n), f"Q6 shape {r.shape} vs {(want, n)}"
+        return f"{want} of {n} rows kept"
+    queries.append(("Q6 rows!=NULL", m["Xd"].select("rows != NULL"), q6))
 
     # Q7 PNMF's W-update numerator (A / (W×H)) × Hᵀ: masked_matmul
     ap = data["Ap"]
     num_w, prod, _ = ref
     q7 = m["Ap"].ediv(m["W"].multiply(m["H"])).multiply(m["H"].t())
-    r = timed("Q7 (Ap/(WxH))xHt", q7)
-    masked_node(q7, P.MASKED_ELEMWISE, "masked_matmul")
-    err = check_elementwise("Q7", r.value.double().cpu(), num_w, SUM_RTOL)
-    out[-1]["check"] = (f"{tuple(num_w.shape)} max rel err {err:.2e}; "
-                        "masked_matmul node, not demoted")
+
+    def q7_check(r):
+        masked_node(q7, P.MASKED_ELEMWISE, "masked_matmul")
+        err = check_elementwise("Q7", r.value.double().cpu(), num_w,
+                                SUM_RTOL)
+        return (f"{tuple(num_w.shape)} max rel err {err:.2e}; "
+                "masked_matmul node, not demoted")
+    queries.append(("Q7 (Ap/(WxH))xHt", q7, q7_check))
 
     # Q8–Q10 Σ(A ∘ (W×H)) by row, column and in total: sddmm_agg
     wants = {"r": np.bincount(ap.rows, prod, n)[:, None],
@@ -357,12 +383,40 @@ def run_queries(m, data, ref, n):
              "a": np.asarray([[prod.sum()]])}
     for qn, dim in (("Q8", "r"), ("Q9", "c"), ("Q10", "a")):
         q = m["Ap"].emul(m["W"].multiply(m["H"])).sum(dim)
-        r = timed(f"{qn} sum_{dim}(Ap*(WxH))", q)
-        masked_node(q, P.MASKED_AGG, "sddmm_agg")
-        err = check_elementwise(qn, r.value.double().cpu(), wants[dim],
-                                SUM_RTOL)
-        out[-1]["check"] = (f"{wants[dim].shape} max rel err {err:.2e}; "
-                            "sddmm_agg node, not demoted")
+
+        def agg_check(r, q=q, qn=qn, dim=dim):
+            masked_node(q, P.MASKED_AGG, "sddmm_agg")
+            err = check_elementwise(qn, r.value.double().cpu(), wants[dim],
+                                    SUM_RTOL)
+            return (f"{wants[dim].shape} max rel err {err:.2e}; "
+                    "sddmm_agg node, not demoted")
+        queries.append((f"{qn} sum_{dim}(Ap*(WxH))", q, agg_check))
+    return queries
+
+
+def run_queries(queries):
+    """The ten queries through the public API, each ``collect()`` under a
+    span trace and then checked; returns one record per query."""
+    from repro_torch.obs.trace import TRACER
+    out = []
+    for name, matrix, check in queries:
+        tr = TRACER.start("query", sample=True)
+        t0 = time.perf_counter()
+        with TRACER.activate(tr):
+            res = matrix.collect()      # collect() synchronizes the card
+        dt = time.perf_counter() - t0
+        tr.finish()
+        # wall time plus its split into the lifecycle phases (optimize,
+        # lower, mask_propagation, execute, ...)
+        phases = {}
+        for sp in tr.root.children:
+            phases[sp.name] = phases.get(sp.name, 0.0) + sp.duration
+        phases["other"] = dt - sum(phases.values())
+        out.append({"query": name, "wall_s": dt, "phases": phases,
+                    "matrix": matrix, "check": check(res)})
+        if name.startswith("Q5"):
+            out[-1]["cap_sides"] = matrix.physical_plan().node(
+                matrix.physical_plan().root).meta.get("cap_sides")
     return out
 
 
@@ -408,6 +462,184 @@ def pnmf_phase(env, ref, on_card):
             f"step Frobenius rel err W2 {errs[0]:.2e}, H2 {errs[1]:.2e}; "
             "kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
     return launches, line
+
+
+# ---------------------------------------------------------------------------
+# The serving phase: the port's ServeEngine on the card.
+# ---------------------------------------------------------------------------
+
+def check_scaled(name, got, want, scale, rtol):
+    """Largest error over the matching |terms| bound: for a sum of
+    products, |got - want| <= rtol * Σ|terms| (``scale``) elementwise."""
+    got = np.asarray(got, np.float64).reshape(want.shape)
+    err = np.abs(got - want) / np.maximum(scale, 1e-30)
+    worst = float(err.max()) if err.size else 0.0
+    assert worst <= rtol, f"{name}: max scaled err {worst:.3g}"
+    return worst
+
+
+def engine_queries_phase(queries, card, on_card):
+    """Q1–Q10, ``SERVE_REPEATS`` submissions each, concurrently through one
+    ``ServeEngine`` (CSE on, ``SERVE_THREADS`` workers, one ticket a batch
+    so both workers take work): every result held to the cold run's
+    float64 checks, and the launches of each kernel over the phase."""
+    from repro_torch.kernels import build
+    from repro_torch.serve.engine import ServeEngine
+    session = queries[0][1].session
+    before = dict(build.LAUNCHES)
+    t0 = time.perf_counter()
+    with ServeEngine(session, cse=True, n_threads=SERVE_THREADS,
+                     batch_max=1) as eng:
+        tickets = [(name, check, eng.submit(matrix, tenant=f"tenant{i}"))
+                   for i in range(SERVE_REPEATS)
+                   for name, matrix, check in queries]
+        for name, check, t in tickets:
+            check(t.result(timeout=600.0))
+        snap = eng.snapshot()
+    dt = time.perf_counter() - t0
+    launches = {k: build.LAUNCHES[k] - before[k] for k in build.LAUNCHES}
+    assert snap["completed"] == len(tickets) and snap["errors"] == 0, snap
+    if on_card:
+        missing = [k for k, v in launches.items() if v <= 0]
+        assert not missing, \
+            f"kernels never launched through the engine: {missing}"
+    return (f"serving Q1-Q10: {len(tickets)} tickets ({SERVE_REPEATS} of "
+            f"each query) through one ServeEngine, {SERVE_THREADS} worker "
+            f"threads, in {dt:.2f} s; every result held to its float64 "
+            f"check; root_hits {snap['root_hits']}, node_reuses "
+            f"{snap['node_reuses']}, batches {snap['batches']}; kernel "
+            "launches over the phase: "
+            + " ".join(f"{k}={v}" for k, v in launches.items())
+            + f" [{card}]")
+
+
+def template_checks(s, seed):
+    """``check(name, result)`` for the serving templates: float64 numpy
+    over the catalog's values, on ``SERVE_SAMPLE`` rows or columns drawn
+    from the seed (whole vectors for the reductions, the whole matrix
+    for the overlay and the selection)."""
+    import torch
+    f64 = {k: s.env[k].value.double().cpu().numpy() for k in "XYWH"}
+    x, y, w, h = (f64[k] for k in "XYWH")
+    ax, ay, aw, ah = (np.abs(v) for v in (x, y, w, h))
+    n = x.shape[0]
+    rng = np.random.default_rng(seed + 5)
+    cols = np.sort(rng.choice(n, SERVE_SAMPLE, replace=False))
+    rows = np.sort(rng.choice(n, SERVE_SAMPLE, replace=False))
+    gram_j, gram_js = x.T @ x[:, cols], ax.T @ ax[:, cols]
+    wh_i, wh_is = w[rows] @ h, aw[rows] @ ah
+
+    def sub(t, r=None, c=None):
+        """The result's value (its rows ``r`` / columns ``c``) on the host."""
+        v = t.value
+        if r is not None:
+            v = v[torch.as_tensor(r, device=v.device)]
+        if c is not None:
+            v = v[:, torch.as_tensor(c, device=v.device)]
+        return v.double().cpu().numpy()
+
+    def check(name, out, rtol=SERVE_RTOL):
+        if name == "gram":
+            return check_scaled(name, sub(out, c=cols), gram_j, gram_js,
+                                rtol)
+        if name == "gram_trace":
+            return check_close(name, float(sub(out).reshape(-1)[0]),
+                               float((x * x).sum()), rtol)
+        if name == "gram_rowsum":
+            return check_scaled(name, sub(out), (x.T @ x.sum(1))[:, None],
+                                (ax.T @ ax.sum(1))[:, None], rtol)
+        if name == "gram_shift":
+            return check_scaled(name, sub(out, c=cols), gram_j + 1.0,
+                                gram_js + 1.0, rtol)
+        if name == "sddmm":
+            return check_scaled(name, sub(out, r=rows), x[rows] * wh_i,
+                                ax[rows] * wh_is, rtol)
+        if name == "factor_residual":
+            return check_scaled(name, sub(out, r=rows), x[rows] - wh_i,
+                                ax[rows] + wh_is, rtol)
+        if name == "overlay":
+            return check_scaled(name, sub(out), x + y, ax + ay, RTOL)
+        if name == "xy":
+            return check_scaled(name, sub(out, c=cols), x @ y[:, cols],
+                                ax @ ay[:, cols], rtol)
+        if name == "xy_colsum":
+            return check_scaled(name, sub(out), (x.sum(0) @ y)[None, :],
+                                (ax.sum(0) @ ay)[None, :], rtol)
+        if name == "y_select":
+            got = sub(out)
+            assert np.array_equal(got, np.where(y > 0, y, 0.0)), name
+            return 0.0
+        raise KeyError(name)
+    return check
+
+
+def serving_workload_phase(device, seed, n, card):
+    """The JAX package's serving workload on the port: ``synthetic_catalog``
+    at ``n`` (density 0.25), a zipf-1.4 stream of ``SERVE_CLIENTS`` clients
+    over ``SERVE_TENANTS`` tenants, ``SERVE_THREADS`` workers, CSE on then
+    off (``serve.workload.run_workload``, warmed as the launcher does); then
+    one ticket of each template through a fresh engine, held to float64
+    numpy. Returns the lines to print."""
+    from repro_torch.core import Session
+    from repro_torch.serve import workload as wl
+    from repro_torch.serve.engine import ServeEngine
+    t0 = time.perf_counter()
+    s = Session(block_size=256, device=device)
+    rng = np.random.default_rng(seed)
+    templates = wl.query_templates(wl.synthetic_catalog(s, rng, n=n))
+    stream = wl.client_stream(rng, templates, n_clients=SERVE_CLIENTS,
+                              n_tenants=SERVE_TENANTS)
+    lines = [f"serving workload: catalog X, Y {n}x{n}, W {n}x{n // 4}, H "
+             f"{n // 4}x{n} float32 (density 0.25, block 256), "
+             f"{SERVE_CLIENTS} clients, {SERVE_TENANTS} tenants, zipf 1.4, "
+             f"{SERVE_THREADS} worker threads, seed {seed}; catalog in "
+             f"{time.perf_counter() - t0:.2f} s"
+             + ("" if n == SERVE_N else f" (cut from {SERVE_N} to {n})")]
+    arms = {}
+    for cse in (True, False):
+        t0 = time.perf_counter()
+        r = wl.run_workload(s, stream, cse=cse, n_threads=SERVE_THREADS)
+        st = r["stats"]
+        arm = "on" if cse else "off"
+        assert st["completed"] + st["errors"] == st["submitted"], st
+        assert r["failures"] == 0 and r["hung"] == 0, r
+        if cse:
+            assert st["root_hits"] > 0 and st["inter_query_cse_nodes"] > 0, st
+        arms[arm] = r
+        lines.append(
+            f"serving cse={arm}: qps {r['qps']:.1f}, p50 {r['p50_ms']:.3f} ms,"
+            f" p99 {r['p99_ms']:.3f} ms, root_hits {st['root_hits']}, "
+            f"shared_nodes {st['inter_query_cse_nodes']}, leaf_scans "
+            f"{st['leaf_scans']}/{st['leaf_refs']}, failures "
+            f"{r['failures']}, hung {r['hung']}, completed "
+            f"{st['completed']}/{st['submitted']}; arm with warmup "
+            f"{time.perf_counter() - t0:.2f} s [{card}]")
+    check = template_checks(s, seed)
+    errs = {}
+    with ServeEngine(s, cse=True, n_threads=SERVE_THREADS) as eng:
+        tickets = [(name, eng.submit(expr)) for name, expr in templates]
+        for name, t in tickets:
+            errs[name] = check(name, t.result(timeout=600.0))
+    lines.append("serving templates vs float64 numpy (max scaled err, "
+                 f"limit {SERVE_RTOL:.0e} of sums of products): "
+                 + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    if device == "cuda":
+        # the control: TF32 products must miss the limit the FP32 ones meet
+        import torch
+        matmul = torch.backends.cuda.matmul
+        allow = matmul.allow_tf32
+        matmul.allow_tf32 = True
+        try:
+            tf32 = check("gram", s.execute(dict(templates)["gram"]),
+                         math.inf)
+        finally:
+            matmul.allow_tf32 = allow
+        assert tf32 > SERVE_RTOL, \
+            f"the limit passes TF32 products: gram err {tf32:.3g}"
+        lines.append(f"serving control: gram with TF32 products, max scaled "
+                     f"err {tf32:.2e} > limit {SERVE_RTOL:.0e} (FP32 "
+                     f"{errs['gram']:.2e})")
+    return lines, arms
 
 
 # ---------------------------------------------------------------------------
@@ -538,6 +770,7 @@ def kernel_phase(name, calls):
         bloom_probe_cuda, bloom_probe_plain,
     )
     from repro_torch.kernels.bloom_probe import plan as bloom_plan
+    from repro_torch.kernels import registry
     from repro_torch.kernels.coo_join import coo_expand_cuda, coo_expand_plain
     from repro_torch.kernels.masked_matmul import (
         masked_matmul_cuda, masked_matmul_plain,
@@ -711,8 +944,12 @@ def kernel_phase(name, calls):
                     f"{rate / dev / 1e9:.3f} TB/s (device)")
         if name in ("coo_expand", "bloom_probe"):
             host = host_us_per_call(kern)
+            via = host_us_per_call(
+                lambda: registry.dispatch(name, *args, **kw))
             row["host_us"] = row.get("host_us", 0.0) + host
-            lib += f"; host {host:.2f} us a call (1000 calls, no synchronize)"
+            row["dispatch_us"] = row.get("dispatch_us", 0.0) + via
+            lib += (f"; host {host:.2f} us a call, {via:.2f} us through "
+                    "registry.dispatch (1000 calls, no synchronize)")
         lib += extra
         details.append(f"  {name} [{shape}]: {ms:.4f} ms (plain {pms:.4f} "
                        f"ms{lib}, bound {bms:.4f} ms by {by}, "
@@ -822,9 +1059,10 @@ def main(argv=None) -> int:
 
     if on_card:
         calls, restore = capture_calls()
+    queries = main_queries(mats, data, ref, n)
     build.reset_launches()
     t0 = time.perf_counter()
-    records = run_queries(mats, data, ref, n)
+    records = run_queries(queries)
     main_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     if on_card:
@@ -839,6 +1077,10 @@ def main(argv=None) -> int:
     _, line = pnmf_phase(s.env, ref, on_card)
     print(line)
     if not on_card:
+        print(engine_queries_phase(queries, "CPU rehearsal", on_card))
+        lines, _ = serving_workload_phase(args.device, args.seed,
+                                          SERVE_SMALL_N, "CPU rehearsal")
+        print("\n".join(lines))
         print(json.dumps({"ok": True, "device": {
             "platform": "cpu", "kind": "cpu", "count": 0}}))
         return 0
@@ -856,8 +1098,8 @@ def main(argv=None) -> int:
                      "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
                      "library_ms": row["library_ms"]})
-        rows[-1].update((k, row[k]) for k in ("device_ms", "host_us")
-                        if k in row)
+        rows[-1].update((k, row[k]) for k in ("device_ms", "host_us",
+                                              "dispatch_us") if k in row)
     print(bloom_build_phase(s.env["Bq"].value, records, calls["bloom_probe"]))
     walls, busy_s, top = warm_profile(records)
     print("warm rerun: " + ", ".join(
@@ -866,6 +1108,14 @@ def main(argv=None) -> int:
         f"({100 * busy_s / sum(walls):.1f}% of wall, torch.profiler)")
     for key, ms, count in top:
         print(f"  device {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    print(engine_queries_phase(queries, card, on_card))
+    # the main path's catalog (nine 1 GiB matrices) and the captured
+    # kernel arguments go before the serving catalog is made
+    del queries, records, mats, s, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    lines, _ = serving_workload_phase(args.device, args.seed, SERVE_N, card)
+    print("\n".join(lines))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -70,14 +70,6 @@ class Session:
             raise ValueError(f"unknown engine {engine!r}")
         if search not in ("memo", "greedy"):
             raise ValueError(f"unknown search {search!r}")
-        if ledger is not None:
-            raise NotImplementedError(
-                "the cost ledger is not ported yet (ROADMAP: "
-                "observability and the calibrated cost model)")
-        if cost_model is not None:
-            raise NotImplementedError(
-                "the calibrated cost model is not ported yet (ROADMAP: "
-                "observability and the calibrated cost model)")
         if n_workers is not None and n_workers > 1:
             raise NotImplementedError(
                 "multi-worker sessions are not ported yet (ROADMAP: "
@@ -90,6 +82,14 @@ class Session:
         self.engine = engine
         self.search = search
         self.n_workers = n_workers
+        # optional ``obs.ledger.CostLedger``: when set, every plan this
+        # session executes through the DAG engine appends one
+        # predicted-vs-actual row (the serving tier installs its own)
+        self.ledger = ledger
+        # optional ``core.calibrate.CostModel``: candidate costing blends
+        # its calibrated wall-time prediction into ``physical_cost``
+        # (analytic-only when unset or unfitted for this device key)
+        self.cost_model = cost_model
         self._auto = 0
         self._env_version = 0
         self._plan_cache = VersionedLRU(_PLAN_CACHE_LIMIT)
@@ -124,9 +124,12 @@ class Session:
 
     def execute(self, plan: Expr, optimize: bool = True,
                 engine: Optional[str] = None):
+        import time
         from repro_torch.obs.trace import span
+        opt = None
         if optimize:
-            plan = self.optimize_result(plan).plan
+            opt = self.optimize_result(plan)
+            plan = opt.plan
         engine = engine or self.engine
         if engine not in ("dag", "tree"):
             raise ValueError(f"unknown engine {engine!r}")
@@ -137,23 +140,46 @@ class Session:
                                      use_bloom=self.use_bloom,
                                      device=self.device)
         pplan = self.physical_plan(plan)
-        out = planmod.PlanExecutor(self.env, device=self.device).run(pplan)
+        ex = planmod.PlanExecutor(self.env, device=self.device)
+        t0 = time.perf_counter()
+        out = ex.run(pplan)
         if self.device.type == "cuda":
             # launches are asynchronous: the query is done when its device
-            # work is, so a caller's clock around collect() times execution
+            # work is, so a caller's clock around collect() (and the
+            # ledger's wall) times execution, not the enqueue
             torch.cuda.synchronize(self.device)
+        if self.ledger is not None:
+            from repro_torch.core.expr import signature
+            from repro_torch.obs.ledger import exec_path_of
+            self.ledger.record(
+                query=signature(plan), plan=pplan,
+                exec_path=exec_path_of(ex.stats),
+                wall_s=time.perf_counter() - t0,
+                compile_s=ex.timings["compile_s"],
+                overflow=ex.stats["sparse_overflows"] > 0, opt=opt)
         return out
 
     def optimize_result(self, plan: Expr,
                         search: Optional[str] = None) -> optmod.OptimizeResult:
         """Session-aware optimization with a bounded per-session memo, keyed
         on the plan, the search, the catalog version and the settings the
-        memo search costs against (mode, block size, Bloom preference)."""
+        memo search costs against (mode, block size, Bloom preference).
+        The calibrated cost-model version is in the key too: a
+        (background) refit re-optimizes instead of serving decisions
+        made under retired coefficients."""
         search = search or self.search
         key = (plan, search, self._env_version, self.mode,
-               self.block_size, self.use_bloom, self.n_workers)
+               self.block_size, self.use_bloom, self.n_workers,
+               self._costmodel_key())
         return self._opt_cache.get_or_create(
             key, lambda: optmod.optimize(plan, search=search, session=self))
+
+    def _costmodel_key(self):
+        """Cache-key component for the calibrated cost model: identity +
+        fit version (bumped per successful refit)."""
+        if self.cost_model is None:
+            return None
+        return (id(self.cost_model), self.cost_model.version)
 
     def _optimized(self, plan: Expr) -> Expr:
         return self.optimize_result(plan).plan

@@ -114,28 +114,53 @@ MATERIALIZE_FLOPS_PER_ENTRY = 1.0
 
 @dataclasses.dataclass(frozen=True)
 class PhysicalCost:
-    """flops / comm-entries / materialized-nnz breakdown of one lowering.
-    (The calibrated wall-time blend of the JAX package waits for the
-    calibrated cost model's slice.)"""
+    """flops / comm-entries / materialized-nnz breakdown of one lowering,
+    optionally blended with a calibrated wall-time prediction
+    (``core.calibrate.CostModel``). ``calibrated_s`` is the predicted
+    wall seconds for this lowering on the session's device key (None when
+    no fitted coefficients exist), and ``alpha`` the analytic blend
+    weight — 1.0 means pure analytic (the cold-machine fallback)."""
 
     flops: float
     comm: float
     nnz: float
+    calibrated_s: Optional[float] = None
+    alpha: float = 1.0
+    # seconds→scalar-op unit for the blend: the model's fitted
+    # per-device throughput when available, else the static default
+    cal_unit: Optional[float] = None
 
     @property
-    def total(self) -> float:
+    def analytic(self) -> float:
         return (self.flops + COMM_FLOPS_PER_ENTRY * self.comm
                 + MATERIALIZE_FLOPS_PER_ENTRY * self.nnz)
 
+    @property
+    def total(self) -> float:
+        """``alpha·analytic + (1-alpha)·calibrated`` in scalar-op units;
+        falls back to the pure analytic total when uncalibrated."""
+        if self.calibrated_s is None or self.alpha >= 1.0:
+            return self.analytic
+        unit = self.cal_unit
+        if not unit:
+            from repro_torch.core.calibrate import calibrated_unit_flops
+            unit = calibrated_unit_flops()
+        cal = self.calibrated_s * unit
+        return self.alpha * self.analytic + (1.0 - self.alpha) * cal
+
     def breakdown(self) -> str:
-        return f"{self.flops:.4g}/{self.comm:.4g}/{self.nnz:.4g}"
+        base = f"{self.flops:.4g}/{self.comm:.4g}/{self.nnz:.4g}"
+        if self.calibrated_s is not None and self.alpha < 1.0:
+            base += (f" cal={self.calibrated_s*1e3:.3g}ms"
+                     f"@a={self.alpha:.2f}")
+        return base
 
 
 def physical_cost(e: Expr, session=None, *, mode: Optional[str] = None,
                   block_size: Optional[int] = None,
                   use_bloom: Optional[bool] = None,
-                  n_workers: Optional[int] = None,
-                  leaves=None) -> PhysicalCost:
+                  n_workers: Optional[int] = None, leaves=None,
+                  cost_model=None) -> PhysicalCost:
     """Cost ``e`` by dry-lowering it through the physical layer.
 
     Builds the hash-consed physical DAG (``plan.builder`` in cost-only
@@ -145,6 +170,12 @@ def physical_cost(e: Expr, session=None, *, mode: Optional[str] = None,
     certified per-node nnz bounds. ``leaves`` may carry a shared
     ``plan.masks.Leaves`` so one optimize() call fetches each catalog
     array and block mask at most once across all candidate lowerings.
+
+    ``cost_model`` (or ``session.cost_model``) is an optional
+    ``core.calibrate.CostModel``: when it holds fitted coefficients for
+    the session's device key (``calibrate.device_key``), the returned
+    cost carries a calibrated wall-time prediction and ``total`` blends
+    it with the analytic terms.
     """
     from repro_torch.obs.trace import span
     from repro_torch.plan import builder as buildermod
@@ -154,6 +185,8 @@ def physical_cost(e: Expr, session=None, *, mode: Optional[str] = None,
         block_size = block_size or session.block_size
         use_bloom = session.use_bloom if use_bloom is None else use_bloom
         n_workers = n_workers or session.n_workers
+        if cost_model is None:
+            cost_model = getattr(session, "cost_model", None)
     with span("physical_cost"):
         plan = buildermod.build_plan(
             e, mode=mode or "sparse", block_size=block_size or 256,
@@ -183,8 +216,20 @@ def physical_cost(e: Expr, session=None, *, mode: Optional[str] = None,
         if cert is not None:
             est = min(est, float(cert))
         nnz += est
+    calibrated_s = None
+    alpha = 1.0
+    cal_unit = None
+    if cost_model is not None:
+        from repro_torch.core.calibrate import device_key, features_from_plan
+        key = device_key(getattr(session, "device", None))
+        calibrated_s = cost_model.predict(
+            features_from_plan(plan, nnz=nnz), device=key)
+        if calibrated_s is not None:
+            alpha = cost_model.alpha(device=key)
+            cal_unit = cost_model.unit_flops(device=key)
     return PhysicalCost(flops=plan.est_flops, comm=plan.total_comm_est,
-                        nnz=nnz)
+                        nnz=nnz, calibrated_s=calibrated_s, alpha=alpha,
+                        cal_unit=cal_unit)
 
 
 # ---------------------------------------------------------------------------

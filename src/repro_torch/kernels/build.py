@@ -44,16 +44,21 @@ LAUNCHES: Dict[str, int] = {"coo_expand": 0, "bloom_probe": 0,
 _LIB: Optional[ctypes.CDLL] = None
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
+# the serving engine's worker threads launch concurrently, and
+# ``LAUNCHES[name] += 1`` is a read-modify-write
+_COUNT_LOCK = threading.Lock()
 BUILD_INFO: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -173,6 +178,8 @@ def library() -> ctypes.CDLL:
 
 def function(name: str) -> ctypes._CFuncPtr:
     """The library's bound C function ``name``, looked up once."""
+    # two threads may both miss and look the name up: harmless, both get
+    # the same bound function from the one loaded library
     fn = _FNS.get(name)
     if fn is None:
         fn = _FNS[name] = getattr(library(), name)

@@ -11,14 +11,16 @@ node with estimated cost/sparsity, the chosen join strategy and the kernel
 backend of the session's device. ``PlanExecutor`` evaluates the DAG
 topologically with memoization; ``render`` is the physical EXPLAIN.
 """
-from repro_torch.plan.builder import build_plan
+from repro_torch.plan.builder import (
+    SharedBuildState, SharedLowering, build_plan, lower_shared,
+)
 from repro_torch.plan.executor import PlanExecutor
 from repro_torch.plan.explain import render
 from repro_torch.plan.ops import PhysicalNode, PhysicalPlan
 from repro_torch.plan.schemes import SchemeAssignment, propagate, transpose_scheme
 
 __all__ = [
-    "build_plan", "PlanExecutor", "PhysicalNode",
-    "PhysicalPlan", "render", "SchemeAssignment", "propagate",
-    "transpose_scheme",
+    "build_plan", "lower_shared", "PlanExecutor", "PhysicalNode",
+    "PhysicalPlan", "render", "SharedBuildState", "SharedLowering",
+    "SchemeAssignment", "propagate", "transpose_scheme",
 ]

@@ -20,6 +20,7 @@ made here, once, at plan time:
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -63,6 +64,7 @@ class _Builder:
     def __init__(self, mode: str, block_size: int, use_bloom: bool,
                  kernel_backend: Optional[str], n_workers: int,
                  cost_only: bool = False,
+                 shared: Optional["SharedBuildState"] = None,
                  device="cpu"):
         self.mode = mode
         self.block_size = block_size
@@ -72,8 +74,13 @@ class _Builder:
         self.cost_only = cost_only
         # kernel nodes run on the backend of the session's device
         self.device = torch.device(device)
-        self.nodes: List[P.PhysicalNode] = []
-        self.memo: Dict[tuple, int] = {}
+        # with a shared arena, lowering appends to the cross-query node
+        # list and consults the cross-query memo: a subplan another query
+        # already lowered hash-conses to the *same* shared node id
+        self.nodes: List[P.PhysicalNode] = \
+            shared.nodes if shared is not None else []
+        self.memo: Dict[tuple, int] = \
+            shared.memo if shared is not None else {}
 
     # -- hash-consing core ----------------------------------------------------
     def emit(self, kind: str, expr: Expr, children: Tuple[int, ...],
@@ -263,3 +270,91 @@ def build_plan(e: Expr, *, mode: str = "sparse", block_size: int = 256,
         from repro_torch.plan import schemes as schemesmod
         schemesmod.annotate(plan)
     return plan
+
+
+# ---------------------------------------------------------------------------
+# Cross-query hash-consing (the serving tier's shared DAG).
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class SharedBuildState:
+    """One hash-consing arena shared by *many* queries over one catalog
+    version (``repro_torch.serve.engine``).
+
+    Intra-query, the builder memo dedupes subplans of a single ``Expr``;
+    giving successive ``lower_shared`` calls the same arena extends that
+    to inter-query CSE: a subplan any earlier query lowered (same
+    operator, same params, same child *shared ids*) resolves to the same
+    shared node id, which the serving tier uses as the key for shared
+    materialized results. The arena is only coherent for one catalog
+    version × one set of session settings (``device`` among them: it
+    decides each kernel node's backend) — the engine keys arenas
+    accordingly and retires them on rebind.
+    """
+
+    mode: str
+    block_size: int
+    use_bloom: bool
+    n_workers: int
+    device: torch.device
+    nodes: List[P.PhysicalNode] = dataclasses.field(default_factory=list)
+    memo: Dict[tuple, int] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class SharedLowering:
+    """Result of lowering one query into a shared arena: the extracted
+    per-query ``PhysicalPlan`` (renumbered, self-contained — annotation
+    and execution passes index nodes positionally), the root's shared id,
+    and the inter-query CSE accounting."""
+
+    plan: P.PhysicalPlan
+    root_shared_id: int
+    reused_nodes: int      # distinct pre-existing shared nodes this query hit
+    new_nodes: int         # shared nodes this query added to the arena
+
+
+def lower_shared(shared: SharedBuildState, e: Expr,
+                 kernel_backend: Optional[str] = None) -> SharedLowering:
+    """Lower (already-optimized) ``e`` into the shared arena.
+
+    Not thread-safe — the serving engine serializes arena access.
+    """
+    from repro_torch.obs.trace import span
+    base = len(shared.nodes)
+    b = _Builder(shared.mode, shared.block_size, shared.use_bloom,
+                 kernel_backend, shared.n_workers, shared=shared,
+                 device=shared.device)
+    with span("lower", mode=shared.mode, shared=True):
+        root = b.lower(e)
+    # reachable shared ids, ascending = children-first (emit ids increase)
+    keep: set = set()
+    stack = [root]
+    while stack:
+        i = stack.pop()
+        if i in keep:
+            continue
+        keep.add(i)
+        stack.extend(shared.nodes[i].children)
+    order = sorted(keep)
+    renum = {old: new for new, old in enumerate(order)}
+    nodes = tuple(
+        dataclasses.replace(
+            shared.nodes[old], op_id=renum[old],
+            children=tuple(renum[c] for c in shared.nodes[old].children),
+            # fresh meta per extracted plan: annotation passes mutate it,
+            # and concurrent queries must not share mutable state. The
+            # shared id rides along as the engine's cross-query result key.
+            meta=dict(shared.nodes[old].meta, shared_id=old))
+        for old in order)
+    plan = P.PhysicalPlan(
+        nodes=nodes, root=renum[root], mode=shared.mode,
+        block_size=shared.block_size, n_workers=shared.n_workers,
+        logical_nodes=count_nodes(e), use_bloom=shared.use_bloom)
+    if shared.n_workers > 1:
+        from repro_torch.plan import schemes as schemesmod
+        schemesmod.annotate(plan)
+    return SharedLowering(
+        plan=plan, root_shared_id=root,
+        reused_nodes=sum(1 for i in keep if i < base),
+        new_nodes=len(shared.nodes) - base)

@@ -26,7 +26,8 @@ Paths:
 PyTorch has nothing to trace, so a staged function is the per-node
 closure run eagerly; it keeps the plan-time static masks and capacities
 and is cached under the mask fingerprint and capacities, as in the JAX
-package. Multi-worker (SPMD) staging waits for its slice.
+package. Building it passes the ``stage_compile`` fault seam
+(``runtime.faults``). Multi-worker (SPMD) staging waits for its slice.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.obs.trace import TRACER, span
+from repro_torch.runtime import faults
 
 from repro_torch.core import joins as joinsmod
 from repro_torch.core import joins_device as joinsdev
@@ -64,15 +66,30 @@ class PlanExecutor:
     """Memoized topological evaluator for ``PhysicalPlan``s.
 
     ``device`` is where synthesized leaves are made (default: the device
-    of the catalog's tensors).
+    of the catalog's tensors). ``stage_jit=False`` forces the per-node
+    eager walk (the serving tier's degraded path: it never passes the
+    staged-build fault seam).
     """
 
-    def __init__(self, env: Dict[str, BlockMatrix], device=None):
+    def __init__(self, env: Dict[str, BlockMatrix], device=None,
+                 stage_jit: bool = True, node_cache=None, metrics=None):
         self.env = env
         self.device = env_device(env) if device is None \
             else torch.device(device)
+        self.stage_jit = stage_jit
+        # cross-query materialized-result cache (the serving tier's
+        # inter-query CSE): an object with ``get(plan, node)`` →
+        # result-or-None and ``put(plan, node, result)``. Sharing happens
+        # per *node*, so it composes with the eager path only — ``run``
+        # skips staging when a cache is installed.
+        self.node_cache = node_cache
+        # optional ``obs.metrics.MetricsRegistry``: every counter bump
+        # below mirrors into it as ``executor_<name>`` (the serving tier
+        # passes its per-engine registry); ``stats`` remains the per-run
+        # view the tests and engine read
+        self.metrics = metrics
         self.stats: Dict[str, int] = {
-            "node_evals": 0, "matmuls": 0,
+            "node_evals": 0, "node_reuses": 0, "matmuls": 0,
             "masked_matmuls": 0, "masked_aggs": 0, "joins": 0,
             "staged": 0, "staged_sparse": 0, "sparse_fallbacks": 0,
             "sparse_overflows": 0, "blocks_skipped": 0, "blocks_total": 0,
@@ -82,14 +99,18 @@ class PlanExecutor:
         self.timings: Dict[str, float] = {"compile_s": 0.0, "execute_s": 0.0}
 
     def _bump(self, name: str, n: int = 1) -> None:
+        """Single increment site: the per-run dict and (when installed)
+        the registry counter move together."""
         self.stats[name] += n
+        if self.metrics is not None:
+            self.metrics.counter("executor_" + name).inc(n)
 
     # -- public ---------------------------------------------------------------
     def run(self, plan: P.PhysicalPlan) -> Result:
         if plan.n_workers > 1:
             raise NotImplementedError(
                 "multi-worker plans wait for the multi-worker slice")
-        if plan.jit_safe:
+        if self.stage_jit and plan.jit_safe and self.node_cache is None:
             if plan.mode == "dense":
                 return self._run_staged(plan)
             out = self._run_staged_sparse(plan)
@@ -103,6 +124,12 @@ class PlanExecutor:
         results: Dict[int, Result] = {}
         with span("execute", path="eager", nodes=plan.n_nodes):
             for node in plan.nodes:
+                if self.node_cache is not None:
+                    hit = self.node_cache.get(plan, node)
+                    if hit is not None:
+                        results[node.op_id] = hit
+                        self._bump("node_reuses")
+                        continue
                 args = [results[c] for c in node.children]
                 # per-node wall time: only traced runs synchronize (so
                 # span times mean device work, not launch time)
@@ -112,6 +139,8 @@ class PlanExecutor:
                         _sync(out)
                 results[node.op_id] = out
                 self._bump("node_evals")
+                if self.node_cache is not None:
+                    self.node_cache.put(plan, node, out)
         return results[plan.root]
 
     def _eval(self, plan: P.PhysicalPlan, node: P.PhysicalNode,
@@ -207,6 +236,7 @@ class PlanExecutor:
         staged = plan._staged_fn
         if staged is None:
             with span("stage_compile", mode="dense"):
+                faults.check("stage_compile", mode="dense", spmd=False)
                 t0 = time.perf_counter()
                 staged = _stage(plan, self.device)
                 self.timings["compile_s"] += time.perf_counter() - t0
@@ -259,6 +289,7 @@ class PlanExecutor:
             while len(cache) >= _STAGED_SPARSE_CACHE_LIMIT:
                 cache.pop(next(iter(cache)))
             with span("stage_compile", mode="sparse"):
+                faults.check("stage_compile", mode="sparse", spmd=False)
                 t0 = time.perf_counter()
                 entry = _stage_sparse(plan, self.device)
                 self.timings["compile_s"] += time.perf_counter() - t0

@@ -62,6 +62,15 @@ def render_optimizer(opt) -> List[str]:
                  f" (flops/comm/nnz {opt.physical.breakdown()})"
                  f" from {opt.physical_original.total:.4g}")
     lines = [head + " =="]
+    phys = opt.physical
+    if phys is not None and phys.calibrated_s is not None \
+            and phys.alpha < 1.0:
+        # calibrated cost model active (core.calibrate): show both sides
+        # of the blend so EXPLAIN exposes analytic-vs-calibrated per plan
+        lines.append(
+            f"== cost model: analytic={phys.analytic:.4g}"
+            f" calibrated={phys.calibrated_s*1e3:.4g}ms"
+            f" alpha={phys.alpha:.2f} blended={phys.total:.4g} ==")
     if opt.alternatives:
         lines.append(f"== rejected alternatives"
                      f" (top {len(opt.alternatives)}) ==")

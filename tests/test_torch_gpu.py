@@ -788,3 +788,110 @@ def test_pnmf_queries_on_the_card_launch_the_kernels_and_match_cpu(cuda):
     for host, card in zip(results["cpu"], results["cuda"]):
         torch.testing.assert_close(card.value.cpu(), host.value, atol=1e-5,
                                    rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# faults and the serving tier on the card
+# ---------------------------------------------------------------------------
+
+def test_faulted_cuda_dispatch_raises_then_quarantines(cuda, monkeypatch):
+    """A ``kernel_dispatch:backend=cuda`` schedule makes dispatch raise;
+    after the breaker's threshold dispatch raises ``KernelQuarantined``;
+    no launch is counted and the plain version is never called."""
+    from repro_torch.kernels import registry
+    from repro_torch.runtime import faults
+    monkeypatch.setattr(registry, "BREAKER", registry.CircuitBreaker(
+        threshold=3, cooldown_s=3600.0))
+    spec = registry.get("masked_matmul")
+    plain_calls = []
+    plain = spec.impls[registry.TORCH]
+    monkeypatch.setitem(spec.impls, registry.TORCH,
+                        lambda *a, **kw: plain_calls.append(1) or
+                        plain(*a, **kw))
+    rng = np.random.default_rng(0)
+    w = torch.as_tensor(rng.normal(size=(256, 32)), dtype=torch.float32,
+                        device=cuda)
+    h = torch.as_tensor(rng.normal(size=(32, 256)), dtype=torch.float32,
+                        device=cuda)
+    mask = torch.ones((4, 4), dtype=torch.bool, device=cuda)
+    torch.cuda.synchronize()
+    before = dict(build.LAUNCHES)
+    with faults.inject("kernel_dispatch:backend=cuda"):
+        for _ in range(3):
+            with pytest.raises(faults.FaultInjected):
+                registry.dispatch("masked_matmul", w, h, mask, block_size=64)
+        with pytest.raises(registry.KernelQuarantined):
+            registry.dispatch("masked_matmul", w, h, mask, block_size=64)
+    # quarantined without a fault plan: still refused, nothing launched
+    with pytest.raises(registry.KernelQuarantined):
+        registry.dispatch("masked_matmul", w, h, mask, block_size=64)
+    assert dict(build.LAUNCHES) == before
+    assert plain_calls == []
+
+
+def test_unsupported_merges_leave_the_card_serving(cuda, monkeypatch):
+    """Three tickets whose overlay ``merge_join_cuda`` refuses (a merge of
+    degree 3) fail alone: no launch, no retry, the breaker stays closed,
+    and another tenant's supported overlay then launches the kernel."""
+    from repro_torch.core import Session
+    from repro_torch.core.sparsity import product_merge
+    from repro_torch.kernels import registry
+    from repro_torch.serve.engine import ServeEngine
+    monkeypatch.setattr(registry, "BREAKER", registry.CircuitBreaker(
+        threshold=3, cooldown_s=3600.0))
+    rng = np.random.default_rng(4)
+    a = rng.normal(size=(256, 256)).astype(np.float32)
+    b = rng.normal(size=(256, 256)).astype(np.float32)
+    a[:64, :] = 0.0
+    b[:, :64] = 0.0                          # 9 of 16 blocks live
+
+    def cubic(x, y):
+        return x * x * y
+
+    s = Session(block_size=64, device="cuda")
+    A, B = s.load(a, "A"), s.load(b, "B")
+    before = build.LAUNCHES["merge_join"]
+    with ServeEngine(s, cse=False, n_threads=1, retry_backoff_s=0.0) as eng:
+        for _ in range(3):
+            with pytest.raises(NotImplementedError):
+                eng.run(A.join(B, "RID=RID AND CID=CID", cubic),
+                        tenant="t0", timeout=120.0)
+        assert build.LAUNCHES["merge_join"] == before
+        got = eng.run(A.join(B, "RID=RID AND CID=CID", product_merge()),
+                      tenant="t1", timeout=120.0)
+        snap = eng.snapshot()
+    assert build.LAUNCHES["merge_join"] == before + 1
+    assert registry.BREAKER.state(registry.CUDA) == "closed"
+    assert snap["exec_retries"] == 0 and snap["degraded_eager"] == 0
+    assert snap["errors"] == 3 and snap["completed"] == 1
+    torch.testing.assert_close(got.value.cpu(), torch.as_tensor(a * b),
+                               atol=1e-6, rtol=1e-6)
+
+
+def test_serving_engine_on_the_card_matches_the_cpu(cuda):
+    """The dim-48 serving stream through ``ServeEngine`` on the card and
+    on the CPU: every template's result equal (f32 atol/rtol 1e-5,
+    reductions rtol 1e-4), the CSE counters equal with one worker."""
+    from repro_torch.core import Session
+    from repro_torch.serve import workload as wl
+    from repro_torch.serve.engine import ServeEngine
+    results, stats = {}, {}
+    for dev in ("cpu", "cuda"):
+        rng = np.random.default_rng(0)
+        s = Session(block_size=8, device=dev)
+        templates = wl.query_templates(wl.synthetic_catalog(s, rng, n=48))
+        with ServeEngine(s, cse=True, n_threads=2) as eng:
+            tickets = [(name, eng.submit(expr)) for name, expr in templates]
+            results[dev] = {name: t.result(timeout=120.0).value.cpu()
+                            for name, t in tickets}
+        stream = wl.client_stream(rng, templates, n_clients=100)
+        stats[dev] = wl.run_workload(s, stream, n_threads=1)["stats"]
+    for name, want in results["cpu"].items():
+        rtol = 1e-4 if name in ("gram_trace", "gram_rowsum",
+                                "xy_colsum") else 1e-5
+        torch.testing.assert_close(results["cuda"][name], want, atol=1e-5,
+                                   rtol=rtol, msg=name)
+    for key in ("completed", "errors", "root_hits", "inter_query_cse_nodes",
+                "leaf_scans", "leaf_refs"):
+        assert stats["cuda"][key] == stats["cpu"][key], key
+    assert stats["cuda"]["errors"] == 0

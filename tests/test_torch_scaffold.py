@@ -35,7 +35,10 @@ def _port_files():
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.plan, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.kernels.ops, repro_torch.obs, "
+            "repro_torch.core.calibrate, repro_torch.serve.engine, "
+            "repro_torch.serve.workload, repro_torch.launch.serve, "
+            "repro_torch.runtime.elastic, repro_torch.quickstart; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -57,6 +60,12 @@ def test_package_has_the_reference_layout():
     for sub in ("core", "plan", "kernels", "obs"):
         assert (PORT / sub / "__init__.py").exists()
     assert (PORT / "core" / "joins_device.py").exists()
+    for path in ("runtime/faults.py", "runtime/fault_tolerance.py",
+                 "runtime/straggler.py", "runtime/elastic.py",
+                 "obs/metrics.py", "obs/ledger.py", "core/calibrate.py",
+                 "serve/engine.py", "serve/workload.py", "launch/serve.py"):
+        assert (PORT / path).exists(), path
+        assert (ROOT / "src" / "repro" / path).exists(), path
     assert repro_torch.resolve_device is resolve_device
 
 
@@ -70,12 +79,16 @@ def test_session_without_device_needs_a_card(monkeypatch):
 
 
 def test_unported_session_options_raise():
+    from repro_torch.launch import serve
     with pytest.raises(NotImplementedError):
         Session(device="cpu", n_workers=2)
-    with pytest.raises(NotImplementedError):
-        Session(device="cpu", ledger=object())
-    with pytest.raises(NotImplementedError):
-        Session(device="cpu", cost_model=object())
+    with pytest.raises(NotImplementedError, match="LM substrate"):
+        serve.main(["--arch", "qwen3-1.7b"])
+    with pytest.raises(NotImplementedError, match="multi-worker"):
+        serve.main(["--relational", "--device", "cpu", "--measure-comm"])
+    # the ledger and the calibrated cost model are ported
+    s = Session(device="cpu", ledger=object(), cost_model=None)
+    assert s.ledger is not None and s.cost_model is None
 
 
 def test_chip_smoke_without_a_card_fails_and_prints_no_result(monkeypatch,

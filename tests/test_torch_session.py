@@ -193,3 +193,38 @@ def test_v2v_join_with_nan_matches_reference(rng, operands, merge, bs):
     if operands == "fault":
         assert got.idx.tolist() == [[0, 0, 1, 2], [0, 1, 0, 0], [0, 1, 0, 1],
                                     [1, 0, 1, 0]]
+
+
+def test_quickstart_module_prints_what_the_reference_example_prints(
+        fresh_merge_profiles, capsys, monkeypatch):
+    """``python -m repro_torch.quickstart --device cpu`` against
+    ``examples/quickstart.py``: every line equal, the two printed values
+    (trace, G[1,1]) within rtol 1e-4."""
+    import runpy
+    from pathlib import Path
+    from repro_torch import quickstart
+    root = Path(__file__).resolve().parents[1]
+    runpy.run_path(str(root / "examples" / "quickstart.py"),
+                   run_name="__main__")
+    want = capsys.readouterr().out.splitlines()
+    j_sparsity._CACHE.clear()
+    t_sparsity._CACHE.clear()
+    assert quickstart.main(["--device", "cpu"]) == 0
+    got = capsys.readouterr().out.splitlines()
+    assert len(got) == len(want)
+    values = {}
+    for g, w in zip(got, want):
+        if g.startswith(("trace =", "G[1,1] =")):
+            key, gv = g.split(" = ")
+            values[key] = float(gv)
+            assert float(gv) == pytest.approx(float(w.split(" = ")[1]),
+                                              rel=1e-4)
+        else:
+            assert g == w
+    assert values["trace"] == pytest.approx(2065.5595703125, rel=1e-4)
+    assert values["G[1,1]"] == pytest.approx(2.831875801086426, rel=1e-4)
+    assert "direct overlay nnz: 6" in got
+    assert "D2D join → order-3 tensor, 3468 matches" in got
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        quickstart.main([])
