@@ -121,6 +121,18 @@ SERVE_SAMPLE = 32              # rows / columns held to float64 per template
 # the serving templates' sums of products, of Σ|terms|: FP32 reads a few
 # 1e-7 at n = 8192 and TF32 products about 1e-5, so a TF32 switch fails
 SERVE_RTOL = 2e-6
+# the multi-worker phase: Session(n_workers=MESH_WORKERS) on the one card,
+# benchmarks/bench_dist_comm.py's pipeline at the main path's width (X n x
+# n/2, Y (n/2)², its 2:1 ratio) and the main path's sparse kernel queries
+MESH_WORKERS = 4
+# the dense pipeline's XᵀX sums 16384 FP32 products (twice the serving
+# templates' K): of Σ|terms| FP32 reads a few 1e-6 on an H100 and TF32
+# products ~1e-4, so this limit still tells them apart (its control runs
+# the pipeline once more with TF32 allowed and must miss it)
+DIST_RTOL = 1e-5
+MESH_QUERIES = ("Q3", "Q5", "Q7", "Q8", "Q9", "Q10")
+MESH_GATED = {"Q3": "merge_join", "Q7": "masked_matmul", "Q8": "sddmm_agg",
+              "Q9": "sddmm_agg", "Q10": "sddmm_agg"}
 
 KERNEL_ROWS = {
     "coo_expand": ("src/repro_torch/kernels/csrc/coo_expand.cu",
@@ -643,6 +655,207 @@ def serving_workload_phase(device, seed, n, card):
 
 
 # ---------------------------------------------------------------------------
+# The multi-worker phase: N logical workers on the one card.
+# ---------------------------------------------------------------------------
+
+def dist_pipeline(m):
+    """``benchmarks/bench_dist_comm.py``'s ((σ(XᵀX) ⋈ Y) ⋈ Y) ⋈ Y over the
+    session matrices ``m`` (X [2k, k], Y [k, k])."""
+    from repro_torch.core.expr import MergeFn
+    k = m["Y"].plan.shape[0]
+    add = MergeFn("dist_add", lambda a, b: a + b)
+    mul = MergeFn("dist_mul", lambda a, b: a * b)
+    return (m["X"].t().multiply(m["X"])
+            .select(f"RID>=0 AND RID<={k - 1}")
+            .join(m["Y"], "RID=RID AND CID=CID", add)
+            .join(m["Y"], "RID=RID AND CID=CID", mul)
+            .join(m["Y"], "RID=CID AND CID=RID", add))
+
+
+def timed_collect(matrix, sync):
+    t0 = time.perf_counter()
+    out = matrix.collect()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def spmd_counts(session, matrix, sync):
+    """One more run through ``PlanExecutor`` on the session mesh: the
+    collective bytes it counted and its gated nodes (on shards, on
+    gathered operands)."""
+    from repro_torch.plan import PlanExecutor
+    ex = PlanExecutor(session.env, device=session.device, mesh=session.mesh)
+    ex.run(matrix.physical_plan())
+    sync()
+    st = ex.stats
+    assert st["staged_spmd"] + st["staged_sparse_spmd"] == 1, st
+    return (st["collective_bytes"], st["spmd_sharded_nodes"],
+            st["spmd_gathered_nodes"])
+
+
+def predicted_bytes(matrix) -> float:
+    from repro_torch.plan.schemes import ENTRY_BYTES
+    return matrix.physical_plan().total_comm_est * ENTRY_BYTES
+
+
+def multi_worker_phase(one, data, ref, n, bs, device, seed, card):
+    """``Session(n_workers=MESH_WORKERS)`` on the session's device: the
+    dense pipeline (held to float64 numpy on sampled columns within
+    ``DIST_RTOL`` of Σ|terms|, to the one-worker run within ``SUM_RTOL``
+    of Σ|terms|, and its counted bytes to the scheme pass's prediction),
+    then Q3, Q5, Q7–Q10 on the main path's catalog (each held to its
+    float64 check and to the one-worker session's result: the overlay
+    and the joins exactly, products and sums within ``SUM_RTOL``). The
+    kernel counts are zeroed before the phase and read after it; every
+    kernel must launch, the gated ones once a worker a node. Prints a
+    line a query as it goes; returns the phase's launch counts."""
+    import torch
+    from repro_torch.core import Session
+    from repro_torch.kernels import build
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    w = MESH_WORKERS
+    build.reset_launches()
+    t_phase = time.perf_counter()
+
+    # -- dense: bench_dist_comm's pipeline at the main path's width -------
+    k = n // 2
+    rng = np.random.default_rng(seed + 7)
+    x = rng.normal(size=(n, k)).astype(np.float32)
+    y = rng.normal(size=(k, k)).astype(np.float32)
+    sessions = [Session(block_size=bs, mode="dense", device=device,
+                        n_workers=nw) for nw in (1, w)]
+    outs, walls, queries = [], [], []
+    for s in sessions:
+        m = {"X": s.load(torch.as_tensor(x, device=s.device), "X"),
+             "Y": s.load(torch.as_tensor(y, device=s.device), "Y")}
+        q = dist_pipeline(m)
+        out, cold = timed_collect(q, sync)
+        _, warm = timed_collect(q, sync)
+        outs.append(out.value)
+        walls.append((cold, warm))
+        queries.append(q)
+    counted, sharded, gathered = spmd_counts(sessions[1], q, sync)
+    predicted = predicted_bytes(q)
+    assert counted == predicted, \
+        f"dense pipeline: counted {counted} B, predicted {predicted} B"
+    # float64 numpy on sampled columns, and the one-worker run everywhere
+    cols = np.sort(np.random.default_rng(seed + 8).choice(k, SERVE_SAMPLE,
+                                                          replace=False))
+    x64, y64 = x.astype(np.float64), y.astype(np.float64)
+    g = x64.T @ x64[:, cols]
+    gs = np.abs(x64).T @ np.abs(x64[:, cols])
+    want = (g + y64[:, cols]) * y64[:, cols] + y64[cols, :].T
+    scale = (gs + np.abs(y64[:, cols])) * np.abs(y64[:, cols]) \
+        + np.abs(y64[cols, :]).T
+    tcols = torch.as_tensor(cols, device=outs[0].device)
+
+    def f64_err(out, rtol, label):
+        return check_scaled(f"dist pipeline, {label}",
+                            out[:, tcols].double().cpu().numpy(), want,
+                            scale, rtol)
+    errs = [f64_err(o, DIST_RTOL, f"{nw} worker(s)")
+            for nw, o in zip((1, w), outs)]
+    control = ""
+    if on_card:
+        # the control: TF32 products must miss the limit the FP32 ones meet
+        matmul = torch.backends.cuda.matmul
+        allow = matmul.allow_tf32
+        matmul.allow_tf32 = True
+        try:
+            tf32 = f64_err(queries[0].collect().value, math.inf, "TF32")
+        finally:
+            matmul.allow_tf32 = allow
+        assert tf32 > DIST_RTOL, \
+            f"the limit passes TF32 products: dist pipeline err {tf32:.3g}"
+        control = f"; TF32 control {tf32:.2e} > limit {DIST_RTOL:.0e}"
+    xa, ya = (torch.as_tensor(v, device=outs[0].device).abs()
+              for v in (x, y))
+    full_scale = (xa.T @ xa + ya) * ya + ya.T
+    diff = float(((outs[1] - outs[0]).abs() / full_scale).max())
+    assert diff <= SUM_RTOL, f"dist pipeline: {w} workers vs one: {diff}"
+    print(
+        f"mesh dense pipeline ((sel(XtX) join Y) join Y) join Y, X {n}x{k}, "
+        f"Y {k}x{k}, {w} workers: cold {walls[1][0]:.3f} s, warm "
+        f"{walls[1][1]:.4f} s (one worker: cold {walls[0][0]:.3f} s, warm "
+        f"{walls[0][1]:.4f} s); collective bytes counted {counted}, "
+        f"predicted {predicted:.0f} (scheme pass x 4); float64 max scaled "
+        f"err {errs[1]:.2e} (one worker {errs[0]:.2e}, limit "
+        f"{DIST_RTOL:.0e}{control}), vs one worker {diff:.2e} of "
+        f"sum|terms| [{card}]", flush=True)
+    del sessions, outs, m, q, queries, xa, ya, full_scale
+    gc.collect()
+
+    # -- sparse: the main path's kernel queries on the same catalog -------
+    s4 = Session(block_size=bs, device=device, n_workers=w)
+    mats = {name: s4.load(bm, name) for name, bm in one.env.items()}
+    singles = {name.split()[0]: matrix for name, matrix, _ in
+               main_queries({nm: _one_matrix(one, nm) for nm in one.env},
+                            data, ref, n)}
+    for name, matrix, check in main_queries(mats, data, ref, n):
+        qn = name.split()[0]
+        if qn not in MESH_QUERIES:
+            continue
+        before = dict(build.LAUNCHES)
+        out, cold = timed_collect(matrix, sync)
+        what = check(out)
+        again, warm = timed_collect(matrix, sync)
+        launches = {kk: build.LAUNCHES[kk] - before[kk] for kk in before}
+        counted, sharded, gathered = spmd_counts(s4, matrix, sync)
+        want = singles[qn].collect()
+        same = _same_result(qn, out, want)
+        kernel = MESH_GATED.get(qn)
+        if on_card and kernel is not None:
+            # cold and warm runs: one launch a worker each
+            assert launches[kernel] == 2 * w, (qn, launches)
+            assert sharded == 1 and gathered == 0, (qn, sharded, gathered)
+        print(
+            f"mesh {name}: cold {cold:.3f} s, warm {warm:.4f} s; collective "
+            f"bytes counted {counted}, predicted "
+            f"{predicted_bytes(matrix):.0f} (scheme pass x 4); gated nodes "
+            f"on shards {sharded}, on gathered operands {gathered}; "
+            "launches (cold + warm): " + " ".join(
+                f"{kk}={v}" for kk, v in launches.items() if v)
+            + f"; {what}; vs one worker: {same} [{card}]", flush=True)
+    launches = dict(build.LAUNCHES)
+    if on_card:
+        missing = [kk for kk, v in launches.items() if v <= 0]
+        assert not missing, f"kernels never launched on the mesh: {missing}"
+    print(f"mesh phase: {time.perf_counter() - t_phase:.2f} s; kernel "
+          "launches over the phase: " + " ".join(
+              f"{kk}={v}" for kk, v in launches.items())
+          + "; the workers share one card and its default stream, so "
+          "these walls are not network times", flush=True)
+    return launches
+
+
+def _one_matrix(session, name):
+    from repro_torch.core.api import Matrix
+    from repro_torch.core.expr import Leaf
+    bm = session.env[name]
+    return Matrix(session, Leaf(name, bm.shape,
+                                float(bm.nnz()) / max(1, bm.value.numel())))
+
+
+def _same_result(qn, got, want) -> str:
+    """The mesh's result against the one-worker session's: joins and the
+    overlay exactly, products and sums within ``SUM_RTOL``."""
+    import torch
+    if qn == "Q5":
+        ga, wa = (np.lexsort(r.idx.T[::-1]) for r in (got, want))
+        assert np.array_equal(got.idx[ga], want.idx[wa]), "Q5 coords"
+        assert np.array_equal(got.val[ga], want.val[wa]), "Q5 values"
+        return f"{got.nnz} entries exact"
+    if qn == "Q3":
+        assert torch.equal(got.value, want.value), "Q3 values"
+        return "exact"
+    err = float(((got.value.double() - want.value.double()).abs()
+                 / want.value.double().abs().clamp_min(1e-30)).max())
+    assert err <= SUM_RTOL, f"{qn}: {err} vs one worker"
+    return f"max rel diff {err:.2e}"
+
+
+# ---------------------------------------------------------------------------
 # Kernel phases: each kernel against its plain version on the main path's
 # inputs, timed by CUDA events.
 # ---------------------------------------------------------------------------
@@ -1077,6 +1290,8 @@ def main(argv=None) -> int:
     _, line = pnmf_phase(s.env, ref, on_card)
     print(line)
     if not on_card:
+        multi_worker_phase(s, data, ref, n, bs, args.device, args.seed,
+                           "CPU rehearsal")
         print(engine_queries_phase(queries, "CPU rehearsal", on_card))
         lines, _ = serving_workload_phase(args.device, args.seed,
                                           SERVE_SMALL_N, "CPU rehearsal")
@@ -1108,6 +1323,9 @@ def main(argv=None) -> int:
         f"({100 * busy_s / sum(walls):.1f}% of wall, torch.profiler)")
     for key, ms, count in top:
         print(f"  device {ms:9.3f} ms  x{count:<4d} {key[:90]}")
+    multi_worker_phase(s, data, ref, n, bs, args.device, args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     print(engine_queries_phase(queries, card, on_card))
     # the main path's catalog (nine 1 GiB matrices) and the captured
     # kernel arguments go before the serving catalog is made

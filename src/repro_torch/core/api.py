@@ -19,7 +19,10 @@ the correctness oracle.
 
 A session lives on one device: ``Session()`` is the card (and raises
 without one); ``Session(device="cpu")`` runs the plain PyTorch versions
-of the kernels.
+of the kernels. ``Session(n_workers=N)`` plans for N workers (the §4.7
+schemes) and runs those plans on N logical workers of that one device
+(``core.partitioner.worker_mesh``), counting the bytes its collectives
+move.
 """
 from __future__ import annotations
 
@@ -60,6 +63,8 @@ class Session:
     physical planner, default) or ``"tree"`` (the recursive executor,
     kept as the oracle the planner is tested against). ``device`` is
     where every tensor of the session lives (``None`` → ``"cuda"``).
+    ``n_workers`` is the worker count plans are built and run for
+    (``None``: one).
     """
 
     def __init__(self, block_size: int = 256, mode: str = "sparse",
@@ -70,10 +75,6 @@ class Session:
             raise ValueError(f"unknown engine {engine!r}")
         if search not in ("memo", "greedy"):
             raise ValueError(f"unknown search {search!r}")
-        if n_workers is not None and n_workers > 1:
-            raise NotImplementedError(
-                "multi-worker sessions are not ported yet (ROADMAP: "
-                "multi-worker schemes)")
         self.device = resolve_device(device)
         self.env: Dict[str, BlockMatrix] = {}
         self.block_size = block_size
@@ -91,9 +92,40 @@ class Session:
         # (analytic-only when unset or unfitted for this device key)
         self.cost_model = cost_model
         self._auto = 0
+        self._mesh = None
         self._env_version = 0
         self._plan_cache = VersionedLRU(_PLAN_CACHE_LIMIT)
         self._opt_cache = VersionedLRU(_PLAN_CACHE_LIMIT)
+
+    @property
+    def workers(self) -> int:
+        """Effective worker count: ``n_workers``, or one. (The JAX
+        package's default is its visible device count; the port's workers
+        are logical, so the count is the caller's.)"""
+        return self.n_workers or 1
+
+    @property
+    def mesh(self):
+        """The session-owned 1-D worker mesh (None on a single worker).
+
+        Built once per worker count on the session's device and threaded
+        through planning, SPMD execution and EXPLAIN. Changing
+        ``n_workers`` rebuilds it, and the plan cache is keyed on it, so a
+        topology change replans and restages.
+        """
+        w = self.workers
+        if w <= 1:
+            return None
+        from repro_torch.core.partitioner import mesh_workers, worker_mesh
+        if self._mesh is None or mesh_workers(self._mesh) != w:
+            self._mesh = worker_mesh(w, self.device)
+        return self._mesh
+
+    def _mesh_key(self):
+        m = self.mesh
+        if m is None:
+            return None
+        return (m.n, str(m.device), m.axis_names)
 
     def load(self, value, name: Optional[str] = None,
              sparsity: Optional[float] = None) -> "Matrix":
@@ -102,7 +134,7 @@ class Session:
             name = f"_m{self._auto}"
         if isinstance(value, BlockMatrix):
             bm = value
-            if bm.value.device != self.device:
+            if not _same_device(bm.value.device, self.device):
                 raise ValueError(f"matrix on {bm.value.device}, session on "
                                  f"{self.device}")
         else:
@@ -140,7 +172,8 @@ class Session:
                                      use_bloom=self.use_bloom,
                                      device=self.device)
         pplan = self.physical_plan(plan)
-        ex = planmod.PlanExecutor(self.env, device=self.device)
+        ex = planmod.PlanExecutor(self.env, device=self.device,
+                                  mesh=self.mesh)
         t0 = time.perf_counter()
         out = ex.run(pplan)
         if self.device.type == "cuda":
@@ -188,18 +221,32 @@ class Session:
         """Lower ``plan`` (assumed already optimized) into a physical DAG.
 
         Plans are cached per (expr, catalog version, mode, block_size,
-        use_bloom, n_workers): plan annotations derive from the expression,
-        those settings *and the bound leaf data* (mask/nnz propagation and
-        COO capacity sizing read the catalog), so a leaf rebind replans.
+        use_bloom, n_workers, mesh): plan annotations derive from the
+        expression, those settings *and the bound leaf data* (mask/nnz
+        propagation and COO capacity sizing read the catalog), so a leaf
+        rebind replans; the mesh is in the key because the staged SPMD
+        function and the scheme annotations are topology-specific.
         The cache is a bounded LRU (``core.plancache.VersionedLRU``).
         """
         key = (plan, self._env_version, self.mode, self.block_size,
-               self.use_bloom, self.n_workers)
+               self.use_bloom, self.n_workers, self._mesh_key())
         return self._plan_cache.get_or_create(
             key, lambda: planmod.build_plan(
                 plan, mode=self.mode, block_size=self.block_size,
                 use_bloom=self.use_bloom, n_workers=self.n_workers,
                 device=self.device))
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one: ``cuda`` names the current card, so it
+    is ``cuda:<current index>``."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == \
+        (cur if b.index is None else b.index)
 
 
 # Bounds the per-session physical-plan cache (sessions issuing dynamically
@@ -290,12 +337,18 @@ class Matrix:
         plan = self.optimized_plan().plan if optimize else self.plan
         return self.session.physical_plan(plan)
 
-    def explain(self, physical: bool = False, trace: bool = False) -> str:
+    def explain(self, physical: bool = False,
+                measure_comm: bool = False, trace: bool = False) -> str:
         """Logical EXPLAIN (rewrites + costs) or, with ``physical=True``,
-        the physical DAG with per-node cost, strategy and backend, headed
-        by the optimizer's decision record. ``trace=True`` additionally
-        runs the query once under a forced-sample trace (bypassing the
-        session's optimize/plan caches) and appends the span tree."""
+        the physical DAG with per-node cost, strategy, backend and (on
+        multi-worker sessions) propagated partition schemes + predicted
+        comm, headed by the optimizer's decision record.
+        ``measure_comm=True`` additionally runs the staged SPMD function
+        once and prints the collective bytes it counted next to the
+        prediction (dense jit-safe plans on a mesh only).
+        ``trace=True`` additionally runs the query once under a
+        forced-sample trace (bypassing the session's optimize/plan
+        caches) and appends the span tree."""
         trace_txt = ""
         if trace:
             trace_txt = "\n" + self._traced_run().render()
@@ -311,7 +364,12 @@ class Matrix:
                     masksmod.annotate(plan, self.session.env)
                 except KeyError:
                     pass  # unbound leaves: render the un-annotated plan
-            return planmod.render(plan, opt=result) + trace_txt
+            measured = None
+            if measure_comm:
+                measured = planmod.staged_collective_bytes(
+                    plan, self.session.env, self.session.mesh)
+            return planmod.render(plan, measured_bytes=measured,
+                                  opt=result) + trace_txt
         return self.optimized_plan().describe(self.plan) + trace_txt
 
     def _traced_run(self):
@@ -327,7 +385,8 @@ class Matrix:
                 opt.plan, mode=s.mode, block_size=s.block_size,
                 use_bloom=s.use_bloom, n_workers=s.n_workers,
                 device=s.device)
-            planmod.PlanExecutor(s.env, device=s.device).run(pplan)
+            planmod.PlanExecutor(s.env, device=s.device,
+                                 mesh=s.mesh).run(pplan)
         tr.finish()
         return tr
 

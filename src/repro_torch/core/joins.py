@@ -383,6 +383,29 @@ def d2v_sparse(a: BlockMatrix, b: BlockMatrix, dim: Field,
                      a.shape + b.shape)
 
 
+def join_distributed(mesh, a: BlockMatrix, b: BlockMatrix, pred: JoinPred,
+                     merge: MergeFn, plan=None):
+    """Distributed entry point: one cost-model-sharded join per call.
+
+    Routes through ``core.partitioner`` (schemes from §4.7, realized on
+    the workers of the session mesh). This is the per-join path; the
+    whole-plan SPMD staging in ``repro_torch.plan.executor`` keeps a
+    multi-op query's intermediates on the workers between joins.
+    """
+    from repro_torch.core import partitioner as partmod
+    k = pred.kind
+    if k in (JoinKind.DIRECT_OVERLAY, JoinKind.TRANSPOSE_OVERLAY):
+        return partmod.distributed_overlay(
+            mesh, a, b, merge, transpose=(k is JoinKind.TRANSPOSE_OVERLAY),
+            plan=plan)
+    if k is JoinKind.D2D:
+        return partmod.distributed_d2d(mesh, a, b, pred.left, pred.right,
+                                       merge, plan=plan)
+    raise NotImplementedError(
+        f"per-call distributed execution not defined for {k}; "
+        "use the whole-plan SPMD path (repro.plan)")
+
+
 def join_sparse_device(a: BlockMatrix, b: BlockMatrix, pred: JoinPred,
                        merge: MergeFn, cap: Optional[int] = None,
                        use_bloom: bool = False,

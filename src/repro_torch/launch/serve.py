@@ -11,8 +11,10 @@ with and without cross-query CSE:
         --device cpu --clients 200 --dim 24 --threads 2
 
 The same arguments and seed give the JAX package's catalog, stream and
-counters (``python -m repro.launch.serve --relational``). The LM demo of
-that launcher (``--arch``) and ``--measure-comm`` are not ported yet.
+counters (``python -m repro.launch.serve --relational``).
+``--measure-comm`` records each ledger row's collective bytes, as there
+(0: the launcher's session has one worker). The LM demo of that launcher
+(``--arch``) is not ported yet.
 """
 from __future__ import annotations
 
@@ -28,11 +30,6 @@ def serve_relational(args) -> int:
     from repro_torch.obs.ledger import CostLedger
     from repro_torch.serve import workload as wl
 
-    if args.measure_comm:
-        raise NotImplementedError(
-            "--measure-comm measures the collective bytes of a multi-worker "
-            "program, which waits for the multi-worker slice (ROADMAP: "
-            "multi-worker schemes)")
     rng = np.random.default_rng(args.seed)
     cost_model = None
     if args.costmodel_out or args.refit_every:
@@ -61,6 +58,7 @@ def serve_relational(args) -> int:
                             tenant_max_inflight=args.tenant_inflight,
                             trace_sample=args.trace_sample,
                             ledger=ledger,
+                            measure_comm=args.measure_comm,
                             refit_every=args.refit_every,
                             deadline_s=args.deadline)
         st = r["stats"]
@@ -145,7 +143,7 @@ def main(argv=None) -> int:
                          "summary) as JSON at exit")
     ap.add_argument("--measure-comm", action="store_true",
                     help="record measured collective bytes in ledger "
-                         "rows (not ported: raises)")
+                         "rows (counted on a mesh, 0 off-mesh)")
     ap.add_argument("--refit-every", type=int, default=None,
                     help="online calibration: background-refit the "
                          "session cost model every N executed plans "

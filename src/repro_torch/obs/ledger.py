@@ -3,10 +3,11 @@
 The optimizer's cost model predicts flops / communication / materialized
 nnz per candidate plan (``core.cost.physical_cost``, the schemes DP); this
 ledger records those predictions next to what execution actually measured
-— wall time, staged-build-vs-execute split, collective bytes (none are
-measured yet: the port runs one worker on one device), realized nnz and
-overflow outcomes. Persisted append-only as JSONL beside ``results/autotune.json``
-(same convention: ``REPRO_LEDGER_PATH`` overrides), it is the training
+— wall time, staged-build-vs-execute split, collective bytes (counted
+between the workers of a multi-worker session's mesh, ``core.spmd``),
+realized nnz and overflow outcomes. Persisted append-only as JSONL
+beside ``results/autotune.json`` (same convention:
+``REPRO_LEDGER_PATH`` overrides), it is the training
 corpus the ROADMAP's learned cost model will re-fit from: "log
 predicted-vs-actual per executed plan and re-fit".
 
@@ -14,9 +15,10 @@ Row schema (versioned; ``docs/observability.md``):
 
     {"schema": 1, "ts": <unix>, "trace_id": <str|null>,
      "query": <root signature>, "plan_nodes": N, "mode": "sparse|dense",
-     "n_workers": W, "exec_path": "staged|staged_sparse|eager|
-     eager_reuse|root_hit|tree", "predicted": {"flops", "comm_entries",
-     "comm_bytes", "nnz", "features": {core.calibrate.FEATURES}},
+     "n_workers": W, "exec_path": "staged|staged_spmd|staged_sparse|
+     staged_sparse_spmd|eager|eager_reuse|root_hit|tree",
+     "predicted": {"flops", "comm_entries", "comm_bytes", "nnz",
+     "features": {core.calibrate.FEATURES}},
      "measured": {"wall_s", "compile_s", "comm_bytes", "nnz",
      "overflow"}}
 
@@ -87,12 +89,28 @@ def exec_path_of(stats: Dict[str, int]) -> str:
 
 
 def measured_comm_bytes(plan, env, mesh) -> Optional[int]:
-    """Measured network-wide collective bytes of the staged multi-worker
-    program. The JAX package parses the XLA HLO of its SPMD program; the
-    port runs one worker on one device and has no such program yet
-    (ROADMAP: multi-worker schemes), so there is nothing to measure and
-    the row records None."""
-    return None
+    """Network-wide collective bytes of the staged SPMD function, counted
+    as it runs on ``mesh``'s workers (``plan.executor.
+    staged_collective_bytes``), memoized on the plan (the count is a pure
+    function of the staged program and the leaf shapes). None off-mesh
+    and for plans that do not stage on a mesh."""
+    if mesh is None:
+        return None
+    cached = getattr(plan, "_measured_comm_bytes", None)
+    if cached is not None:
+        return cached if cached >= 0 else None
+    from repro_torch.plan.executor import staged_collective_bytes
+    try:
+        out = staged_collective_bytes(plan, env, mesh)
+    except faults.FaultInjected:
+        raise                       # injected faults are never swallowed
+    except (RuntimeError, ValueError, KeyError, OSError):
+        # un-runnable program / missing leaf: the comm measurement is
+        # best-effort, the row records None
+        out = None
+    # cache the miss too (-1): un-stageable plans stay un-stageable
+    plan._measured_comm_bytes = -1 if out is None else out
+    return out
 
 
 class CostLedger:

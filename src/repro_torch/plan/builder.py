@@ -14,9 +14,9 @@ made here, once, at plan time:
   sort-merge (``core.cost.choose_v2v_strategy``);
 * kernel-dispatching nodes are annotated with the registry backend
   (``kernels.registry.planned_backend``);
-* on a multi-worker plan, every node gets a propagated partition scheme
-  (``plan.schemes``); the per-join static partition choice of the JAX
-  package (``core.partitioner``) waits for the multi-worker slice.
+* on a multi-worker plan, joins get the partitioning-scheme pair from the
+  paper's communication cost model (``core.partitioner.plan_join_static``)
+  and every node a propagated partition scheme (``plan.schemes``).
 """
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.core import cost as costmod
+from repro_torch.core import partitioner as partmod
 from repro_torch.core.expr import (
     Agg, AggDim, AggFn, ElemWise, EWOp, Expr, Inverse, Join, Leaf, MatMul,
     MatScalar, Select, Transpose, count_nodes,
@@ -216,6 +217,11 @@ class _Builder:
             kernel = "coo_expand"
         if kernel is not None:
             backend = self._backend(kernel)
+        partition = None
+        if self.n_workers > 1 and not self.cost_only:
+            partition = partmod.plan_join_static(
+                e.pred, costmod.size_of(e.a), costmod.size_of(e.b),
+                self.n_workers).choice
         # every join family now has a jittable implementation: the dense
         # reference on the dense tier, and the device-resident COO /
         # block-skip machinery (core.joins_device, staged with plan-time
@@ -225,7 +231,8 @@ class _Builder:
         return self.emit(
             P.JOIN, e, (self.lower(e.a), self.lower(e.b)),
             (e.pred, e.merge), costmod.node_flops(e),
-            kernel=kernel, backend=backend, strategy=strategy)
+            kernel=kernel, backend=backend, strategy=strategy,
+            partition=partition)
 
     def _backend(self, kernel: str) -> Optional[str]:
         if self.cost_only:
@@ -254,7 +261,7 @@ def build_plan(e: Expr, *, mode: str = "sparse", block_size: int = 256,
     from repro_torch.obs.trace import span
     assert mode in ("sparse", "dense")
     if n_workers is None:
-        n_workers = 1     # multi-worker plans wait for their slice
+        n_workers = 1     # the JAX package's default is its device count
     b = _Builder(mode, block_size, use_bloom, kernel_backend, n_workers,
                  cost_only=cost_only, device=device)
     with span("lower", mode=mode, cost_only=cost_only):

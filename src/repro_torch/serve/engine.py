@@ -238,6 +238,7 @@ class ServeEngine:
                  registry: Optional[MetricsRegistry] = None,
                  trace_sample: Optional[float] = None,
                  ledger=None, ledger_root_hits: bool = False,
+                 measure_comm: bool = False,
                  refit_every: Optional[int] = None,
                  default_timeout_s: Optional[float] = 300.0,
                  deadline_s: Optional[float] = None,
@@ -261,13 +262,15 @@ class ServeEngine:
         self.trace_sample = trace_sample
         self._trace_seq = 0
         # optional obs.ledger.CostLedger: one predicted-vs-actual row per
-        # executed plan (its measured collective bytes are None: the port
-        # has no multi-worker program yet). Root hits execute nothing (the row would record a cache lookup,
-        # useless for cost-model re-fitting) so they are skipped unless
-        # ledger_root_hits is set — this keeps the ledger off the
-        # hottest serving path.
+        # executed plan; measure_comm additionally runs the staged SPMD
+        # function once a plan for its counted collective bytes (mesh
+        # runs only). Root hits execute nothing (the row would record a
+        # cache lookup, useless for cost-model re-fitting) so they are
+        # skipped unless ledger_root_hits is set — this keeps the ledger
+        # off the hottest serving path.
         self.ledger = ledger
         self.ledger_root_hits = ledger_root_hits
+        self.measure_comm = measure_comm
         # online calibration: with a ledger AND a session cost model,
         # every ``refit_every`` executed (ledgered) plans a background
         # daemon thread re-fits the model from the accumulated rows. A
@@ -432,7 +435,7 @@ class ServeEngine:
     def _state_key(self, version: int) -> tuple:
         s = self.session
         return (version, s.mode, s.block_size, s.use_bloom, s.n_workers,
-                str(s.device), s._costmodel_key())
+                s._mesh_key(), str(s.device), s._costmodel_key())
 
     def _current_state(self) -> _VersionState:
         """The shared state for the catalog as of *now*. The version is
@@ -839,10 +842,22 @@ class ServeEngine:
         if self.ledger is None:
             return
         try:
+            measured_comm = None
+            if self.measure_comm:
+                if self.session.mesh is not None:
+                    from repro_torch.obs.ledger import measured_comm_bytes
+                    measured_comm = measured_comm_bytes(plan, state.env,
+                                                        self.session.mesh)
+                else:
+                    # one worker: no interconnect, so the measured
+                    # collective traffic is exactly zero — recording it
+                    # keeps the predicted/measured comm gate meaningful
+                    # off-mesh (predicted must also be 0 for ratio 1.0)
+                    measured_comm = 0
             self.ledger.record(
                 query=signature(ticket.query), plan=plan,
                 exec_path=exec_path, wall_s=wall_s, compile_s=compile_s,
-                measured_comm=None, overflow=overflow,
+                measured_comm=measured_comm, overflow=overflow,
                 opt=ticket.opt, trace_id=ticket.trace_id,
                 tenant=ticket.tenant)
         except Exception:
@@ -950,7 +965,7 @@ class ServeEngine:
                                                threading.Lock())
         for attempt in range(self.exec_retries + 1):
             ex = PlanExecutor(state.env, device=self.session.device,
-                              metrics=self.metrics)
+                              mesh=self.session.mesh, metrics=self.metrics)
             try:
                 with lock:
                     faults.check("execute", attempt=attempt)

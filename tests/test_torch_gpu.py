@@ -895,3 +895,58 @@ def test_serving_engine_on_the_card_matches_the_cpu(cuda):
                 "leaf_scans", "leaf_refs"):
         assert stats["cuda"][key] == stats["cpu"][key], key
     assert stats["cuda"]["errors"] == 0
+
+
+def test_four_workers_launch_each_kernel_once_a_worker_on_the_card(cuda):
+    """``Session(n_workers=4)`` on the card: a block-sparse overlay, a
+    masked matmul and the three masked aggregations launch their kernel
+    once a worker on that worker's shard (1024 rows split on 64-row block
+    edges), and give the one-worker card result (the overlay exactly,
+    the products and sums rtol 1e-4)."""
+    from repro_torch.core import Session
+    from repro_torch.core.sparsity import product_merge
+    rng = np.random.default_rng(11)
+    m, bs = 1024, 64
+    g = m // bs
+
+    def blocky(live, d):
+        keep = np.kron(rng.uniform(size=(g, g)) < live, np.ones((bs, bs)))
+        v = np.where(rng.uniform(size=(m, m)) < d, rng.normal(size=(m, m)),
+                     0)
+        return (v * keep).astype(np.float32)
+    arrays = {"Ao": blocky(0.8, 0.1), "Bo": blocky(0.9, 0.1),
+              "Ap": np.abs(blocky(0.3, 0.1)),
+              "W": np.abs(rng.normal(size=(m, 16))).astype(np.float32),
+              "H": np.abs(rng.normal(size=(16, m))).astype(np.float32)}
+
+    def queries(s):
+        mats = {n: s.load(v, n) for n, v in arrays.items()}
+        wh = mats["W"].multiply(mats["H"])
+        return {
+            "merge_join": mats["Ao"].join(mats["Bo"], "RID=RID AND CID=CID",
+                                          product_merge()),
+            "masked_matmul": mats["Ap"].ediv(wh),
+            "sddmm_agg r": mats["Ap"].emul(wh).sum("r"),
+            "sddmm_agg c": mats["Ap"].emul(wh).sum("c"),
+            "sddmm_agg a": mats["Ap"].emul(wh).sum("a"),
+        }
+    one = {k: q.collect().value for k, q in
+           queries(Session(block_size=bs, device=cuda)).items()}
+    s4 = Session(block_size=bs, device=cuda, n_workers=4)
+    # a matrix of another session on the card loads as is ("cuda" names
+    # the current card, "cuda:0" its index)
+    other = Session(block_size=bs, device="cuda:0")
+    other.load(arrays["W"], "W")
+    s4.load(other.env["W"], "W0")
+    for name, q in queries(s4).items():
+        kernel = name.split()[0]
+        q.physical_plan()                     # plan outside the count
+        build.reset_launches()
+        got = q.collect().value
+        torch.cuda.synchronize()
+        assert build.LAUNCHES[kernel] == 4, (name, dict(build.LAUNCHES))
+        assert sum(build.LAUNCHES.values()) == 4, dict(build.LAUNCHES)
+        if kernel == "merge_join":
+            assert torch.equal(got, one[name]), name
+        else:
+            torch.testing.assert_close(got, one[name], rtol=1e-4, atol=1e-4)

@@ -377,3 +377,61 @@ def test_engine_background_refit_fits_under_the_session_key():
     assert snap["refits"] >= 1 and snap["refit_rows"] >= 8
     assert model.version >= 1 and model.fitted_devices() == [T_KEY]
     assert k1 != k2                    # the model version keys the state
+
+
+# ---------------------------------------------------------------------------
+# measured collective bytes on a worker mesh
+
+
+def _mesh_queries(s, mod):
+    rng = np.random.default_rng(3)
+    x = s.load(rng.normal(size=(32, 16)).astype(np.float32), "X")
+    y = s.load(rng.normal(size=(16, 16)).astype(np.float32), "Y")
+    add = mod.MergeFn("mc_add", lambda p, q: p + q)
+    gram = x.t().multiply(x)
+    return [gram, gram.join(y, "RID=CID AND CID=RID", add),
+            x.multiply(y).sum("c"), gram.trace()]
+
+
+@pytest.mark.parametrize("cse", [True, False])
+def test_engine_measure_comm_rows_on_a_mesh(cse):
+    """Four workers: every dense plan's row measures the bytes the scheme
+    pass predicted, some of them nonzero; the summary ratio is 1."""
+    from repro_torch.core import expr as t_expr
+    s = Session(block_size=8, mode="dense", n_workers=4, device="cpu")
+    queries = _mesh_queries(s, t_expr)
+    led = CostLedger()
+    with ServeEngine(s, cse=cse, n_threads=1, ledger=led,
+                     measure_comm=True) as eng:
+        for q in queries:
+            eng.submit(q).result(timeout=120.0)
+    rows = led.rows()
+    assert len(rows) == len(queries)
+    assert all(r["n_workers"] == 4 for r in rows)
+    assert [r["measured"]["comm_bytes"] for r in rows] == \
+        [r["predicted"]["comm_bytes"] for r in rows]
+    assert any(r["measured"]["comm_bytes"] > 0 for r in rows)
+    assert led.summary()["comm_ratio"] == 1.0
+    if not cse:
+        assert {r["exec_path"] for r in rows} == {"staged_spmd"}
+
+
+def test_engine_measure_comm_is_zero_off_mesh_as_the_reference():
+    from repro.core import expr as j_expr
+    from repro.serve.engine import ServeEngine as JServeEngine
+    from repro_torch.core import expr as t_expr
+    measured = []
+    for sess, mod, engine in (
+            (JSession(block_size=8, mode="dense", n_workers=1), j_expr,
+             JServeEngine),
+            (Session(block_size=8, mode="dense", device="cpu"), t_expr,
+             ServeEngine)):
+        queries = _mesh_queries(sess, mod)
+        led = (j_ledger if mod is j_expr else t_ledger).CostLedger()
+        with engine(sess, cse=False, n_threads=1, ledger=led,
+                    measure_comm=True) as eng:
+            for q in queries:
+                eng.submit(q).result(timeout=120.0)
+        measured.append([(r["predicted"]["comm_bytes"],
+                          r["measured"]["comm_bytes"]) for r in led.rows()])
+    assert measured[0] == measured[1] == [(0.0, 0)] * 4

@@ -143,3 +143,37 @@ def test_same_explain_text(sessions, name):
     assert "backend=dense" not in got
     if "kernel=" in got:
         assert "backend=torch" in got
+
+
+def test_explain_golden_bloom_join_with_schemes_four_workers():
+    """The JAX package's n_workers = 4 golden (``tests/test_plan.py``):
+    the join's §4.7 scheme pair, the propagated schemes and the predicted
+    comm render line for line as there (backend names aside)."""
+    import textwrap
+    from repro.core.expr import Join as JJoin, Leaf as JLeaf
+    from repro.core.expr import MergeFn as JMergeFn
+    from repro.core.predicates import parse_join as jparse
+    from repro.plan import build_plan as j_build_plan, render as j_render
+    from repro_torch.core.expr import Join, Leaf, MergeFn
+    from repro_torch.core.predicates import parse_join
+    from repro_torch.plan import build_plan, render
+    j = Join(Leaf("A", (512, 512), 0.5), Leaf("B", (512, 512), 0.5),
+             parse_join("VAL=VAL"), MergeFn("mul", lambda x, y: x * y))
+    jj = JJoin(JLeaf("A", (512, 512), 0.5), JLeaf("B", (512, 512), 0.5),
+               jparse("VAL=VAL"), JMergeFn("mul", lambda x, y: x * y))
+    got = render(build_plan(j, mode="sparse", block_size=8, n_workers=4))
+    ref = j_render(j_build_plan(jj, mode="sparse", block_size=8,
+                                n_workers=4, kernel_backend="dense"))
+    expected = textwrap.dedent("""\
+        == physical plan: mode=sparse workers=4 | 3 ops from 3 logical nodes (0 shared) | est 1.718e+10 flops ==
+        == comm: predicted 3.932e+05 entries moved (~1.573e+06 B) ==
+        #2 Join[VAL=VAL, f=mul]  shape=(512, 512, 512, 512) sp=0.025 cost=1.718e+10  [strategy=bloom-sortmerge kernel=bloom_probe backend=dense schemes=(r,r) comm=6.55e+05 scheme=r←(r,r) moved=3.93e+05]
+          #0 Leaf[A]  shape=(512, 512) sp=0.5 cost=0  [scheme=r moved=0]
+          #1 Leaf[B]  shape=(512, 512) sp=0.5 cost=0  [scheme=r moved=0]""")
+    assert ref == expected
+    assert _strip_backends(got).splitlines() == \
+        _strip_backends(expected).splitlines()
+    assert "backend=torch" in got
+    # the reference's default of one worker: no schemes, no comm line
+    one = render(build_plan(j, mode="sparse", block_size=8))
+    assert "workers=1" in one and "scheme" not in one

@@ -80,12 +80,15 @@ def test_session_without_device_needs_a_card(monkeypatch):
 
 def test_unported_session_options_raise():
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError):
-        Session(device="cpu", n_workers=2)
     with pytest.raises(NotImplementedError, match="LM substrate"):
         serve.main(["--arch", "qwen3-1.7b"])
-    with pytest.raises(NotImplementedError, match="multi-worker"):
-        serve.main(["--relational", "--device", "cpu", "--measure-comm"])
+    # multi-worker sessions and --measure-comm are ported: a two-worker
+    # mesh on the session's device, and a launcher run that records bytes
+    s2 = Session(device="cpu", n_workers=2)
+    assert s2.workers == 2 and s2.mesh.n == 2
+    assert s2.mesh.device == torch.device("cpu")
+    assert serve.main(["--relational", "--device", "cpu", "--measure-comm",
+                       "--clients", "20", "--dim", "16"]) == 0
     # the ledger and the calibrated cost model are ported
     s = Session(device="cpu", ledger=object(), cost_model=None)
     assert s.ledger is not None and s.cost_model is None

@@ -323,3 +323,45 @@ def test_launcher_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--relational", "--clients", "4", "--dim", "8"])
+
+
+def test_launcher_measure_comm_records_the_bytes(tmp_path):
+    """``--measure-comm`` runs (the launcher's session has one worker, so
+    every row measures 0 bytes against a prediction of 0, as the JAX
+    package's launcher on one device)."""
+    import json
+    from repro_torch.launch import serve
+    path = tmp_path / "ledger.jsonl"
+    rc = serve.main(["--relational", "--device", "cpu", "--clients", "40",
+                     "--dim", "16", "--threads", "2", "--measure-comm",
+                     "--ledger-out", str(path)])
+    assert rc == 0
+    rows = [json.loads(line) for line in path.read_text().splitlines()]
+    assert rows
+    assert {(r["predicted"]["comm_bytes"], r["measured"]["comm_bytes"])
+            for r in rows} == {(0.0, 0)}
+
+
+@pytest.mark.parametrize("cse", [True, False])
+def test_engine_on_four_workers_matches_serial_execute(cse):
+    """The serving templates through an engine over a four-worker session
+    give the one-worker session's results (sums rtol 1e-4); without CSE
+    the plans run as staged SPMD programs."""
+    from repro_torch.obs.ledger import CostLedger
+    one, templates, _ = _mk(n=16)
+    serial = {name: _val(one.execute(expr)) for name, expr in templates}
+    rng = np.random.default_rng(0)
+    s = Session(block_size=4, device="cpu", n_workers=4)
+    mesh_templates = wl.query_templates(wl.synthetic_catalog(s, rng, n=16))
+    led = CostLedger()
+    with ServeEngine(s, cse=cse, n_threads=2, ledger=led,
+                     measure_comm=True) as eng:
+        tickets = [(name, eng.submit(expr)) for name, expr in mesh_templates]
+        for name, t in tickets:
+            np.testing.assert_allclose(_val(t.result(timeout=120.0)),
+                                       serial[name], rtol=1e-4, atol=1e-4,
+                                       err_msg=name)
+    paths = {r["exec_path"] for r in led.rows()}
+    if not cse:
+        assert paths <= {"staged_sparse_spmd", "eager"}
+        assert "staged_sparse_spmd" in paths
