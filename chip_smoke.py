@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main query path, the PNMF path and the
-serving tier on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main query path, the PNMF path, the
+serving tier, the autotuner and the examples on one NVIDIA card.
 
     python3 chip_smoke.py                      # on the card: full size
     python3 chip_smoke.py --device cpu --small # CPU rehearsal, plain versions
@@ -74,12 +74,29 @@ overlay within ``RTOL``, the selection exact). As a control, the gram
 template is run once more with TF32 products allowed, and its error must
 exceed ``SERVE_RTOL``: the limit tells FP32 from TF32.
 
+The autotune phase (``kernels.autotune``, with ``REPRO_AUTOTUNE`` unset
+for every phase before it) runs each grid candidate of the three kernels
+with a launch parameter on the main path's captured inputs (``coo_expand``
+Q4 and Q5, ``bloom_probe`` Q5, ``masked_matmul`` Q7 and the PNMF phase's
+operands): bits equal to the default's, the default to the plain version,
+CUDA-event and device ms each, and the tile ``best_tiles`` chose; a
+rejected candidate fails. The artifact goes to a temporary directory;
+reloaded into a cleared cache with ``REPRO_AUTOTUNE=1``, Q4, Q5, Q7 rerun
+through the Session and Q1–Q10 through a ``ServeEngine`` with no trial,
+a warm hit a launch and the untuned results. After the serving workload,
+the collaborative-filtering phase (``repro_torch.collaborative_filtering``
+at Y 24576 × 16384) holds its relational steps exactly to numpy and one
+ALS step to float64 within ``CF_RTOL`` of Σ|terms| (a TF32 control must
+miss it), and the observability demo (``obs.demo.run_demo``, 4 workers)
+must show all seven phases and a ledger row a query.
+
 Output: the card's name and power limit (``nvidia-smi``), the build time,
-after a fresh build the ptxas registers and spills of each ``coo_expand``
-instance, one line per query and kernel, the serving lines (each with the
-card's name and power limit), a ``{"kernels": [...]}`` JSON line, and as
-the last line ``{"ok": true, "device": {"platform": "gpu", ...}}``. Any
-failure raises and exits non-zero without that line.
+after a fresh build the ptxas registers and spills of every instance of
+the three kernels with a launch parameter, one line per query and
+kernel, the serving, autotune, CF and demo lines (each with the card's name and power limit), a ``{"kernels":
+[...]}`` JSON line (with each tuned kernel's default and best tiles),
+and as the last line ``{"ok": true, "device": {"platform": "gpu",
+...}}``. Any failure raises and exits non-zero without that line.
 """
 from __future__ import annotations
 
@@ -131,6 +148,18 @@ MESH_WORKERS = 4
 # the pipeline once more with TF32 allowed and must miss it)
 DIST_RTOL = 1e-5
 MESH_QUERIES = ("Q3", "Q5", "Q7", "Q8", "Q9", "Q10")
+# the autotune phase: (kernel, query, index of the kernel's captured call)
+AUTOTUNE_INPUTS = (("coo_expand", "Q4", 0), ("coo_expand", "Q5", 1),
+                   ("bloom_probe", "Q5", 0), ("masked_matmul", "Q7", 0))
+AUTOTUNE_REPEATS = 5           # timed samples a candidate in best_tiles
+# the collaborative-filtering phase: the example's 3:2 items:users at the
+# main path's width (Y 24576 x 16384 float32, 1.5 GiB), 1024 features
+CF_FULL = (24576, 16384, 1024)
+CF_SMALL = (1536, 1024, 64)
+CF_SAMPLE = 64
+# an ALS step's sums run over 16384 users (W) and ~19661 items (H): of
+# Σ|terms| FP32 reads ~1e-7 and TF32 products ~1e-4 (its control)
+CF_RTOL = 1e-5
 MESH_GATED = {"Q3": "merge_join", "Q7": "masked_matmul", "Q8": "sddmm_agg",
               "Q9": "sddmm_agg", "Q10": "sddmm_agg"}
 
@@ -860,24 +889,25 @@ def _same_result(qn, got, want) -> str:
 # inputs, timed by CUDA events.
 # ---------------------------------------------------------------------------
 
-def capture_calls():
-    """Record the arguments of every CUDA kernel call of the main path.
-    The registry's ``cuda`` entries are wrapped (the wrapped functions
+def capture_calls(backend: str = "cuda"):
+    """Record the arguments of every kernel call of the main path on
+    ``backend`` (the card's kernels, or the plain versions of the CPU
+    rehearsal). The registry's entries are wrapped (the wrapped functions
     still count and launch exactly as before); returns the record and a
     function that puts the original entries back."""
     from repro_torch.kernels import registry
     calls = {name: [] for name in KERNEL_ROWS}
-    originals = {name: registry.get(name).impls[registry.CUDA]
+    originals = {name: registry.get(name).impls[backend]
                  for name in KERNEL_ROWS}
     for name, inner in originals.items():
         def rec(*args, _inner=inner, _name=name, **kw):
             calls[_name].append((args, kw))
             return _inner(*args, **kw)
-        registry.get(name).impls[registry.CUDA] = rec
+        registry.get(name).impls[backend] = rec
 
     def restore():
         for name, inner in originals.items():
-            registry.get(name).impls[registry.CUDA] = inner
+            registry.get(name).impls[backend] = inner
     return calls, restore
 
 
@@ -1196,19 +1226,33 @@ def bloom_build_phase(b, records, calls) -> str:
             f"(compacted) against {tf:.4f} ms (all cells)")
 
 
-_TYPES = {"f": "float", "d": "double", "s": "int16", "i": "int32"}
+_TYPES = {"f": "float", "d": "double", "s": "int16", "i": "int32",
+          "13__nv_bfloat16": "bfloat16"}
+# the instances of the kernels with a launch parameter (the last template
+# argument: vt, kc, threads), by their mangled names
+_INSTANCES = (
+    (re.compile(r"coo_expand_kernelI([fd])([si])Li(\d+)ELi(\d+)ELi(\d+)E"),
+     lambda m: f"coo_expand_kernel<{_TYPES[m[1]]}, {_TYPES[m[2]]}, {m[3]}, "
+               f"{m[4]}, vt {m[5]}>"),
+    (re.compile(r"masked_matmul_kernelI(f|13__nv_bfloat16)Li(\d+)E"),
+     lambda m: f"masked_matmul_kernel<{_TYPES[m[1]]}, kc {m[2]}>"),
+    (re.compile(r"bloom_probe_sharedILi(\d+)ELi(\d+)E"),
+     lambda m: f"bloom_probe_shared<K {m[1]}, threads {m[2]}>"),
+)
 
 
-def ptxas_usage(log: str, kernel: str = "coo_expand_kernel") -> list:
-    """One line per instance of ``kernel`` from nvcc's ``-Xptxas -v`` log:
-    its registers, stack frame and spills."""
-    pat = re.compile(kernel + r"I([fdsi])([fdsi])Li(\d+)ELi(\d+)E")
+def ptxas_usage(log: str) -> list:
+    """One line per instance of the three kernels with a launch parameter
+    from nvcc's ``-Xptxas -v`` log: its registers, stack frame and
+    spills."""
     usage, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = pat.search(line)
-            entry = None if m is None else (
-                f"{kernel}<{_TYPES[m[1]]}, {_TYPES[m[2]]}, {m[3]}, {m[4]}>")
+            entry = None
+            for pat, name in _INSTANCES:
+                m = pat.search(line)
+                if m is not None:
+                    entry = name(m)
         elif entry and "bytes stack frame" in line:
             usage[entry] = line.strip()
         elif entry and "Used" in line and "registers" in line:
@@ -1216,6 +1260,333 @@ def ptxas_usage(log: str, kernel: str = "coo_expand_kernel") -> list:
             usage[entry] = f"{regs} registers, {usage.get(entry, '')}"
             entry = None
     return [f"ptxas {name}: {u}" for name, u in sorted(usage.items())]
+
+
+# ---------------------------------------------------------------------------
+# The autotune phase: every grid candidate on the main path's inputs, the
+# search, and the warm start from the saved artifact.
+# ---------------------------------------------------------------------------
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Host wall ms of one call (the CPU rehearsal's stand-in for
+    ``cuda_time_ms``; no device metric)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _same_bits(name, got, want):
+    import torch
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        if g.is_floating_point():
+            g, w = g.view(torch.uint8), w.view(torch.uint8)
+        assert torch.equal(g, w), f"{name}: bits differ from the default's"
+
+
+def _default_vs_plain(name, args, kw, out):
+    """The default tile's output against the plain version, within the
+    kernel phase's tolerances (integers and bitsets exact)."""
+    import torch
+    from repro_torch.kernels import registry
+    want = registry.get(name).impls[registry.TORCH](*args, **kw)
+    if name == "coo_expand":
+        assert torch.equal(out[0], want[0]), "coo_expand idx"
+        torch.testing.assert_close(out[1], want[1].to(out[1].dtype),
+                                   atol=ATOL, rtol=RTOL)
+    elif name == "bloom_probe":
+        assert torch.equal(out, want), "bloom_probe bits"
+    else:
+        torch.testing.assert_close(out, want, atol=ATOL, rtol=RTOL)
+
+
+def _equal_results(qn, got, want) -> None:
+    import torch
+    if hasattr(got, "idx"):
+        assert np.array_equal(got.idx, want.idx), f"{qn} tuned coords"
+        assert np.array_equal(got.val, want.val), f"{qn} tuned values"
+    else:
+        assert torch.equal(got.value, want.value), f"{qn} tuned values"
+
+
+def autotune_phase(calls, pnmf_call, queries, backend, card):
+    """``kernels.autotune`` over the three kernels with a grid, on the
+    main path's captured inputs (``coo_expand`` Q4 and Q5, ``bloom_probe``
+    Q5, ``masked_matmul`` Q7 and the PNMF phase's operands). Every grid
+    candidate gives the default's bits (the default is held to the plain
+    version); a rejected candidate fails the phase. Each candidate's time
+    (CUDA events, ``REPS`` launches) is printed beside the tile
+    ``best_tiles`` chose. The artifact goes to a temporary directory; then
+    the cache is cleared and reloaded from it, ``REPRO_AUTOTUNE`` is set,
+    and Q4, Q5, Q7 run again through the Session and Q1–Q10 once through a
+    ``ServeEngine``: no trial, a warm hit for every launch of the three
+    kernels, ``serve_autotune_warm_hits`` > 0 and the untuned results.
+    The switch and the cache are put back as they were. Returns the
+    lines to print and, by kernel, the default and best tiles with their
+    ms on each input."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch.kernels import autotune, build, registry
+    from repro_torch.serve.engine import ServeEngine
+    on_card = backend == registry.CUDA
+    timer = cuda_time_ms if on_card else host_ms
+    clock = ("CUDA events, %d launches" % REPS) if on_card \
+        else "host wall, CPU rehearsal"
+    inputs = [(name, label, calls[name][i]) for name, label, i in
+              AUTOTUNE_INPUTS] + [("masked_matmul", "PNMF", pnmf_call)]
+    env = {k: os.environ.get(k) for k in ("REPRO_AUTOTUNE",
+                                          "REPRO_AUTOTUNE_CACHE")}
+    tmp = tempfile.mkdtemp(prefix="repro-autotune-")
+    path = os.path.join(tmp, "autotune.json")
+    os.environ.pop("REPRO_AUTOTUNE", None)
+    os.environ["REPRO_AUTOTUNE_CACHE"] = path
+    autotune.clear_cache()
+    autotune.reset_stats()
+    lines, tiles = [], {}
+    try:
+        for name, label, (args, kw) in inputs:
+            kw = {k: v for k, v in kw.items() if k != "tiles"}
+            spec = registry.get(name)
+            impl = spec.impls[backend]
+            grid = [dict(t) for t in spec.tile_grid]
+            (param,) = spec.default_tiles
+            want = impl(*args, **kw)
+            _default_vs_plain(name, args, kw, want)
+            ms, dev = {}, {}
+            for cand in grid:
+                try:
+                    got = impl(*args, tiles=cand, **kw)
+                except Exception as e:
+                    raise AssertionError(f"autotune: {name} {label} rejected "
+                                         f"{cand}: {e!r}") from e
+                _same_bits(f"{name} {label} {cand}", got, want)
+                run = lambda cand=cand: impl(*args, tiles=cand, **kw)  # noqa
+                ms[cand[param]] = timer(run)
+                if on_card:
+                    dev[cand[param]] = device_time_ms(run)
+            shapes, dtype = registry._arg_shapes(args), \
+                registry._arg_dtype(args)
+            trials = autotune.tune_stats()["trials"]
+            best = autotune.best_tiles(
+                name, shapes, dtype, backend, repeats=AUTOTUNE_REPEATS,
+                runner=lambda t: impl(*args, tiles=t, **kw))
+            trials = autotune.tune_stats()["trials"] - trials
+            assert best in grid, (name, label, best)
+            # a fresh bucket: one warmup and AUTOTUNE_REPEATS samples per
+            # candidate, so none was rejected; a known bucket: a cache hit
+            assert trials in (0, len(grid) * (1 + AUTOTUNE_REPEATS)), trials
+            how = (f"searched ({trials} trials)" if trials else
+                   "served from the cache (the bucket of an input above)")
+            row = tiles.setdefault(name, {"default": dict(spec.default_tiles),
+                                          "best": {}})
+            row["best"][label] = {"tiles": best, "ms": ms[best[param]],
+                                  "candidates_ms": ms,
+                                  "candidates_device_ms": dev}
+            key = autotune.cache_key(name, shapes, dtype, backend)
+            lines.append(
+                f"autotune {name} {label} {key}: "
+                f"default {spec.default_tiles}; ms ({clock}) "
+                + ", ".join(f"{param}={v} {t:.4f}" for v, t in ms.items())
+                + ("; device ms (torch.profiler) " + ", ".join(
+                    f"{param}={v} {t:.4f}" for v, t in dev.items())
+                   if dev else "")
+                + f"; every candidate bit-identical to the default, the "
+                f"default to the plain version; best_tiles chose {best} "
+                f"({ms[best[param]]:.4f} ms), {how} [{card}]")
+        autotune.save_cache(path)
+        entries = len(autotune.load_cache(path))
+
+        # the warm start: a fresh cache from the artifact, the switch on
+        tuned = {"Q4", "Q5", "Q7"}
+        picked = [(name.split()[0], m, check) for name, m, check in queries
+                  if name.split()[0] in tuned]
+        base = {qn: m.collect() for qn, m, _ in picked}
+        autotune.clear_cache()
+        autotune.reset_stats()
+        autotune.load_cache(path)
+        os.environ["REPRO_AUTOTUNE"] = "1"
+        build.reset_launches()
+        for qn, m, check in picked:
+            res = m.collect()
+            check(res)
+            _equal_results(qn, res, base[qn])
+        via_session = dict(build.LAUNCHES)
+        session = queries[0][1].session
+        build.reset_launches()
+        with ServeEngine(session, cse=True, n_threads=SERVE_THREADS,
+                         batch_max=1) as eng:
+            tickets = [(check, eng.submit(m)) for _, m, check in queries]
+            for check, t in tickets:
+                check(t.result(timeout=600.0))
+            snap = eng.snapshot()
+        via_engine = dict(build.LAUNCHES)
+        stats = autotune.tune_stats()
+        dispatched = sum(via_session[k] + via_engine[k] for k in tiles)
+        assert snap["errors"] == 0, snap
+        assert stats["trials"] == 0, stats
+        assert snap["autotune_warm_hits"] > 0, snap["autotune_warm_hits"]
+        if on_card:
+            assert stats["warm_hits"] >= dispatched > 0, (stats, dispatched)
+        lines.append(
+            f"autotune warm start: artifact of {entries} entries (a "
+            f"temporary directory), reloaded into a cleared cache with "
+            f"REPRO_AUTOTUNE=1; Q4, Q5, Q7 through the Session ("
+            + " ".join(f"{k}={via_session[k]}" for k in tiles)
+            + ") and Q1-Q10 through a ServeEngine ("
+            + " ".join(f"{k}={via_engine[k]}" for k in tiles)
+            + f"): trials {stats['trials']}, warm_hits {stats['warm_hits']} "
+            f">= {dispatched} launches of the three kernels, "
+            f"serve_autotune_warm_hits {snap['autotune_warm_hits']}; every "
+            "result held to its float64 check and equal to the untuned run")
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        autotune.clear_cache()
+        autotune.reset_stats()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lines, tiles
+
+
+# ---------------------------------------------------------------------------
+# The collaborative-filtering phase and the observability demo.
+# ---------------------------------------------------------------------------
+
+def _als_errors(cf, lr, y, w0, h0, w1, h1, rows, cols):
+    """Largest error of one ALS step over the Σ|terms| of a float64 numpy
+    step, on ``rows`` of W and ``cols`` (users) of H; H's half starts from
+    the step's own new W."""
+    y64, w64, h64 = (np.asarray(v, np.float64) for v in (y, w0, h0))
+    ah = np.abs(h64)
+    yr, wr = y64[rows], w64[rows]
+    w_want = wr + lr * ((yr - wr @ h64.T) @ h64 - cf.LAM * wr)
+    w_scale = np.abs(wr) + lr * ((yr + np.abs(wr) @ ah.T) @ ah
+                                 + cf.LAM * np.abs(wr))
+    w2 = w1.double().cpu().numpy()
+    yc, hc = y64[:, cols], h64[cols]
+    h_want = hc + lr * ((yc - w2 @ hc.T).T @ w2 - cf.LAM * hc)
+    h_scale = np.abs(hc) + lr * ((yc + np.abs(w2) @ np.abs(hc).T).T
+                                 @ np.abs(w2) + cf.LAM * np.abs(hc))
+    ew = np.abs(w2[rows] - w_want) / np.maximum(w_scale, 1e-30)
+    eh = np.abs(h1.double().cpu().numpy()[cols] - h_want) \
+        / np.maximum(h_scale, 1e-30)
+    return float(ew.max()), float(eh.max())
+
+
+def cf_phase(device, seed, small, card):
+    """``repro_torch.collaborative_filtering.pipeline`` at the example's
+    3:2 item:user ratio: CF_ITEMS x CF_USERS ratings (float32), CF_FEATURES
+    side features, rank 16, the example's 200 steps. The relational steps
+    are held exactly to numpy (the kept columns, the folds, the per-user
+    max of the pipeline's own masked prediction); one ALS step from the
+    initial factors to float64 numpy on CF_SAMPLE rows of W and of H
+    within CF_RTOL of Σ|terms|, with a TF32 control on the card that must
+    miss the limit. Returns the line to print."""
+    import torch
+    from repro_torch import collaborative_filtering as cf
+    from repro_torch.kernels import build
+    items, users, feats = (CF_SMALL if small else CF_FULL)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    r = cf.pipeline(device, items, users, feats, cf.RANK, cf.STEPS,
+                    np.random.default_rng(seed + 11))
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    x, y = r["x"], r["y"]
+    keep = np.any(x != 0, axis=0)
+    assert np.array_equal(r["x_clean"].cpu().numpy(), x[:, keep]), \
+        "CF: sigma cols!=NULL"
+    fold = items // cf.FOLDS
+    assert np.array_equal(r["test"].cpu().numpy(), y[:fold]), "CF test fold"
+    assert np.array_equal(r["train"].cpu().numpy(), y[fold:]), \
+        "CF train fold"
+    assert np.array_equal(r["best_scores"].cpu().numpy(),
+                          r["masked"].cpu().numpy().max(axis=0)), \
+        "CF: max over columns"
+    assert math.isfinite(r["mse"]) and r["mse"] < float(np.mean(y ** 2)), \
+        f"CF: mse {r['mse']} does not beat predicting zeros"
+    # one ALS step from the initial factors, against float64 numpy
+    rng = np.random.default_rng(seed + 12)
+    train = r["train"]
+    w0, h0 = (torch.as_tensor(v, device=train.device)
+              for v in (r["w0"], r["h0"]))
+    rows = np.sort(rng.choice(train.shape[0], CF_SAMPLE, replace=False))
+    cols = np.sort(rng.choice(users, CF_SAMPLE, replace=False))
+    y_train = y[fold:]
+    lr = r["lr"]
+    errs = _als_errors(cf, lr, y_train, r["w0"], r["h0"],
+                       *cf.als_step(train, w0, h0, lr=lr), rows, cols)
+    assert max(errs) <= CF_RTOL, f"CF ALS step vs float64: {errs}"
+    control = ""
+    if device == "cuda":
+        matmul = torch.backends.cuda.matmul
+        allow = matmul.allow_tf32
+        matmul.allow_tf32 = True
+        try:
+            tf32 = max(_als_errors(cf, lr, y_train, r["w0"], r["h0"],
+                                   *cf.als_step(train, w0, h0, lr=lr),
+                                   rows, cols))
+        finally:
+            matmul.allow_tf32 = allow
+        assert tf32 > CF_RTOL, \
+            f"the limit passes TF32 products: CF ALS step err {tf32:.3g}"
+        control = f"; TF32 control {tf32:.2e} > limit {CF_RTOL:.0e}"
+    return (f"collaborative filtering: Y {items}x{users} float32, X "
+            f"{items}x{feats}, rank {cf.RANK}, {cf.STEPS} ALS steps of "
+            f"{lr:.6g} (0.05 x 400 / users), seed "
+            f"{seed + 11}: phase wall {wall:.3f} s ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in r["seconds"].items())
+            + f" s); X {x.shape} -> {tuple(r['x_clean'].shape)}, train "
+            f"{tuple(train.shape)} / test {tuple(r['test'].shape)}, max "
+            "over columns: exact against numpy; final mse "
+            f"{r['mse']:.6f}; one ALS step vs float64 on {CF_SAMPLE} rows "
+            f"of W and of H: max scaled err W {errs[0]:.2e}, H {errs[1]:.2e}"
+            f" (limit {CF_RTOL:.0e} of sum|terms|{control}); kernel launches "
+            f"{launches or 'none'} [{card}]")
+
+
+def demo_phase(device, card):
+    """``repro_torch.obs.demo.run_demo`` with ``MESH_WORKERS`` workers, a
+    ledger file in a temporary directory and ``--json``: all seven phases
+    in its trace and a ledger row or more per query. Returns the line to
+    print."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from repro_torch.kernels import build
+    from repro_torch.obs import demo
+    build.reset_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="repro-demo-") as tmp, \
+            contextlib.redirect_stdout(out):
+        rc = demo.run_demo(MESH_WORKERS, os.path.join(tmp, "ledger.jsonl"),
+                           True, device=device)
+    wall = time.perf_counter() - t0
+    text = out.getvalue()
+    assert rc == 0, text
+    (line,) = [ln for ln in text.splitlines() if ln.startswith("DEMO_JSON ")]
+    blob = json.loads(line[len("DEMO_JSON "):])
+    missing = set(demo.EXPECTED_PHASES) - set(blob["phases"])
+    assert not missing, f"demo: phases missing {missing}"
+    assert blob["ledger"]["rows"] >= 4, blob["ledger"]
+    assert blob["device"].startswith(device), blob["device"]
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    return (f"observability demo: {blob['workers']} workers on "
+            f"{blob['device']}, {wall:.2f} s; trace phases "
+            f"{sorted(blob['phases'])}; ledger {blob['ledger']['rows']} rows "
+            f"(4 queries, 3 tickets each; root hits add none), paths "
+            f"{ {k: v['rows'] for k, v in blob['ledger']['paths'].items()} }"
+            f"; kernel launches {launches or 'none'} [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -1270,16 +1641,15 @@ def main(argv=None) -> int:
           f"{n}x{PNMF_K}, seed {args.seed}, {time.perf_counter() - t0:.2f} s "
           "(float64 numpy references included)")
 
-    if on_card:
-        calls, restore = capture_calls()
+    backend = "cuda" if on_card else "torch"
+    calls, restore = capture_calls(backend)
     queries = main_queries(mats, data, ref, n)
     build.reset_launches()
     t0 = time.perf_counter()
     records = run_queries(queries)
     main_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
-    if on_card:
-        restore()
+    restore()
     for rec in records:
         split = ", ".join(f"{k} {v:.3f}" for k, v in rec["phases"].items())
         print(f"{rec['query']}: {rec['wall_s']:.3f} s [{split}] - "
@@ -1289,13 +1659,22 @@ def main(argv=None) -> int:
     print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
     _, line = pnmf_phase(s.env, ref, on_card)
     print(line)
+    # the PNMF phase's masked product: W [n, K] x H [K, n] under Ap's mask
+    pnmf_call = ((s.env["W"].value, s.env["H"].value,
+                  s.env["Ap"].block_mask), {"block_size": bs})
     if not on_card:
+        rehearsal = "CPU rehearsal"
         multi_worker_phase(s, data, ref, n, bs, args.device, args.seed,
-                           "CPU rehearsal")
-        print(engine_queries_phase(queries, "CPU rehearsal", on_card))
-        lines, _ = serving_workload_phase(args.device, args.seed,
-                                          SERVE_SMALL_N, "CPU rehearsal")
+                           rehearsal)
+        print(engine_queries_phase(queries, rehearsal, on_card))
+        lines, _ = autotune_phase(calls, pnmf_call, queries, backend,
+                                  rehearsal)
         print("\n".join(lines))
+        lines, _ = serving_workload_phase(args.device, args.seed,
+                                          SERVE_SMALL_N, rehearsal)
+        print("\n".join(lines))
+        print(cf_phase(args.device, args.seed, True, rehearsal))
+        print(demo_phase(args.device, rehearsal))
         print(json.dumps({"ok": True, "device": {
             "platform": "cpu", "kind": "cpu", "count": 0}}))
         return 0
@@ -1327,13 +1706,24 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print(engine_queries_phase(queries, card, on_card))
+    lines, tiles = autotune_phase(calls, pnmf_call, queries, backend, card)
+    print("\n".join(lines))
+    for row in rows:
+        if row["name"] in tiles:
+            row["tiles"] = tiles[row["name"]]
     # the main path's catalog (nine 1 GiB matrices) and the captured
     # kernel arguments go before the serving catalog is made
-    del queries, records, mats, s, calls
+    del queries, records, mats, s, calls, pnmf_call
     gc.collect()
     torch.cuda.empty_cache()
     lines, _ = serving_workload_phase(args.device, args.seed, SERVE_N, card)
     print("\n".join(lines))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(cf_phase(args.device, args.seed, False, card), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(demo_phase(args.device, card))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

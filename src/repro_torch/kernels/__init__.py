@@ -1,7 +1,11 @@
 """Kernels behind the relational operators, with backend dispatch.
 
 * ``registry``     — logical kernel name → ``torch`` / ``cuda`` impls,
-                     chosen by the tensors' device.
+                     chosen by the tensors' device, with each kernel's
+                     tile grid (its CUDA launch parameter).
+* ``autotune``     — tile autotuner keyed by ``(kernel, shape-bucket,
+                     dtype, backend, device kind)`` with an in-process
+                     + on-disk JSON cache (the warm-start artifact).
 * ``ops``          — registration of the built-ins + public wrappers.
 * ``coo_join``     — ``coo_expand``: fused COO join expansion (§4.4–§4.5).
 * ``bloom_probe``  — V2V Bloom-join membership probe (§4.7).

@@ -10,7 +10,10 @@ built on either the host or the card probe identically on both.
 CUDA tensor and raises on anything else. A bitset of at most 128 KiB
 (``log2_bits`` <= 20) is probed from shared memory, copied into each CTA
 by TMA bulk copies; a larger one from global memory. ``plan`` says which
-launch a call makes.
+launch a call makes. The launch parameter is ``threads``, the shared
+path's CTA (``GRID``, the autotuner's candidates; the default 512); the
+global path keeps its 256-thread CTA whatever the tile. Each value is
+tested on its own, so every member of the grid gives the same bits.
 """
 from __future__ import annotations
 
@@ -21,23 +24,30 @@ import torch
 
 from repro_torch.core.bloom import BloomParams, probe
 from repro_torch.kernels import build
+from repro_torch.kernels.registry import Tiles, checked_tiles
 
 _WORD_TYPES = (torch.uint32, torch.int32)
 PATHS = {1: "shared", 2: "global"}
+GRID = ({"threads": 256}, {"threads": 512}, {"threads": 1024})
+DEFAULT_TILES = {"threads": 512}
 
 
 def bloom_probe_plain(words: torch.Tensor, vals: torch.Tensor, *,
-                      num_hashes: int = 3, log2_bits: int = 20
-                      ) -> torch.Tensor:
+                      num_hashes: int = 3, log2_bits: int = 20,
+                      tiles: Tiles = None) -> torch.Tensor:
+    """The plain version; ``tiles`` is ignored."""
     return probe(words, vals,
                  BloomParams(log2_bits=log2_bits, num_hashes=num_hashes))
 
 
 def bloom_probe_cuda(words: torch.Tensor, vals: torch.Tensor, *,
-                     num_hashes: int = 3, log2_bits: int = 20
-                     ) -> torch.Tensor:
+                     num_hashes: int = 3, log2_bits: int = 20,
+                     tiles: Tiles = None) -> torch.Tensor:
     """Launch the CUDA kernel → bool, the shape of ``vals``. The checks
-    read tensor metadata only; the launch goes on the caller's stream."""
+    read tensor metadata only; the launch goes on the caller's stream.
+    ``tiles`` is a member of ``GRID`` (None: ``DEFAULT_TILES``)."""
+    threads = checked_tiles("bloom_probe", tiles, GRID,
+                            DEFAULT_TILES)["threads"]
     if not vals.is_cuda or words.get_device() != vals.get_device():
         raise ValueError("bloom_probe_cuda needs words and values on one "
                          f"CUDA device, got {words.device}, {vals.device}")
@@ -58,21 +68,23 @@ def bloom_probe_cuda(words: torch.Tensor, vals: torch.Tensor, *,
     if n:
         rc = build.function("bloom_probe_launch")(
             words.data_ptr(), flat.data_ptr(), n, num_hashes, log2_bits,
-            out.data_ptr(), build.stream_ptr(flat))
+            threads, out.data_ptr(), build.stream_ptr(flat))
         build.check(rc, "bloom_probe")
         build.count_launch("bloom_probe")
     return out if vals.dim() == 1 else out.view(vals.shape)
 
 
 def plan(words: torch.Tensor, vals: torch.Tensor, *, num_hashes: int = 3,
-         log2_bits: int = 20) -> Dict[str, int]:
-    """The launch ``bloom_probe_cuda`` makes for these tensors: path
-    (``shared`` or ``global``), grid, threads a CTA, dynamic
+         log2_bits: int = 20, tiles: Tiles = None) -> Dict[str, int]:
+    """The launch ``bloom_probe_cuda`` makes for these tensors and tiles:
+    path (``shared`` or ``global``), grid, threads a CTA, dynamic
     shared-memory bytes and whether TMA copies the bitset."""
+    threads = checked_tiles("bloom_probe", tiles, GRID,
+                            DEFAULT_TILES)["threads"]
     info = (ctypes.c_int * 5)()
     rc = build.function("bloom_probe_plan")(
         words.data_ptr(), vals.data_ptr(), vals.numel(), num_hashes,
-        log2_bits, info)
+        log2_bits, threads, info)
     build.check(rc, "bloom_probe plan")
     return {"path": PATHS[info[0]], "grid": info[1], "threads": info[2],
             "smem_bytes": info[3], "tma": bool(info[4])}

@@ -122,23 +122,24 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.coo_expand_launch.argtypes = [
         I, I,                 # value dtype code, coord dtype code
         P, P, P, P, P, P,     # ends, delta, a_vals, a_coords, b_vals, b_coords
-        I, I, I, I, L,        # ns, nb, ca, cb, cap
+        I, I, I, I, L, I,     # ns, nb, ca, cb, cap, items a thread
         I, D, D, D, D,        # merge op, c0, cx, cy, cxy
         P, P, P]              # idx out, val out, stream
-    lib.bloom_probe_launch.argtypes = [P, P, L, I, I, P, P]
+    lib.bloom_probe_launch.argtypes = [
+        P, P, L, I, I, I, P, P]  # words, vals, n, k, log2, threads, out, stream
     lib.bloom_probe_plan.argtypes = [
-        P, P, L, I, I, ctypes.POINTER(I)]  # words, vals, n, k, log2, info
+        P, P, L, I, I, I, ctypes.POINTER(I)]  # ..., threads, info
     lib.merge_join_launch.argtypes = [
         I, P, P, P, P, P,     # value dtype code, a, b, mask_a, mask_b, out
         L, L, I, I, I,        # m, n, block size, mode, vectorised
         I, D, D, D, D, P]     # merge op, c0, cx, cy, cxy, stream
     lib.masked_matmul_launch.argtypes = [
-        I, P, P, P, P,        # value dtype code, a, b, mask, out
+        I, I, P, P, P, P,     # value dtype code, K chunk, a, b, mask, out
         L, L, L,              # m, n, k
         L, L, L, L,           # strides of a, strides of b
         I, P, P]              # block size, stream, work counter
     lib.masked_matmul_pool.argtypes = [
-        I, ctypes.POINTER(I), ctypes.POINTER(I)]  # dtype code, SMs, per SM
+        I, I, ctypes.POINTER(I), ctypes.POINTER(I)]  # dtype, K chunk, pool
     lib.sddmm_agg_launch.argtypes = [
         I, P, P, P, P,        # value dtype code, sp, w, h, mask
         P, P, P,              # unit list, partials, out

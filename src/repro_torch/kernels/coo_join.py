@@ -21,7 +21,10 @@ hold clamped values the caller masks with its ``valid`` vector.
 
 ``coo_expand_plain`` is the plain PyTorch version (any device);
 ``coo_expand_cuda`` launches the kernel of ``csrc/coo_expand.cu`` on a
-CUDA tensor and raises on anything else.
+CUDA tensor and raises on anything else. Its launch parameter is ``vt``,
+the merge items a thread (``GRID``, the autotuner's candidates; the
+default 8): it sets each CTA's share of the work, never the result, so
+every member of the grid writes the same bits.
 """
 from __future__ import annotations
 
@@ -31,19 +34,23 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.merge_codes import merge_code
+from repro_torch.kernels.registry import Tiles, checked_tiles
 
 _VALUE_CODES = {torch.float32: 0, torch.float64: 1}
 _COORD_CODES = {torch.int16: 0, torch.int32: 1}
+GRID = ({"vt": 4}, {"vt": 6}, {"vt": 8})
+DEFAULT_TILES = {"vt": 8}
 
 
 def coo_expand_plain(ends: torch.Tensor, delta: torch.Tensor,
                      a_vals: torch.Tensor, a_coords: torch.Tensor,
                      b_vals: torch.Tensor, b_coords: torch.Tensor, *,
-                     merge: Callable, cap: int
+                     merge: Callable, cap: int, tiles: Tiles = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version: segment ids by searchsorted-right over ``ends``
     (clamped to the last segment, as the kernel and the JAX package's
-    ``repeat`` padding do), then gathers and the merge."""
+    ``repeat`` padding do), then gathers and the merge. ``tiles`` is
+    ignored."""
     ns, nb = ends.shape[0], b_vals.shape[0]
     t = torch.arange(cap, dtype=torch.int32, device=ends.device)
     seg = torch.searchsorted(ends, t, right=True).clamp_(max=ns - 1)
@@ -56,9 +63,13 @@ def coo_expand_plain(ends: torch.Tensor, delta: torch.Tensor,
 def coo_expand_cuda(ends: torch.Tensor, delta: torch.Tensor,
                     a_vals: torch.Tensor, a_coords: torch.Tensor,
                     b_vals: torch.Tensor, b_coords: torch.Tensor, *,
-                    merge: Callable, cap: int
+                    merge: Callable, cap: int, tiles: Tiles = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel; it writes every slot below ``cap``."""
+    """Launch the CUDA kernel; it writes every slot below ``cap``.
+    ``tiles`` is a member of ``GRID`` (None: ``DEFAULT_TILES``); with
+    float64 values only the default has an instance of the joins' widths,
+    and another ``vt`` raises ``ValueError``."""
+    vt = checked_tiles("coo_expand", tiles, GRID, DEFAULT_TILES)["vt"]
     ins = (ends, delta, a_vals, a_coords, b_vals, b_coords)
     dev = ends.get_device()
     if dev < 0 or any(x.get_device() != dev for x in ins):
@@ -88,6 +99,11 @@ def coo_expand_cuda(ends: torch.Tensor, delta: torch.Tensor,
         raise ValueError("coo_expand_cuda needs contiguous inputs")
     code = merge_code(merge)
     ca, cb = a_coords.shape[1], b_coords.shape[1]
+    if vt != DEFAULT_TILES["vt"] and a_vals.dtype == torch.float64 \
+            and (ca, cb) in ((2, 1), (2, 2)):
+        raise ValueError(f"coo_expand_cuda: vt {vt} has no float64 "
+                         f"instance of widths {ca} + {cb} (only "
+                         f"{DEFAULT_TILES['vt']})")
     idx = a_coords.new_empty((cap, ca + cb))
     val = a_vals.new_empty((cap,))
     if cap == 0:
@@ -96,7 +112,7 @@ def coo_expand_cuda(ends: torch.Tensor, delta: torch.Tensor,
         _VALUE_CODES[a_vals.dtype], _COORD_CODES[a_coords.dtype],
         ends.data_ptr(), delta.data_ptr(), a_vals.data_ptr(),
         a_coords.data_ptr(), b_vals.data_ptr(), b_coords.data_ptr(),
-        ns, nb, ca, cb, cap, code.op, *code.coeffs,
+        ns, nb, ca, cb, cap, vt, code.op, *code.coeffs,
         idx.data_ptr(), val.data_ptr(), build.stream_ptr(ends))
     build.check(rc, "coo_expand")
     build.count_launch("coo_expand")

@@ -15,9 +15,11 @@
 // Design. Like the TPU kernel, which keeps the bitset in VMEM and streams
 // value tiles past it, the shared path (bitset <= 128 KiB) holds the
 // whole bitset in each CTA's shared memory:
-//   * a persistent grid: one 512-thread CTA an SM, no more CTAs than the
-//     values need or the card has SMs (Q5's 268 296 values fill the 132
-//     SMs);
+//   * a persistent grid: one CTA an SM, no more CTAs than the values
+//     need or the card has SMs (Q5's 268 296 values fill the 132 SMs).
+//     The CTA's threads are a launch parameter, the autotuner's grid
+//     {256, 512, 1024} (kernels/bloom_probe.py: GRID; default 512), each
+//     an instance of the shared path;
 //   * the bitset comes in by TMA 1-D bulk copies onto an mbarrier, the
 //     copy issued by one thread. Clusters of 2, 4 and 8 CTAs with the
 //     copies multicast across them were each slower on Q5 (PERF.md §6),
@@ -30,7 +32,9 @@
 //     leave as one 4-byte store.
 // Larger bitsets (log2_bits >= 21) take the global path: a thread a group
 // of four values, the words through the read-only cache, again all loads
-// before any AND. Hash counts 1..4 are compiled as constants; any other
+// before any AND. Its CTA keeps 256 threads whatever the tile: the tile
+// sizes the shared path's one CTA an SM, which the global path does not
+// have. Hash counts 1..4 are compiled as constants; any other
 // count runs a loop over the hashes with four loads in flight a step.
 #include <algorithm>
 #include <cstdint>
@@ -40,7 +44,6 @@
 
 namespace {
 
-constexpr int kThreads = 512;                   // shared path: a CTA an SM
 constexpr int kGlobalThreads = 256;
 constexpr int kMaxSharedBitset = 128 * 1024;    // bytes; log2_bits <= 20
 constexpr int kSmemBytes = kMaxSharedBitset + 16;  // the most: + mbarrier
@@ -179,8 +182,8 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-template <int K>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int K, int THREADS>
+__global__ void __launch_bounds__(THREADS, 1)
     bloom_probe_shared(const uint32_t* __restrict__ words,
                        const float* __restrict__ vals, Layout L,
                        int num_hashes, int log2_bits,
@@ -189,8 +192,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint32_t* s_words = reinterpret_cast<uint32_t*>(smem);
   const uint32_t bar = smem_addr(smem + ((n_bytes + 15) & ~15));
 
-  const long long stride = (long long)gridDim.x * kThreads;
-  long long g = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * THREADS;
+  long long g = (long long)blockIdx.x * THREADS + threadIdx.x;
   float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
   if (use_tma) {
     if (threadIdx.x == 0) {
@@ -215,7 +218,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     // a bitset below 16 bytes, or one not 16-byte aligned: thread copies
-    for (int i = threadIdx.x; i < n_bytes / 4; i += kThreads)
+    for (int i = threadIdx.x; i < n_bytes / 4; i += THREADS)
       s_words[i] = words[i];
   }
   // the mbarrier is initialised before any thread waits on it (or, without
@@ -281,13 +284,31 @@ static int k_slot(int num_hashes) {
   return num_hashes >= 1 && num_hashes <= kMaxK ? num_hashes : 0;
 }
 
-static SharedKernel shared_kernel(int slot) {
+// The shared-path CTA sizes, and their index in the instance tables.
+constexpr int kShapes = 3;
+constexpr int kShapeThreads[kShapes] = {256, 512, 1024};
+static int shape_of(int threads) {
+  for (int i = 0; i < kShapes; ++i)
+    if (kShapeThreads[i] == threads) return i;
+  return -1;
+}
+
+template <int THREADS>
+static SharedKernel shared_kernel_of(int slot) {
   switch (slot) {
-    case 1: return bloom_probe_shared<1>;
-    case 2: return bloom_probe_shared<2>;
-    case 3: return bloom_probe_shared<3>;
-    case 4: return bloom_probe_shared<4>;
-    default: return bloom_probe_shared<0>;
+    case 1: return bloom_probe_shared<1, THREADS>;
+    case 2: return bloom_probe_shared<2, THREADS>;
+    case 3: return bloom_probe_shared<3, THREADS>;
+    case 4: return bloom_probe_shared<4, THREADS>;
+    default: return bloom_probe_shared<0, THREADS>;
+  }
+}
+
+static SharedKernel shared_kernel(int slot, int shape) {
+  switch (shape) {
+    case 0: return shared_kernel_of<256>(slot);
+    case 2: return shared_kernel_of<1024>(slot);
+    default: return shared_kernel_of<512>(slot);
   }
 }
 
@@ -305,14 +326,15 @@ static GlobalKernel global_kernel(int slot) {
 // shared-memory opt-in (per device, as coo_expand.cu's allow_shared).
 struct DeviceState {
   int sms = 0;
-  bool smem_ok[kMaxK + 1] = {};
+  bool smem_ok[kMaxK + 1][kShapes] = {};
 };
 
 static std::mutex g_mu;
 static DeviceState g_dev[kMaxDevices];
 
-// The current device's SM count, after the opt-in of instance `slot`.
-static cudaError_t device_sms(int slot, int* sms) {
+// The current device's SM count, after the opt-in of instance (`slot`,
+// `shape`).
+static cudaError_t device_sms(int slot, int shape, int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -323,12 +345,12 @@ static cudaError_t device_sms(int slot, int* sms) {
     err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
   }
-  if (!d.smem_ok[slot]) {
-    err = cudaFuncSetAttribute(shared_kernel(slot),
+  if (!d.smem_ok[slot][shape]) {
+    err = cudaFuncSetAttribute(shared_kernel(slot, shape),
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemBytes);
     if (err != cudaSuccess) return err;
-    d.smem_ok[slot] = true;
+    d.smem_ok[slot][shape] = true;
   }
   *sms = d.sms;
   return cudaSuccess;
@@ -339,10 +361,12 @@ struct Plan {
   Layout L;
 };
 
+// `threads`: the shared path's CTA, one of kShapeThreads.
 static cudaError_t make_plan(const void* words, const void* vals,
                              const void* out, long long n, int num_hashes,
-                             int log2_bits, Plan* p) {
-  if (n < 0 || log2_bits < 5 || log2_bits > 31) return cudaErrorInvalidValue;
+                             int log2_bits, int threads, Plan* p) {
+  if (n < 0 || log2_bits < 5 || log2_bits > 31 || shape_of(threads) < 0)
+    return cudaErrorInvalidValue;
   const uintptr_t v = (uintptr_t)vals;
   if (v & 3u) return cudaErrorMisalignedAddress;
   Layout& L = p->L;
@@ -362,27 +386,28 @@ static cudaError_t make_plan(const void* words, const void* vals,
     return cudaSuccess;
   }
   p->path = kPathShared;
-  p->threads = kThreads;
+  p->threads = threads;
   p->smem = (int)((n_bytes + 15) / 16 * 16) + 16;  // bitset + mbarrier
   p->use_tma = n_bytes >= 16 && ((uintptr_t)words & 15u) == 0;
   int sms = 0;
-  cudaError_t err = device_sms(k_slot(num_hashes), &sms);
+  cudaError_t err = device_sms(k_slot(num_hashes), shape_of(threads), &sms);
   if (err != cudaSuccess) return err;
-  const long long need = (L.groups + kThreads - 1) / kThreads;
+  const long long need = (L.groups + threads - 1) / threads;
   p->grid = (int)std::max<long long>(1, std::min<long long>(need, sms));
   return cudaSuccess;
 }
 
 }  // namespace
 
-// Probe n float32 values against the bitset; out is bool[n].
+// Probe n float32 values against the bitset; out is bool[n]. `threads`
+// is the shared path's CTA (256, 512 or 1024).
 extern "C" int bloom_probe_launch(const void* words, const void* vals,
                                   long long n, int num_hashes, int log2_bits,
-                                  void* out, void* stream) {
+                                  int threads, void* out, void* stream) {
   if (n <= 0) return n < 0 ? (int)cudaErrorInvalidValue : 0;
   Plan p;
   cudaError_t err =
-      make_plan(words, vals, out, n, num_hashes, log2_bits, &p);
+      make_plan(words, vals, out, n, num_hashes, log2_bits, threads, &p);
   if (err != cudaSuccess) return (int)err;
   const int slot = k_slot(num_hashes);
   const cudaStream_t s = (cudaStream_t)stream;
@@ -391,7 +416,8 @@ extern "C" int bloom_probe_launch(const void* words, const void* vals,
         (const uint32_t*)words, (const float*)vals, p.L, num_hashes,
         log2_bits, (uint8_t*)out);
   } else {
-    shared_kernel(slot)<<<p.grid, p.threads, p.smem, s>>>(
+    shared_kernel(slot, shape_of(p.threads))<<<p.grid, p.threads, p.smem,
+                                              s>>>(
         (const uint32_t*)words, (const float*)vals, p.L, num_hashes,
         log2_bits, (uint8_t*)out, (int)(1LL << (log2_bits - 3)), p.use_tma);
   }
@@ -403,10 +429,10 @@ extern "C" int bloom_probe_launch(const void* words, const void* vals,
 // (0/1)}.
 extern "C" int bloom_probe_plan(const void* words, const void* vals,
                                 long long n, int num_hashes, int log2_bits,
-                                int* info) {
+                                int threads, int* info) {
   Plan p;
-  cudaError_t err =
-      make_plan(words, vals, vals, n, num_hashes, log2_bits, &p);
+  cudaError_t err = make_plan(words, vals, vals, n, num_hashes, log2_bits,
+                              threads, &p);
   if (err != cudaSuccess) return (int)err;
   info[0] = p.path;
   info[1] = p.grid;

@@ -38,16 +38,21 @@
 // Coordinates are templated on int16/int32 and values on float/double;
 // the joins' coordinate counts (2 + 1 for D2D, 2 + 2 for V2V) are
 // compiled as constants, any other count is taken at run time. Index
-// arithmetic is 32-bit. A CTA takes 8 items a thread and 41 KB of shared
-// memory, and its registers are bounded so that 5 CTAs fit on an SM;
-// PERF.md §6 gives the times of the other counts that were tried.
+// arithmetic is 32-bit. Items a thread (vt) are a launch parameter, the
+// autotuner's grid {4, 6, 8} (kernels/coo_join.py: GRID); the default, 8,
+// takes 41 KB of shared memory a CTA. The fixed-width instances are
+// compiled for each vt of the grid with float values, and for 8 alone
+// with double (the wrapper refuses another vt there); the run-time-width
+// instances take vt as an argument. Registers are bounded so that 5 CTAs
+// fit on an SM; PERF.md §6 gives the times of each vt.
 #include <cstdint>
 #include <mutex>
+#include <type_traits>
 
 #include "merge.cuh"
 
 constexpr int kThreads = 256;
-constexpr int kVt = 8;          // merge items a thread
+constexpr int kVt = 8;          // merge items a thread: the default, the most
 constexpr int kProbes = 4;      // probes a lane in a round of the split search
 constexpr int kMinBlocks = 5;   // CTAs an SM that registers must allow
 constexpr int kMaxSmem = 232448 - 64;  // the H100's 227 KB a block, less static
@@ -129,8 +134,9 @@ __device__ int merge_split(const int32_t* __restrict__ ends, int lo, int hi,
 
 // Item, slot and segment counts fit int: the host checks cap + ns < 2^31.
 // CA, CB > 0 fix the coordinate counts at compile time (the joins' 2 + 1
-// and 2 + 2); 0 takes them, and vt, from the arguments.
-template <typename T, typename C, int CA, int CB>
+// and 2 + 2), and VT the items a thread; CA = CB = 0 takes the counts, and
+// vt (at most VT), from the arguments.
+template <typename T, typename C, int CA, int CB, int VT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 coo_expand_kernel(const int32_t* __restrict__ ends,
                   const int32_t* __restrict__ delta,
@@ -142,7 +148,7 @@ coo_expand_kernel(const int32_t* __restrict__ ends,
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int split[2];
   const int ca = CA ? CA : ca_, cb = CB ? CB : cb_;
-  const int vt = CA && CB ? kVt : vt_;   // fixed widths always fit kVt
+  const int vt = CA && CB ? VT : vt_;    // fixed widths always fit VT
   const int nv = kThreads * vt, w = ca + cb;
   const Layout lay(nv, ca, cb, sizeof(T), sizeof(C));
   C* s_idx = reinterpret_cast<C*>(smem);
@@ -204,17 +210,17 @@ coo_expand_kernel(const int32_t* __restrict__ ends,
   }
   __syncthreads();
 
-  // 4. a thread a slot (at most kVt each); coords go to the tile, placed
+  // 4. a thread a slot (at most VT each); coords go to the tile, placed
   //    so that its element 0 lies on a 16-byte boundary of idx_out. The
   //    partner loads of all of a thread's slots are issued before any of
-  //    them is used, one round trip in place of kVt.
+  //    them is used, one round trip in place of VT.
   const long long e0 = (long long)t0 * w;
   const int lead = (int)(((uintptr_t)(idx_out + e0) & 15) / sizeof(C));
   const TypedMerge<T> mrg(merge);
-  T bval[kVt];
-  C bco[kVt][2];                  // the first two partner coords
+  T bval[VT];
+  C bco[VT][2];                   // the first two partner coords
 #pragma unroll
-  for (int k = 0; k < kVt; ++k) {
+  for (int k = 0; k < VT; ++k) {
     const int j = threadIdx.x + k * kThreads;
     if (k < vt && j < nt) {
       const int sb = partner(t0 + j, s_delta[s_seg[j]], nb);
@@ -225,7 +231,7 @@ coo_expand_kernel(const int32_t* __restrict__ ends,
     }
   }
 #pragma unroll
-  for (int k = 0; k < kVt; ++k) {
+  for (int k = 0; k < VT; ++k) {
     const int j = threadIdx.x + k * kThreads;
     if (k < vt && j < nt) {
       const int ls = s_seg[j];
@@ -257,16 +263,15 @@ coo_expand_kernel(const int32_t* __restrict__ ends,
   }
 }
 
-// vt items a thread, fewer only where wide coordinates would not fit,
-// and the shared memory that takes.
+// vt items a thread as asked, fewer only where wide coordinates would
+// not fit, and the shared memory that takes.
 struct Plan {
   int vt;
   Layout lay;
 };
 
 template <typename T, typename C>
-static Plan plan(int ca, int cb) {
-  int vt = kVt;
+static Plan plan(int ca, int cb, int vt) {
   Layout lay(kThreads * vt, ca, cb, sizeof(T), sizeof(C));
   while (lay.bytes > kMaxSmem && vt > 1) {
     vt >>= 1;
@@ -277,7 +282,7 @@ static Plan plan(int ca, int cb) {
 
 // Lets a kernel take all of an SM's shared memory on the current device
 // (once a device and instance).
-template <typename T, typename C, int CA, int CB>
+template <typename T, typename C, int CA, int CB, int VT>
 static cudaError_t allow_shared() {
   constexpr int MAX_DEVICES = 64;
   static std::mutex mu;
@@ -288,7 +293,7 @@ static cudaError_t allow_shared() {
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(mu);
   if (!done[dev]) {
-    err = cudaFuncSetAttribute(coo_expand_kernel<T, C, CA, CB>,
+    err = cudaFuncSetAttribute(coo_expand_kernel<T, C, CA, CB, VT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kMaxSmem);
     if (err != cudaSuccess) return err;
@@ -297,28 +302,44 @@ static cudaError_t allow_shared() {
   return cudaSuccess;
 }
 
-// Calls f(kernel instance, its allow_shared) for these coordinate counts.
+// Calls f(kernel instance, its allow_shared) for these coordinate counts
+// and vt; cudaErrorInvalidValue for a vt with no fixed-width instance.
+template <typename T, typename C, int CA, int CB, typename F>
+static int by_vt(int vt, F&& f) {
+  if (vt == kVt)
+    return f(coo_expand_kernel<T, C, CA, CB, kVt>,
+             allow_shared<T, C, CA, CB, kVt>);
+  if constexpr (std::is_same<T, float>::value) {
+    if (vt == 4)
+      return f(coo_expand_kernel<T, C, CA, CB, 4>,
+               allow_shared<T, C, CA, CB, 4>);
+    if (vt == 6)
+      return f(coo_expand_kernel<T, C, CA, CB, 6>,
+               allow_shared<T, C, CA, CB, 6>);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, typename C, typename F>
-static int by_width(int ca, int cb, F&& f) {
-  if (ca == 2 && cb == 1)
-    return f(coo_expand_kernel<T, C, 2, 1>, allow_shared<T, C, 2, 1>);
-  if (ca == 2 && cb == 2)
-    return f(coo_expand_kernel<T, C, 2, 2>, allow_shared<T, C, 2, 2>);
-  return f(coo_expand_kernel<T, C, 0, 0>, allow_shared<T, C, 0, 0>);
+static int by_width(int ca, int cb, int vt, F&& f) {
+  if (ca == 2 && cb == 1) return by_vt<T, C, 2, 1>(vt, f);
+  if (ca == 2 && cb == 2) return by_vt<T, C, 2, 2>(vt, f);
+  return f(coo_expand_kernel<T, C, 0, 0, kVt>, allow_shared<T, C, 0, 0, kVt>);
 }
 
 template <typename T, typename C>
 static cudaError_t launch(const void* ends, const void* delta,
                           const void* a_vals, const void* a_coords,
                           const void* b_vals, const void* b_coords, int ns,
-                          int nb, int ca, int cb, long long cap,
+                          int nb, int ca, int cb, long long cap, int vt,
                           MergeCode merge, void* idx_out, void* val_out,
                           cudaStream_t stream) {
-  const Plan p = plan<T, C>(ca, cb);
+  const Plan p = plan<T, C>(ca, cb, vt);
   if (p.lay.bytes > kMaxSmem) return cudaErrorInvalidValue;
   const long long nv = (long long)kThreads * p.vt;
   const unsigned blocks = (unsigned)((cap + ns + nv - 1) / nv);
-  return (cudaError_t)by_width<T, C>(ca, cb, [&](auto kernel, auto allow) {
+  return (cudaError_t)by_width<T, C>(ca, cb, p.vt,
+                                     [&](auto kernel, auto allow) {
     cudaError_t e = allow();
     if (e != cudaSuccess) return (int)e;
     kernel<<<blocks, kThreads, p.lay.bytes, stream>>>(
@@ -345,18 +366,18 @@ extern "C" int coo_expand_launch(int value_code, int coord_code,
                                  const void* a_vals, const void* a_coords,
                                  const void* b_vals, const void* b_coords,
                                  int ns, int nb, int ca, int cb, long long cap,
-                                 int op, double c0, double cx, double cy,
-                                 double cxy, void* idx_out, void* val_out,
-                                 void* stream) {
+                                 int vt, int op, double c0, double cx,
+                                 double cy, double cxy, void* idx_out,
+                                 void* val_out, void* stream) {
   if (cap <= 0) return 0;
   if (ns <= 0 || nb <= 0 || ca < 0 || cb < 0 || ca + cb <= 0 ||
-      cap + ns > 0x7fffffffLL)
+      cap + ns > 0x7fffffffLL || vt < 1 || vt > kVt)
     return (int)cudaErrorInvalidValue;
   const MergeCode m{op, c0, cx, cy, cxy};
   return by_type(value_code, coord_code, [&](auto t, auto c) {
     return (int)launch<decltype(t), decltype(c)>(
         ends, delta, a_vals, a_coords, b_vals, b_coords, ns, nb, ca, cb, cap,
-        m, idx_out, val_out, (cudaStream_t)stream);
+        vt, m, idx_out, val_out, (cudaStream_t)stream);
   });
 }
 

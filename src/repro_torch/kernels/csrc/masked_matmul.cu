@@ -17,7 +17,8 @@
 //
 // Design:
 //  - A persistent pool of SMs x CTAs-per-SM CTAs (from the occupancy
-//    query: two of 256 threads at <= 128 registers). Each CTA takes
+//    query: two of 256 threads at <= 128 registers, one at kc 64 whose
+//    panels take 135 KB). Each CTA takes
 //    128 x 128 output units, in row-major order, from one atomic counter
 //    that the wrapper zeroes for every call, until the units run out;
 //    thread 0 draws one index ahead, so the atomic's round trip overlaps
@@ -33,9 +34,12 @@
 //    (4 KB per CTA-wide instruction), scalar where n is not a multiple of
 //    16 bytes. Nothing but the counter stands between two dead units, so
 //    the all-dead end is a stream of stores.
-//  - A live unit walks K in chunks of 32, staged in shared memory as float
-//    in k-major panels A [32][128] and B [32][128], two buffers of each
-//    (66 KB dynamic). Each of the 16 x 16 threads accumulates an 8 x 8
+//  - A live unit walks K in chunks of kc, staged in shared memory as float
+//    in k-major panels A [kc][128] and B [kc][128], two buffers of each
+//    (66 KB dynamic at kc 32). kc is a launch parameter, the autotuner's
+//    grid {16, 32, 64} (kernels/masked_matmul.py: GRID; default 32), each
+//    an instance for float32 and bfloat16 with its own pool. Each of the
+//    16 x 16 threads accumulates an 8 x 8
 //    register tile: rows ty*4 + {0..3} and 64 + ty*4 + {0..3}, columns
 //    likewise in tx, so per k four LDS.128 (free of bank conflicts) feed
 //    64 FFMA, against two for 16 in a 4 x 4 tile. While one buffer is
@@ -59,7 +63,9 @@
 //    cp.async for B and the 16-byte loads for A. Both paths put the same
 //    floats in shared memory, so they give bit-identical results.
 //  - Accumulation is fmaf with k ascending, chunk after chunk (the order
-//    of the one-CTA-per-64^2 kernel this replaces). Ragged M, N and K are
+//    of the one-CTA-per-64^2 kernel this replaces), whatever kc is: the
+//    zero-filled k past the end add +0 to a sum that starts at +0 and so
+//    is never -0, so every kc gives the same bits. Ragged M, N and K are
 //    bounds-checked here (zero-filled panels), so the wrapper pads
 //    nothing; A and B come with their strides.
 // Its times on the card, beside the bound and both ends, are printed by
@@ -75,12 +81,19 @@ namespace {
 
 constexpr int UNIT = 128;      // output unit edge
 constexpr int HALF = UNIT / 2; // a thread's two row (column) groups
-constexpr int KC = 32;         // K chunk staged in shared memory
 constexpr int THREADS = 256;   // 16 x 16 threads, 8 x 8 outputs each
-constexpr int MIN_CTAS = 2;    // per SM: 128 registers a thread at most
 constexpr int LD = UNIT + 4;   // panel row in floats, keeps float4 alignment
-constexpr int PANEL = KC * LD; // floats per panel
-constexpr int SMEM = 2 * 2 * PANEL * (int)sizeof(float);  // {A, B} x 2
+// The K chunk staged in shared memory is the template parameter KC
+// (16, 32 or 64); a panel holds KC rows of LD floats.
+__host__ __device__ constexpr int panel(int kc) { return kc * LD; }
+__host__ __device__ constexpr int smem_bytes(int kc) {  // {A, B} x 2
+  return 2 * 2 * panel(kc) * (int)sizeof(float);
+}
+// CTAs an SM that registers must allow: two (128 registers a thread at
+// most) where two CTAs' panels fit in the SM's shared memory, else one
+__host__ __device__ constexpr int min_ctas(int kc) {
+  return 2 * smem_bytes(kc) <= 232448 ? 2 : 1;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -190,12 +203,12 @@ __device__ __forceinline__ int take(int* counter,
 // Stage chunk `chunk` of `unit` in one buffer: A rows r0.. x k0.. into
 // `as`, B rows k0.. x columns c0.. into the panel after it, both k-major,
 // zero past the edges.
-template <typename T>
+template <int KC, typename T>
 __device__ __forceinline__ void load_panels(const T* __restrict__ a,
                                             const T* __restrict__ b,
                                             const Shape& s, int unit,
                                             int chunk, float* as) {
-  float* bp = as + PANEL;
+  float* bp = as + panel(KC);
   constexpr bool f32 = std::is_same<T, float>::value;
   const int t = tid();
   const int r0 = unit_row(s, unit), c0 = unit_col(s, unit);
@@ -252,6 +265,7 @@ __device__ __forceinline__ void load_panels(const T* __restrict__ a,
 
 // acc[i][j] += A[row i] * B[column j] over one staged chunk; row i is
 // ty*4 + i for i < 4 and HALF + ty*4 + i - 4 after, columns likewise.
+template <int KC>
 __device__ __forceinline__ void multiply(const float* __restrict__ as,
                                          const float* __restrict__ bp,
                                          float acc[8][8]) {
@@ -338,11 +352,12 @@ __device__ __forceinline__ void store_dead(T* __restrict__ out,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, MIN_CTAS)
+template <typename T, int KC>
+__global__ void __launch_bounds__(THREADS, min_ctas(KC))
 masked_matmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
                      const bool* __restrict__ mask, T* __restrict__ out,
                      int* counter, const Shape s) {
+  constexpr int PANEL = panel(KC);
   extern __shared__ __align__(16) float panels[];  // [buffer][A, B][KC][LD]
   __shared__ int slot;
   int drawn = tid() == 0 ? atomicAdd(counter, 1) : 0;  // thread 0's draw
@@ -356,7 +371,7 @@ masked_matmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
       continue;
     }
     if (!staged) {
-      load_panels(a, b, s, unit, 0, panels + buf * 2 * PANEL);
+      load_panels<KC>(a, b, s, unit, 0, panels + buf * 2 * PANEL);
       cp_async_commit();
     }
     bool next_live;
@@ -371,13 +386,13 @@ masked_matmul_kernel(const T* __restrict__ a, const T* __restrict__ b,
       // its last chunk, the first chunk of the next unit if that is live
       const bool more = c + 1 < s.chunks;
       if (more || next_live)
-        load_panels(a, b, s, more ? unit : next, more ? c + 1 : 0,
-                    panels + (buf ^ 1) * 2 * PANEL);
+        load_panels<KC>(a, b, s, more ? unit : next, more ? c + 1 : 0,
+                        panels + (buf ^ 1) * 2 * PANEL);
       cp_async_commit();
       cp_async_wait_older();
       __syncthreads();
       const float* cur = panels + buf * 2 * PANEL;
-      multiply(cur, cur + PANEL, acc);
+      multiply<KC>(cur, cur + PANEL, acc);
       __syncthreads();
       buf ^= 1;
     }
@@ -392,8 +407,9 @@ struct Pool {
   int sms = 0, per_sm = 0;
 };
 
-// The pool for the current device, queried once per device and value type.
-template <typename T>
+// The pool of one instance on the current device, queried once per
+// device and instance (its shared-memory opt-in with it).
+template <typename T, int KC>
 cudaError_t pool(Pool* p) {
   constexpr int MAX_DEVICES = 64;
   static std::mutex mu;
@@ -405,15 +421,15 @@ cudaError_t pool(Pool* p) {
   std::lock_guard<std::mutex> lock(mu);
   Pool& c = cache[dev];
   if (c.per_sm == 0) {
-    err = cudaFuncSetAttribute(masked_matmul_kernel<T>,
+    err = cudaFuncSetAttribute(masked_matmul_kernel<T, KC>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               SMEM);
+                               smem_bytes(KC));
     if (err == cudaSuccess)
       err = cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount,
                                    dev);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &c.per_sm, masked_matmul_kernel<T>, THREADS, SMEM);
+          &c.per_sm, masked_matmul_kernel<T, KC>, THREADS, smem_bytes(KC));
     if (err == cudaSuccess && c.per_sm < 1) err = cudaErrorInvalidConfiguration;
     if (err != cudaSuccess) {
       c = Pool();
@@ -424,13 +440,13 @@ cudaError_t pool(Pool* p) {
   return cudaSuccess;
 }
 
-template <typename T>
+template <typename T, int KC>
 cudaError_t launch(const void* a, const void* b, const void* mask, void* out,
                    long long m, long long n, long long k, long long sa0,
                    long long sa1, long long sb0, long long sb1, int bs,
                    cudaStream_t stream, void* counter) {
   Pool p;
-  cudaError_t err = pool<T>(&p);
+  cudaError_t err = pool<T, KC>(&p);
   if (err != cudaSuccess) return err;
   // row, column and chunk indices run a unit or a chunk past the edges
   if (m > INT_MAX - 2 * UNIT || n > INT_MAX - 2 * UNIT ||
@@ -455,16 +471,32 @@ cudaError_t launch(const void* a, const void* b, const void* mask, void* out,
   s.b_async = f32 && sb1 == 1 && sb0 % 4 == 0 &&
               reinterpret_cast<uintptr_t>(b) % 16 == 0;
   const unsigned grid = (unsigned)(units < slots ? units : slots);
-  masked_matmul_kernel<T><<<grid, THREADS, SMEM, stream>>>(
+  masked_matmul_kernel<T, KC><<<grid, THREADS, smem_bytes(KC), stream>>>(
       (const T*)a, (const T*)b, (const bool*)mask, (T*)out, (int*)counter, s);
   return cudaGetLastError();
 }
 
+// Calls f(T(), std::integral_constant<int, KC>()) for value_code 0 float32,
+// 1 bfloat16 and kc 16, 32 or 64; cudaErrorInvalidValue for anything else.
+template <typename F>
+int by_instance(int value_code, int kc, F&& f) {
+  auto with_kc = [&](auto t) -> int {
+    if (kc == 16) return f(t, std::integral_constant<int, 16>());
+    if (kc == 32) return f(t, std::integral_constant<int, 32>());
+    if (kc == 64) return f(t, std::integral_constant<int, 64>());
+    return (int)cudaErrorInvalidValue;
+  };
+  if (value_code == 0) return with_kc(float());
+  if (value_code == 1) return with_kc(__nv_bfloat16());
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// value_code: 0 float32, 1 bfloat16. The output is contiguous [m, n];
-// counter is one int32 on the device, zero at launch (the work queue).
-extern "C" int masked_matmul_launch(int value_code, const void* a,
+// value_code: 0 float32, 1 bfloat16; kc: the K chunk, 16, 32 or 64. The
+// output is contiguous [m, n]; counter is one int32 on the device, zero at
+// launch (the work queue).
+extern "C" int masked_matmul_launch(int value_code, int kc, const void* a,
                                     const void* b, const void* mask,
                                     void* out, long long m, long long n,
                                     long long k, long long sa0, long long sa1,
@@ -473,23 +505,22 @@ extern "C" int masked_matmul_launch(int value_code, const void* a,
   if (m <= 0 || n <= 0) return 0;
   if (bs <= 0 || k < 0 || counter == nullptr)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (value_code == 0)
-    return (int)launch<float>(a, b, mask, out, m, n, k, sa0, sa1, sb0, sb1,
-                              bs, s, counter);
-  if (value_code == 1)
-    return (int)launch<__nv_bfloat16>(a, b, mask, out, m, n, k, sa0, sa1,
-                                      sb0, sb1, bs, s, counter);
-  return (int)cudaErrorInvalidValue;
+  return by_instance(value_code, kc, [&](auto t, auto kc_c) {
+    return (int)launch<decltype(t), decltype(kc_c)::value>(
+        a, b, mask, out, m, n, k, sa0, sa1, sb0, sb1, bs,
+        (cudaStream_t)stream, counter);
+  });
 }
 
-// The persistent pool on the current device: SMs and CTAs per SM.
-extern "C" int masked_matmul_pool(int value_code, int* sms, int* ctas_per_sm) {
+// The persistent pool of an instance on the current device: SMs and CTAs
+// per SM.
+extern "C" int masked_matmul_pool(int value_code, int kc, int* sms,
+                                  int* ctas_per_sm) {
   Pool p;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (value_code == 0) err = pool<float>(&p);
-  if (value_code == 1) err = pool<__nv_bfloat16>(&p);
-  if (err != cudaSuccess) return (int)err;
+  const int err = by_instance(value_code, kc, [&](auto t, auto kc_c) {
+    return (int)pool<decltype(t), decltype(kc_c)::value>(&p);
+  });
+  if (err != 0) return err;
   *sms = p.sms;
   *ctas_per_sm = p.per_sm;
   return 0;

@@ -12,7 +12,10 @@ CUDA tensors and raises on anything else. That kernel is a persistent
 pool of CTAs (``pool()``: SMs × CTAs per SM) that take 128 × 128 output
 units from an atomic work counter: a dead unit is a stream of 16-byte
 zero stores, a live one an FFMA product with an 8 × 8 register tile per
-thread.
+thread. Its launch parameter is ``kc``, the K chunk staged in shared
+memory (``GRID``, the autotuner's candidates; the default 32): each
+element sums k in ascending order whatever the chunk, so every member of
+the grid writes the same bits.
 """
 from __future__ import annotations
 
@@ -22,16 +25,20 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.registry import Tiles, checked_tiles
 
 _VALUE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+GRID = ({"kc": 16}, {"kc": 32}, {"kc": 64})
+DEFAULT_TILES = {"kc": 32}
 
 
 def masked_matmul_plain(a: torch.Tensor, b: torch.Tensor,
                         out_block_mask: torch.Tensor, *,
-                        block_size: int = 256) -> torch.Tensor:
+                        block_size: int = 256,
+                        tiles: Tiles = None) -> torch.Tensor:
     """Full product, then zero the output tiles the mask leaves out. Like
     the JAX package's dense oracle, it multiplies in float32 whatever the
-    input dtype."""
+    input dtype. ``tiles`` is ignored."""
     full = torch.matmul(a.to(torch.float32), b.to(torch.float32)).to(a.dtype)
     big = out_block_mask.repeat_interleave(block_size, 0) \
         .repeat_interleave(block_size, 1)
@@ -41,9 +48,11 @@ def masked_matmul_plain(a: torch.Tensor, b: torch.Tensor,
 
 def masked_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
                        out_block_mask: torch.Tensor, *,
-                       block_size: int = 256) -> torch.Tensor:
+                       block_size: int = 256,
+                       tiles: Tiles = None) -> torch.Tensor:
     """Launch the CUDA kernel: a persistent pool of CTAs over 128 × 128
-    output units.
+    output units, staging K in chunks of ``tiles["kc"]`` (a member of
+    ``GRID``; None: ``DEFAULT_TILES``).
 
     ``a`` [M, K] and ``b`` [K, N] share float32 or bfloat16; float64 raises
     ``TypeError`` (the card kernel accumulates in float32 only).
@@ -57,6 +66,7 @@ def masked_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     another. The output is a new contiguous [M, N] tensor in which every
     element is written, each 128 × 128 unit by one CTA in a fixed order:
     the same inputs give the same bits on every launch."""
+    kc = checked_tiles("masked_matmul", tiles, GRID, DEFAULT_TILES)["kc"]
     dev = a.device
     ins = (a, b, out_block_mask)
     if dev.type != "cuda" or any(x.device != dev for x in ins):
@@ -84,7 +94,8 @@ def masked_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     mask = out_block_mask.contiguous()
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     rc = build.function("masked_matmul_launch")(
-        _VALUE_CODES[a.dtype], a.data_ptr(), b.data_ptr(), mask.data_ptr(),
+        _VALUE_CODES[a.dtype], kc, a.data_ptr(), b.data_ptr(),
+        mask.data_ptr(),
         out.data_ptr(), m, n, k, *a.stride(), *b.stride(), bs,
         build.stream_ptr(a), counter.data_ptr())
     build.check(rc, "masked_matmul")
@@ -92,11 +103,14 @@ def masked_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
-def pool() -> Tuple[int, int]:
+def pool(tiles: Tiles = None) -> Tuple[int, int]:
     """(SMs, CTAs per SM) of ``masked_matmul_cuda``'s persistent pool for
-    float32 on the current CUDA device, as the launch sizes its grid."""
+    float32 and ``tiles`` (None: ``DEFAULT_TILES``) on the current CUDA
+    device, as the launch sizes its grid."""
+    kc = checked_tiles("masked_matmul", tiles, GRID, DEFAULT_TILES)["kc"]
     sms, per_sm = ctypes.c_int(), ctypes.c_int()
     rc = build.function("masked_matmul_pool")(
-        _VALUE_CODES[torch.float32], ctypes.byref(sms), ctypes.byref(per_sm))
+        _VALUE_CODES[torch.float32], kc, ctypes.byref(sms),
+        ctypes.byref(per_sm))
     build.check(rc, "masked_matmul pool query")
     return sms.value, per_sm.value

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.merge_codes import merge_code
+from repro_torch.kernels.registry import Tiles, checked_tiles
 
 # compute-gating modes derived from the sparsity profile of the merge fn
 MODE_BOTH = 0   # inducing on x and y: compute where maskA & maskB
@@ -56,7 +57,8 @@ def live_tiles(mask_a: torch.Tensor, mask_b: torch.Tensor,
 def merge_join_plain(a: torch.Tensor, b: torch.Tensor, mask_a: torch.Tensor,
                      mask_b: torch.Tensor, *, merge: Callable,
                      mode: int = MODE_ALL,
-                     block_size: int = 256) -> torch.Tensor:
+                     block_size: int = 256,
+                     tiles: Tiles = None) -> torch.Tensor:
     live = live_tiles(mask_a, mask_b, mode)
     big = live.repeat_interleave(block_size, 0) \
         .repeat_interleave(block_size, 1)[: a.shape[0], : a.shape[1]]
@@ -68,8 +70,11 @@ def merge_join_plain(a: torch.Tensor, b: torch.Tensor, mask_a: torch.Tensor,
 def merge_join_cuda(a: torch.Tensor, b: torch.Tensor, mask_a: torch.Tensor,
                     mask_b: torch.Tensor, *, merge: Callable,
                     mode: int = MODE_ALL,
-                    block_size: int = 256) -> torch.Tensor:
-    """Launch the CUDA kernel (one CTA per ``block_size``² tile)."""
+                    block_size: int = 256,
+                    tiles: Tiles = None) -> torch.Tensor:
+    """Launch the CUDA kernel (one CTA per ``block_size``² tile). It has
+    no launch parameter: ``tiles`` must be None or empty."""
+    checked_tiles("merge_join", tiles, (), {})
     dev = a.device
     ins = (a, b, mask_a, mask_b)
     if dev.type != "cuda" or any(x.device != dev for x in ins):

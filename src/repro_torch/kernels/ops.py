@@ -5,28 +5,36 @@ Each logical kernel is registered under two backends (see
 for CPU tensors) and ``cuda`` (its hand-written kernel, for CUDA
 tensors). The wrappers below dispatch through the registry, so the
 backend follows the tensors' device.
+
+Three kernels register a tile grid over their CUDA launch parameter, the
+autotuner's candidates (the JAX package gives the same three a grid):
+``coo_expand`` ``vt`` (merge items a thread), ``masked_matmul`` ``kc``
+(the K chunk in shared memory) and ``bloom_probe`` ``threads`` (the
+shared path's CTA). ``merge_join`` and ``sddmm_agg`` have none.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import bloom_probe, coo_join, masked_matmul as mm
 from repro_torch.kernels import registry
-from repro_torch.kernels.bloom_probe import bloom_probe_cuda, bloom_probe_plain
-from repro_torch.kernels.coo_join import coo_expand_cuda, coo_expand_plain
-from repro_torch.kernels.masked_matmul import (
-    masked_matmul_cuda, masked_matmul_plain,
-)
 from repro_torch.kernels.merge_join import merge_join_cuda, merge_join_plain
 from repro_torch.kernels.sddmm_agg import sddmm_agg_cuda, sddmm_agg_plain
 
-for _name, _plain, _cuda in (
-        ("coo_expand", coo_expand_plain, coo_expand_cuda),      # §4.4–§4.5
-        ("bloom_probe", bloom_probe_plain, bloom_probe_cuda),   # §4.7
-        ("merge_join", merge_join_plain, merge_join_cuda),      # §4.3/§4.7
-        ("masked_matmul", masked_matmul_plain, masked_matmul_cuda),  # §6
-        ("sddmm_agg", sddmm_agg_plain, sddmm_agg_cuda)):        # §6 (PNMF)
-    registry.register(_name, registry.TORCH)(_plain)
-    registry.register(_name, registry.CUDA)(_cuda)
+for _name, _plain, _cuda, _mod in (
+        ("coo_expand", coo_join.coo_expand_plain,             # §4.4–§4.5
+         coo_join.coo_expand_cuda, coo_join),
+        ("bloom_probe", bloom_probe.bloom_probe_plain,        # §4.7
+         bloom_probe.bloom_probe_cuda, bloom_probe),
+        ("merge_join", merge_join_plain, merge_join_cuda,     # §4.3/§4.7
+         None),
+        ("masked_matmul", mm.masked_matmul_plain,             # §6
+         mm.masked_matmul_cuda, mm),
+        ("sddmm_agg", sddmm_agg_plain, sddmm_agg_cuda, None)):  # §6 (PNMF)
+    _grid = dict(tile_grid=_mod.GRID, default_tiles=_mod.DEFAULT_TILES) \
+        if _mod is not None else {}
+    registry.register(_name, registry.TORCH, **_grid)(_plain)
+    registry.register(_name, registry.CUDA, **_grid)(_cuda)
 
 
 def masked_matmul(a: torch.Tensor, b: torch.Tensor,

@@ -29,6 +29,15 @@ backend's health: it propagates without being counted and leaves the
 breaker as it was, so one caller's unsupported query cannot quarantine
 the card for everyone else.
 
+Tiles (the JAX package's autotune metadata, over the CUDA kernels' launch
+parameters): a kernel registers its ``tile_grid`` (the candidates, named
+by the CUDA kernel's parameter) and ``default_tiles``. ``dispatch`` passes
+``tiles=`` to the impl when the caller gives them or, with
+``REPRO_AUTOTUNE`` set, when ``autotune.cached_tiles`` has an entry for
+the call's shape bucket; the ``torch`` impls ignore them, and a CUDA
+wrapper refuses (``ValueError``, before any launch) a tile outside its
+grid. Tiles change scheduling, never the result.
+
     from repro_torch.kernels import registry
 
     @registry.register("my_kernel", registry.TORCH)
@@ -43,7 +52,7 @@ import dataclasses
 import os
 import threading
 import time
-from typing import Any, Callable, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -55,13 +64,18 @@ CUDA = "cuda"
 BACKENDS = (TORCH, CUDA)
 # what a wrapper raises when it refuses its arguments before launching
 REFUSALS = (ValueError, TypeError, NotImplementedError)
+_AUTOTUNE_ENV = "REPRO_AUTOTUNE"
+
+Tiles = Optional[Dict[str, int]]
 
 
 @dataclasses.dataclass
 class KernelSpec:
-    """One logical kernel: its per-backend impls."""
+    """One logical kernel: its per-backend impls and autotune metadata."""
     name: str
     impls: Dict[str, Callable] = dataclasses.field(default_factory=dict)
+    tile_grid: Tuple[Dict[str, int], ...] = ()
+    default_tiles: Optional[Dict[str, int]] = None
 
     def backends(self) -> Tuple[str, ...]:
         return tuple(b for b in BACKENDS if b in self.impls)
@@ -79,13 +93,25 @@ def _ensure_builtins() -> None:
         _BUILTINS_LOADED = True
 
 
-def register(name: str, backend: str):
-    """Decorator: register ``fn`` as the ``backend`` impl of kernel ``name``."""
+def register(name: str, backend: str, *,
+             tile_grid: Tuple[Dict[str, int], ...] = (),
+             default_tiles: Optional[Dict[str, int]] = None):
+    """Decorator: register ``fn`` as the ``backend`` impl of kernel ``name``.
+
+    ``tile_grid``/``default_tiles`` attach autotune metadata to the spec;
+    the first registration to provide them wins (they describe the kernel,
+    not the backend).
+    """
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected {BACKENDS}")
 
     def deco(fn: Callable) -> Callable:
-        _REGISTRY.setdefault(name, KernelSpec(name=name)).impls[backend] = fn
+        spec = _REGISTRY.setdefault(name, KernelSpec(name=name))
+        spec.impls[backend] = fn
+        if tile_grid and not spec.tile_grid:
+            spec.tile_grid = tuple(dict(t) for t in tile_grid)
+        if default_tiles and not spec.default_tiles:
+            spec.default_tiles = dict(default_tiles)
         return fn
 
     return deco
@@ -135,6 +161,20 @@ def planned_backend(name: str, backend: Optional[str] = None,
     """Resolve kernel ``name``'s backend at *plan time* for a session on
     ``device`` — the same rule ``dispatch`` applies to the tensors."""
     return resolve_backend(name, backend, device)
+
+
+def checked_tiles(name: str, tiles: Tiles, grid: Sequence[Dict[str, int]],
+                  default: Dict[str, int]) -> Dict[str, int]:
+    """The tiles a CUDA wrapper launches with: ``default`` for None or
+    empty tiles, else ``tiles`` if they are a member of ``grid``. Anything
+    else raises ``ValueError`` before a launch (a refusal, so it never
+    feeds the breaker)."""
+    if not tiles:
+        return default
+    if tiles in grid:
+        return tiles
+    raise ValueError(f"{name}: tiles {tiles} outside its grid "
+                     f"{list(grid) or 'none (no launch parameter)'}")
 
 
 def _device_of(args: Tuple[Any, ...]) -> torch.device:
@@ -263,8 +303,13 @@ BREAKER = CircuitBreaker(*_breaker_config())
 
 
 def dispatch(name: str, *args: Any, backend: Optional[str] = None,
-             **kw: Any):
+             tiles: Tiles = None, **kw: Any):
     """Run kernel ``name`` on the backend of its tensors' device.
+
+    When ``tiles`` is None and ``REPRO_AUTOTUNE`` is set, previously tuned
+    tiles are looked up in the autotune cache (cache-only: dispatch never
+    times; populating the cache is ``autotune.best_tiles``'s job). Tiles
+    reach the impl only when there are some.
 
     A ``cuda`` dispatch that fails (or is faulted through the
     ``kernel_dispatch`` seam) raises after feeding the breaker; while the
@@ -273,15 +318,21 @@ def dispatch(name: str, *args: Any, backend: Optional[str] = None,
     """
     chosen = resolve_backend(name, backend, _device_of(args))
     impl = get(name).impls[chosen]
-    if chosen == TORCH:
-        faults.check("kernel_dispatch", kernel=name, backend=chosen)
-        return impl(*args, **kw)
-    if BREAKER.quarantined(chosen):
+    if chosen == CUDA and BREAKER.quarantined(chosen):
         REGISTRY.counter("kernel_dispatch_quarantined", kernel=name,
                          backend=chosen).inc()
         raise KernelQuarantined(
             f"kernel {name!r}: backend {chosen!r} is quarantined by its "
             f"circuit breaker ({BREAKER.state(chosen)})")
+    if tiles is None and _autotune_enabled():
+        from repro_torch.kernels import autotune
+        tiles = autotune.cached_tiles(name, _arg_shapes(args),
+                                      _arg_dtype(args), chosen)
+    if tiles is not None:
+        kw["tiles"] = tiles
+    if chosen == TORCH:
+        faults.check("kernel_dispatch", kernel=name, backend=chosen)
+        return impl(*args, **kw)
     try:
         faults.check("kernel_dispatch", kernel=name, backend=chosen)
         out = impl(*args, **kw)
@@ -297,3 +348,28 @@ def dispatch(name: str, *args: Any, backend: Optional[str] = None,
         raise
     BREAKER.record_success(chosen)
     return out
+
+
+def _autotune_enabled() -> bool:
+    val = os.environ.get(_AUTOTUNE_ENV, "")
+    return val.lower() not in ("", "0", "false", "no", "off")
+
+
+def _arg_shapes(args: Tuple[Any, ...]) -> Tuple[Tuple[int, ...], ...]:
+    return tuple(tuple(a.shape) for a in args if hasattr(a, "shape"))
+
+
+def _arg_dtype(args: Tuple[Any, ...]) -> str:
+    """The first floating payload dtype, numpy-style (``"float32"``), not
+    an auxiliary integer argument's (``bloom_probe``'s leading words are
+    uint32, its values float); the first dtype where none floats."""
+    first = None
+    for a in args:
+        dt = getattr(a, "dtype", None)
+        if not isinstance(dt, torch.dtype):
+            continue
+        if first is None:
+            first = str(dt).replace("torch.", "")
+        if dt.is_floating_point:
+            return str(dt).replace("torch.", "")
+    return first or "float32"

@@ -24,6 +24,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.registry import Tiles, checked_tiles
 
 DIMS = ("row", "col", "all")
 _VALUE_CODES = {torch.float32: 0, torch.float64: 1}
@@ -32,7 +33,8 @@ _UNIT = 128  # the kernel's unit edge, which sizes the partials
 
 def sddmm_agg_plain(sp: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
                     out_block_mask: torch.Tensor, *, dim: str,
-                    block_size: int = 256) -> torch.Tensor:
+                    block_size: int = 256,
+                    tiles: Tiles = None) -> torch.Tensor:
     """Factorized SUM of ``sp ∘ (W·H)``.
 
     ``rowsum_j sp[i,j]·(W·H)[i,j] = Σ_k W[i,k]·(sp·Hᵀ)[i,k]`` (and the
@@ -51,7 +53,8 @@ def sddmm_agg_plain(sp: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
 
 def sddmm_agg_cuda(sp: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
                    out_block_mask: torch.Tensor, *, dim: str,
-                   block_size: int = 256) -> torch.Tensor:
+                   block_size: int = 256,
+                   tiles: Tiles = None) -> torch.Tensor:
     """Launch the CUDA kernel: a schedule lists the live 128 × 128 units,
     a persistent pool of CTAs writes their partials, and a last launch
     sums them in a fixed order (three launches, counted as one).
@@ -67,7 +70,9 @@ def sddmm_agg_cuda(sp: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
     ``torch.empty`` that the launch writes before it reads; the list's
     count stays on the card, so nothing here waits on it. Each unit is
     summed whole by one CTA in a fixed order, so the same inputs give the
-    same bits on every launch."""
+    same bits on every launch. It has no launch parameter: ``tiles`` must
+    be None or empty."""
+    checked_tiles("sddmm_agg", tiles, (), {})
     if dim not in DIMS:
         raise ValueError(f"dim {dim!r} not in {DIMS}")
     dev = sp.device

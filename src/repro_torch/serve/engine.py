@@ -219,8 +219,8 @@ class ServeEngine:
         "prewarm_failures", "deadline_exceeded",
         "exec_retries", "degraded_eager",
         "ledger_errors", "refit_crashes", "stragglers_suspected",
-        # dispatches served from a shared autotune artifact: the port has
-        # no autotuner yet (ROADMAP: autotuner), so this reads 0
+        # dispatches served from a shared autotune artifact without a
+        # single tuning trial
         "autotune_warm_hits",
     )
 
@@ -327,6 +327,14 @@ class ServeEngine:
         self._straggler = StragglerDetector(list(worker_ids), window=16)
         self._next_worker = n_threads
         self._heartbeat_s = min(0.2, supervise_every_s)
+        # warm-start the kernel autotuner from the artifact before any
+        # worker dispatches: buckets the artifact covers skip their tuning
+        # trials, and the warm-hit delta is mirrored into
+        # ``serve_autotune_warm_hits`` as tickets complete
+        from repro_torch.kernels import autotune
+        autotune.load_cache()
+        self._autotune_lock = threading.Lock()
+        self._autotune_warm_seen = autotune.tune_stats()["warm_hits"]
         self._worker_batches: Dict[str, List[Ticket]] = {}
         self._workers: Dict[str, threading.Thread] = {}
         for wid in worker_ids:
@@ -482,6 +490,7 @@ class ServeEngine:
             return
         self._counters["errors" if error is not None
                        else "completed"].inc()
+        self._sync_autotune_metric()
         if isinstance(error, DeadlineExceeded):
             self._counters["deadline_exceeded"].inc()
         self._latency.observe(ticket.latency)
@@ -989,11 +998,24 @@ class ServeEngine:
         return out, ex
 
     # -- introspection --------------------------------------------------------
+    def _sync_autotune_metric(self) -> None:
+        """Mirror the autotuner's process-wide warm-hit count into this
+        engine's registry as a delta (many engines may share the process;
+        each claims only the hits seen on its own watch)."""
+        from repro_torch.kernels import autotune
+        with self._autotune_lock:
+            seen = autotune.tune_stats()["warm_hits"]
+            delta = seen - self._autotune_warm_seen
+            if delta > 0:
+                self._autotune_warm_seen = seen
+                self._counters["autotune_warm_hits"].inc(delta)
+
     def snapshot(self) -> Dict[str, object]:
         """Stats snapshot: the legacy flat counter keys (now views over
         the metrics registry), the shared result-cache stats read
         atomically under that cache's lock, and serve-tier latency /
         queue-wait histogram summaries (p50/p90/p99 from buckets)."""
+        self._sync_autotune_metric()
         out: Dict[str, object] = {
             name: c.value for name, c in self._counters.items()}
         out["arena_nodes"] = int(self._arena_nodes.value)

@@ -12,6 +12,8 @@ cancellation), f64 1e-9 (``tests/test_kernels_fused.py``).
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py      # on the card
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -87,7 +89,7 @@ def test_coo_expand_kernel_matches_plain(cuda, density, merge, dtype, cdt,
     torch.testing.assert_close(val_k, val_p.to(dtype), atol=tol, rtol=tol)
 
 
-EXPAND_RUN = 256 * 8      # merge items a CTA takes (kThreads × kVt)
+EXPAND_RUN = 256 * 8      # merge items a CTA takes (kThreads × default vt)
 EXPAND_TYPES = [(torch.float32, torch.int16, 1), (torch.float32, torch.int32, 2),
                 (torch.float64, torch.int16, 2), (torch.float64, torch.int32, 1)]
 
@@ -950,3 +952,214 @@ def test_four_workers_launch_each_kernel_once_a_worker_on_the_card(cuda):
             assert torch.equal(got, one[name]), name
         else:
             torch.testing.assert_close(got, one[name], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Tiles: every member of a kernel's grid changes its scheduling, never its
+# bits; a tile outside the grid is a refusal.
+# ---------------------------------------------------------------------------
+
+def _grid(name):
+    from repro_torch.kernels import registry
+    spec = registry.get(name)
+    return [dict(t) for t in spec.tile_grid], dict(spec.default_tiles)
+
+
+def _same_bits(got, want):
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g.view(torch.uint8) if g.is_floating_point()
+                           else g, w.view(torch.uint8)
+                           if w.is_floating_point() else w)
+
+
+def _q4_like(rng, device):
+    """A D2D expansion of the main path's size: 268 435 probe entries
+    (16384² at density 1e-3), each run ~16 partners long (≈4.4 M slots)."""
+    counts = rng.poisson(16.4, 268435)
+    return _inputs_from_counts(rng, counts, 268435, 1, torch.float32,
+                               torch.int16, device), int(counts.sum())
+
+
+@pytest.mark.parametrize("case", ["main path", "long segment", "empty runs",
+                                  "ns=1", "cap=run+1", "cap past total"])
+@pytest.mark.parametrize("dtype,cdt,cb", [(torch.float32, torch.int16, 1),
+                                          (torch.float32, torch.int16, 2),
+                                          (torch.float32, torch.int32, 2)])
+def test_coo_expand_every_tile_gives_the_defaults_bits(cuda, case, dtype,
+                                                       cdt, cb):
+    rng = np.random.default_rng(30)
+    if case == "main path":
+        counts = rng.poisson(16.4, 268435)
+        cap = int(counts.sum())
+    else:
+        counts, cap = _counts_case(rng, case)
+    ins = _inputs_from_counts(rng, counts, 25000, cb, dtype, cdt, cuda)
+    grid, default = _grid("coo_expand")
+    fn = MERGES["affine"]
+    want = coo_expand_cuda(*ins, merge=fn, cap=cap, tiles=default)
+    _same_bits(coo_expand_cuda(*ins, merge=fn, cap=cap), want)
+    for tiles in grid:
+        _same_bits(coo_expand_cuda(*ins, merge=fn, cap=cap, tiles=tiles),
+                   want)
+    idx_p, val_p = coo_expand_plain(*ins, merge=fn, cap=cap)
+    assert torch.equal(want[0], idx_p)
+    torch.testing.assert_close(want[1], val_p, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("ca,cb,dtype", [(3, 2, torch.float32),
+                                         (12, 12, torch.float32),
+                                         (3, 2, torch.float64)])
+def test_coo_expand_run_time_widths_take_every_tile(cuda, ca, cb, dtype):
+    rng = np.random.default_rng(31)
+    counts, cap = _counts_case(rng, "cap past total")
+    ins = _inputs_from_counts(rng, counts, 9000, cb, dtype, torch.int32,
+                              cuda, ca=ca)
+    grid, default = _grid("coo_expand")
+    fn = MERGES["add"]
+    want = coo_expand_cuda(*ins, merge=fn, cap=cap)
+    for tiles in grid:
+        _same_bits(coo_expand_cuda(*ins, merge=fn, cap=cap, tiles=tiles),
+                   want)
+
+
+def test_coo_expand_float64_joins_refuse_other_tiles(cuda):
+    """float64 values at the joins' widths have the default's instance
+    only: another vt raises ``ValueError`` and launches nothing."""
+    rng = np.random.default_rng(32)
+    counts, cap = _counts_case(rng, "cap=run+1")
+    ins = _inputs_from_counts(rng, counts, 9000, 2, torch.float64,
+                              torch.int16, cuda)
+    grid, default = _grid("coo_expand")
+    before = build.LAUNCHES["coo_expand"]
+    for tiles in grid:
+        if tiles == default:
+            continue
+        with pytest.raises(ValueError, match="float64"):
+            coo_expand_cuda(*ins, merge=MERGES["mul"], cap=cap, tiles=tiles)
+    assert build.LAUNCHES["coo_expand"] == before
+
+
+@pytest.mark.parametrize("shape,k,bs,dtype", [
+    ((4096, 4096), 32, 256, torch.float32),     # the PNMF shape, cut
+    ((300, 257), 1, 16, torch.float32), ((300, 257), 7, 64, torch.float32),
+    ((1024, 768), 300, 128, torch.float32),
+    ((1024, 768), 300, 256, torch.bfloat16), ((300, 257), 33, 16,
+                                              torch.bfloat16)])
+@pytest.mark.parametrize("view", ["contiguous", "transposed"])
+def test_masked_matmul_every_tile_gives_the_defaults_bits(cuda, shape, k, bs,
+                                                          dtype, view):
+    rng = np.random.default_rng(33)
+    m, n = shape
+    a = torch.as_tensor(rng.normal(size=(m, k)), dtype=dtype, device=cuda)
+    b = torch.as_tensor(rng.normal(size=(k, n)), dtype=dtype, device=cuda)
+    if view == "transposed":
+        a, b = a.T.contiguous().T, b.T.contiguous().T
+    mask = _mask(rng, shape, bs, 0.3, cuda)
+    grid, default = _grid("masked_matmul")
+    want = masked_matmul_cuda(a, b, mask, block_size=bs)
+    for tiles in grid:
+        _same_bits(masked_matmul_cuda(a, b, mask, block_size=bs,
+                                      tiles=tiles), want)
+    torch.testing.assert_close(want.float(), masked_matmul_plain(
+        a, b, mask, block_size=bs).float(), **MM_TOL[dtype])
+
+
+def test_masked_matmul_pool_follows_the_tile(cuda):
+    """Two CTAs an SM at kc 16 and 32; kc 64's panels (135,168 B) leave
+    room for one."""
+    assert pool({"kc": 16})[1] >= 2 and pool({"kc": 32})[1] >= 2
+    assert pool({"kc": 64})[1] == 1
+    assert pool() == pool({"kc": 32})
+
+
+@pytest.mark.parametrize("n,log2_bits,num_hashes,offset", [
+    (Q5_N, 20, 3, 0), (Q5_N, 20, 3, 1), (Q5_N, 12, 3, 0), (257, 20, 5, 1),
+    (1, 20, 3, 0), (Q5_N, 21, 3, 0)])
+def test_bloom_probe_every_tile_gives_the_defaults_bits(cuda, n, log2_bits,
+                                                        num_hashes, offset):
+    from repro_torch.kernels.bloom_probe import plan
+    rng = np.random.default_rng(34)
+    words, vals, _ = _bloom_case(rng, n, log2_bits, num_hashes, offset)
+    kw = dict(num_hashes=num_hashes, log2_bits=log2_bits)
+    grid, default = _grid("bloom_probe")
+    want = _check_bloom(words, vals, **kw)
+    for tiles in grid:
+        _same_bits(bloom_probe_cuda(words, vals, tiles=tiles, **kw), want)
+        p = plan(words, vals, tiles=tiles, **kw)
+        # the shared path's CTA follows the tile; the global path keeps 256
+        assert p["threads"] == (tiles["threads"] if p["path"] == "shared"
+                                else 256)
+
+
+@pytest.mark.parametrize("name", ["coo_expand", "masked_matmul",
+                                  "bloom_probe", "merge_join", "sddmm_agg"])
+def test_a_tile_outside_the_grid_is_a_refusal_on_the_card(cuda, monkeypatch,
+                                                          name):
+    """Through ``registry.dispatch``: ``ValueError`` before any launch,
+    with the breaker left closed."""
+    from repro_torch.kernels import registry
+    breaker = registry.CircuitBreaker(threshold=1, cooldown_s=3600.0)
+    monkeypatch.setattr(registry, "BREAKER", breaker)
+    rng = np.random.default_rng(35)
+    t = lambda x, d=torch.float32: torch.as_tensor(x, dtype=d,  # noqa: E731
+                                                   device=cuda)
+    if name == "coo_expand":
+        counts, cap = _counts_case(rng, "cap=1")
+        args = _inputs_from_counts(rng, counts, 900, 1, torch.float32,
+                                   torch.int16, cuda)
+        kw = {"merge": MERGES["mul"], "cap": cap}
+    elif name == "bloom_probe":
+        words, vals, _ = _bloom_case(rng, 100, 12, 3)
+        args, kw = (words, vals), {"num_hashes": 3, "log2_bits": 12}
+    elif name == "merge_join":
+        a = t(rng.normal(size=(64, 64)))
+        mk = torch.ones((4, 4), dtype=torch.bool, device=cuda)
+        args, kw = (a, a, mk, mk), {"merge": MERGES["mul"],
+                                    "block_size": 16}
+    else:
+        w, h = t(rng.normal(size=(64, 8))), t(rng.normal(size=(8, 64)))
+        mk = torch.ones((4, 4), dtype=torch.bool, device=cuda)
+        args, kw = ((w, h, mk), {"block_size": 16}) \
+            if name == "masked_matmul" else \
+            ((t(rng.normal(size=(64, 64))), w, h, mk),
+             {"block_size": 16, "dim": "row"})
+    before = dict(build.LAUNCHES)
+    for bad in ({"vt": 5}, {"kc": 48}, {"threads": 128}):
+        with pytest.raises(ValueError, match="outside its grid"):
+            registry.dispatch(name, *args, tiles=bad, **kw)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == before
+    assert breaker.state(registry.CUDA) == "closed"
+    registry.dispatch(name, *args, **kw)      # and the backend still runs
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == before[name] + 1
+
+
+def test_best_tiles_with_a_real_runner_caches_a_member_of_the_grid(
+        cuda, tmp_path, monkeypatch):
+    from repro_torch.kernels import autotune, registry
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", str(tmp_path / "a.json"))
+    autotune.clear_cache()
+    autotune.reset_stats()
+    try:
+        rng = np.random.default_rng(36)
+        ins, cap = _q4_like(rng, cuda)
+        fn = MERGES["mul"]
+        shapes = registry._arg_shapes(ins)
+        best = autotune.best_tiles(
+            "coo_expand", shapes, "float32", registry.CUDA,
+            runner=lambda tiles: coo_expand_cuda(*ins, merge=fn, cap=cap,
+                                                 tiles=tiles))
+        grid, _ = _grid("coo_expand")
+        assert best in grid
+        assert autotune.tune_stats()["trials"] == len(grid) * 3
+        assert autotune.cached_tiles("coo_expand", shapes, "float32",
+                                     registry.CUDA) == best
+        saved = json.loads((tmp_path / "a.json").read_text())["entries"]
+        assert list(saved.values()) == [best]
+        assert autotune.device_kind().startswith("cuda:")
+    finally:
+        autotune.clear_cache()
+        autotune.reset_stats()

@@ -38,7 +38,9 @@ def test_import_leaves_jax_out():
             "repro_torch.kernels.ops, repro_torch.obs, "
             "repro_torch.core.calibrate, repro_torch.serve.engine, "
             "repro_torch.serve.workload, repro_torch.launch.serve, "
-            "repro_torch.runtime.elastic, repro_torch.quickstart; "
+            "repro_torch.runtime.elastic, repro_torch.quickstart, "
+            "repro_torch.kernels.autotune, repro_torch.obs.demo, "
+            "repro_torch.collaborative_filtering; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -63,7 +65,8 @@ def test_package_has_the_reference_layout():
     for path in ("runtime/faults.py", "runtime/fault_tolerance.py",
                  "runtime/straggler.py", "runtime/elastic.py",
                  "obs/metrics.py", "obs/ledger.py", "core/calibrate.py",
-                 "serve/engine.py", "serve/workload.py", "launch/serve.py"):
+                 "serve/engine.py", "serve/workload.py", "launch/serve.py",
+                 "kernels/autotune.py", "obs/demo.py"):
         assert (PORT / path).exists(), path
         assert (ROOT / "src" / "repro" / path).exists(), path
     assert repro_torch.resolve_device is resolve_device
