@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main query path, the PNMF path, the
-serving tier, the autotuner and the examples on one NVIDIA card.
+serving tier, the autotuner, the examples and the LM serving path on one
+NVIDIA card.
 
     python3 chip_smoke.py                      # on the card: full size
     python3 chip_smoke.py --device cpu --small # CPU rehearsal, plain versions
@@ -90,10 +91,28 @@ ALS step to float64 within ``CF_RTOL`` of Σ|terms| (a TF32 control must
 miss it), and the observability demo (``obs.demo.run_demo``, 4 workers)
 must show all seven phases and a ledger row a query.
 
+The LM phase comes last (``repro_torch.models``, ``serve.step`` and the
+launcher's ``run_lm``; no kernel of the port lies on that path).
+qwen3-1.7b at its full published config (28 layers, d 2048, vocab
+151,936, 1.72 G parameters drawn from ``--seed``) serves batch 4,
+prompt 128, 32 new tokens: decode must equal the forward pass within the
+bf16 tolerance of ``tests/test_decode_equiv.py`` (rel 2e-2), two
+``generate`` calls must give the same tokens, the launcher's path is
+timed (prefill ms, decode ms/token, tokens/s, peak memory above what
+earlier phases hold) and four decode steps are profiled (device ms and
+kernels a step, the top kernels by torch.profiler). Then the same
+arch at full width, 2 layers, f32 compute: the same parameters on the
+card and on the CPU give logits within rel 1e-4 and equal greedy tokens.
+Then each of the ten families at its published widths, one
+block-program period deep (jamba 8 layers, whisper 1+1), batch 2, prompt
+32 and 4 decodes each held to the forward pass; each cut is printed (MoE
+capacity raised to drop-free, bf16 parameter storage where one period's
+f32 parameters pass 40 GB).
+
 Output: the card's name and power limit (``nvidia-smi``), the build time,
 after a fresh build the ptxas registers and spills of every instance of
 the three kernels with a launch parameter, one line per query and
-kernel, the serving, autotune, CF and demo lines (each with the card's name and power limit), a ``{"kernels":
+kernel, the serving, autotune, CF, demo and LM lines (each with the card's name and power limit), a ``{"kernels":
 [...]}`` JSON line (with each tuned kernel's default and best tiles),
 and as the last line ``{"ok": true, "device": {"platform": "gpu",
 ...}}``. Any failure raises and exits non-zero without that line.
@@ -160,6 +179,17 @@ CF_SAMPLE = 64
 # an ALS step's sums run over 16384 users (W) and ~19661 items (H): of
 # Σ|terms| FP32 reads ~1e-7 and TF32 products ~1e-4 (its control)
 CF_RTOL = 1e-5
+# the LM phase: qwen3-1.7b (the launcher's default --arch) at its full
+# config, batch 4, prompt 128, 32 new tokens; every family at batch 2,
+# prompt 32, 4 decodes, one block-program period deep
+LM_ARCH = "qwen3-1.7b"
+LM_SERVE = (4, 128, 32)
+LM_FAMILY = (2, 32, 4)
+LM_PROFILE_STEPS = 4           # decode steps under torch.profiler
+LM_PARAM_LIMIT = 40e9          # bytes of f32 parameters before bf16 storage
+LM_BF16_TOL = 2e-2             # tests/test_decode_equiv.py:53
+LM_F32_TOL = 5e-5              # tests/test_decode_equiv.py:53
+LM_CARD_CPU_TOL = 1e-4         # the port's f32 parity tolerance
 MESH_GATED = {"Q3": "merge_join", "Q7": "masked_matmul", "Q8": "sddmm_agg",
               "Q9": "sddmm_agg", "Q10": "sddmm_agg"}
 
@@ -1553,6 +1583,264 @@ def cf_phase(device, seed, small, card):
             f"{launches or 'none'} [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# The LM phase: the port's serving path for the ten model families.
+# ---------------------------------------------------------------------------
+
+def _lm_rel(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / (want.abs().max() + 1e-9))
+
+
+def _decode_matches_forward(params, cfg, inputs, steps, tol):
+    """Prefill the first S tokens, decode the next ``steps`` (teacher
+    forced) and hold each decode's logits to the forward pass's at that
+    position within ``tol`` (rel to the largest |logit|). Returns the
+    largest error; raises on a NaN or a miss."""
+    import torch
+    from repro_torch.models import api as mapi
+    from repro_torch.serve.step import first_position
+    toks = inputs["tokens"]
+    s = toks.shape[1] - steps
+    pos0 = first_position(cfg, s)
+    worst = 0.0
+    with torch.inference_mode():
+        full, _ = mapi.forward(params, cfg, inputs)
+        _, caches = mapi.prefill(params, cfg, dict(inputs, tokens=toks[:, :s]),
+                                 pos0 + steps)
+        for i in range(steps):
+            lg, caches = mapi.decode_step(params, cfg, caches,
+                                          toks[:, s + i:s + i + 1], pos0 + i)
+            assert not torch.isnan(lg).any(), f"{cfg.arch_id}: NaN logits"
+            worst = max(worst, _lm_rel(lg[:, 0], full[:, pos0 + i]))
+    assert not torch.isnan(full).any(), f"{cfg.arch_id}: NaN logits"
+    assert worst < tol, \
+        f"{cfg.arch_id}: decode vs forward rel err {worst:.3e} >= {tol:.0e}"
+    return worst
+
+
+def _decode_profile(params, cfg, prompt, max_seq, steps):
+    """``steps`` donating decode steps after a prefill, under
+    torch.profiler (CUDA activity only): the device's kernel time a step,
+    kernels a step and the four kernels with the most device time, as
+    (name, ms a step, launches a step)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.step import (compiled_decode, compiled_prefill,
+                                        first_position)
+    logits, caches = compiled_prefill(cfg, max_seq)(params,
+                                                    {"tokens": prompt})
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    decode = compiled_decode(cfg, donate=True)
+    pos0 = first_position(cfg, prompt.shape[1])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for i in range(steps):
+            _, tok, caches = decode(params, caches, tok, pos0 + i)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / steps
+    launches = sum(e.count for e in dev) / steps
+    top = [(e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
+           for e in dev[:4]]
+    return busy, launches, top
+
+
+def _peak_from_here(on_card) -> int:
+    """Reset the card's peak-memory counter and return the bytes allocated
+    now (what earlier phases still hold), to subtract from the peak."""
+    import torch
+    if not on_card:
+        return 0
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _lm_family_cfg(arch, small):
+    """The arch at its published widths with depth cut to one block-program
+    period, MoE capacity raised to drop-free and, where one period's
+    parameters exceed LM_PARAM_LIMIT bytes in f32, bf16 parameters.
+    Returns (cfg, cuts printed)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import api as mapi
+    from repro_torch.models.lm import build_program
+    from repro_torch.models.module import param_count
+    full = get_config(arch)
+    cfg = reduced(full) if small else full
+    over, cuts = {}, []
+    if cfg.enc_dec:
+        over.update(n_layers=1, n_enc_layers=1)
+        cuts.append(f"layers {full.n_layers}+{full.n_enc_layers} -> 1+1")
+    else:
+        period = build_program(cfg).period
+        over["n_layers"] = period
+        cuts.append(f"layers {full.n_layers} -> {period} (one period)")
+    if cfg.moe is not None and \
+            cfg.moe.capacity_factor < cfg.moe.n_experts / cfg.moe.top_k:
+        # token dropping makes outputs depend on the batch grouping, which
+        # breaks decode == forward; E/k is the least drop-free factor
+        cf = cfg.moe.n_experts / cfg.moe.top_k
+        over["moe"] = dataclasses.replace(cfg.moe, capacity_factor=cf)
+        cuts.append(f"capacity_factor {cfg.moe.capacity_factor} -> {cf:g} "
+                    "(drop-free)")
+    # hybrid/ssm recurrences and MoE routing in f32 (bf16 rounding flips
+    # near-tied top-k choices and builds up over the recurrence), the
+    # others in the serving default bf16
+    f32 = cfg.family in ("hybrid", "ssm") or cfg.moe is not None
+    over["compute_dtype"] = torch.float32 if f32 else torch.bfloat16
+    cfg = dataclasses.replace(cfg, **over)
+    n = param_count(mapi.spec(cfg))
+    if 4 * n > LM_PARAM_LIMIT:
+        cfg = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
+        cuts.append(f"param_dtype bfloat16 ({4 * n / 1e9:.1f} GB in f32)")
+    return cfg, n, cuts
+
+
+def lm_phase(device, seed, small, card):
+    """The LM serving path (``repro_torch.serve.step``, the launcher's
+    ``run_lm``) on ``device``. (1) qwen3-1.7b at its full published config
+    (reduced on the CPU rehearsal), parameters drawn from ``seed``: decode
+    == forward within the bf16 tolerance, two ``generate`` calls give the
+    same tokens, and a timed run of the launcher's path (prefill ms,
+    decode ms/token, tokens/s, peak memory). (2) qwen3-1.7b at full width
+    with 2 layers and f32 compute, the same parameters on the card and on
+    the CPU: logits within LM_CARD_CPU_TOL and equal greedy tokens. (3)
+    every family at its published widths, one block-program period deep:
+    a batch-2 prompt-32 prefill and 4 decodes, each held to the forward
+    pass. Returns the lines to print."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import ARCH_IDS, get_config, reduced
+    from repro_torch.launch.serve import lm_inputs, run_lm
+    from repro_torch.models import api as mapi
+    from repro_torch.models.module import init_params, param_count, tree_map
+    from repro_torch.serve.step import generate
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    lines = []
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 left on"
+
+    def gen(d, offset=0):
+        return torch.Generator(d).manual_seed(seed + 21 + offset)
+
+    # (1) qwen3-1.7b, full depth
+    cfg = get_config(LM_ARCH)
+    b, s, n_new = LM_SERVE
+    if small:
+        cfg, (b, s, n_new) = reduced(cfg), (2, 16, 8)
+    base = _peak_from_here(on_card)
+    t0 = time.perf_counter()
+    params = init_params(mapi.spec(cfg), gen(dev), dev)
+    n_params = param_count(mapi.spec(cfg))
+    inputs = lm_inputs(cfg, b, s + 1, seed + 21, dev)
+    t_init = time.perf_counter() - t0
+    err = _decode_matches_forward(params, cfg, inputs, 1, LM_BF16_TOL)
+    prompt = inputs["tokens"][:, :s]
+    max_seq = s + n_new
+    first = generate(params, cfg, prompt, n_new, max_seq)
+    again = generate(params, cfg, prompt, n_new, max_seq)
+    assert torch.equal(first, again), "generate: tokens differ between runs"
+    run = run_lm(params, cfg, {"tokens": prompt}, n_new, max_seq)
+    assert torch.equal(run["tokens"], first), \
+        "the donating decode's tokens differ from generate's"
+    assert not torch.isnan(run["prefill_logits"]).any()
+    peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+    t_dec = run["decode_s"]
+    per_tok = t_dec / max(1, n_new - 1) * 1e3
+    profiled = ""
+    if on_card:
+        busy, kernels, top = _decode_profile(params, cfg, prompt, max_seq,
+                                             LM_PROFILE_STEPS)
+        profiled = (
+            f"; decode step by torch.profiler ({LM_PROFILE_STEPS} steps): "
+            f"device {busy:.3f} ms a step ({100 * busy / per_tok:.1f}% of "
+            f"the {per_tok:.3f} ms wall), {kernels:.0f} kernels a step; top: "
+            + ", ".join(f"{k[:48]} {ms:.3f} ms x{n:.0f}"
+                        for k, ms, n in top))
+    lines.append(
+        f"lm {cfg.arch_id}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size} ({n_params / 1e9:.3f} G params, "
+        f"{str(cfg.param_dtype)[6:]} stored, {str(cfg.compute_dtype)[6:]} "
+        f"compute), init {t_init:.2f} s; batch {b}, prompt {s}, {n_new} new "
+        f"tokens: prefill {run['prefill_s'] * 1e3:.2f} ms, decode "
+        f"{per_tok:.3f} ms/token, "
+        f"{b * (n_new - 1) / max(t_dec, 1e-9):.1f} tokens/s, peak "
+        f"{peak / 2**30:.2f} GiB allocated above the phase's start (earlier "
+        f"phases hold {base / 2**30:.2f} GiB); decode == forward rel err "
+        f"{err:.2e} (limit {LM_BF16_TOL:.0e}); two generate calls: same "
+        f"tokens {first[0, :8].tolist()}...{profiled} [{card}]")
+    del params, inputs, first, again, run
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (2) the card against the CPU at full width, f32 compute
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2,
+                              compute_dtype=torch.float32)
+    if small:
+        cfg = dataclasses.replace(reduced(cfg), n_layers=2)
+    cpu = torch.device("cpu")
+    host = init_params(mapi.spec(cfg), gen(cpu, 1), cpu)
+    params = tree_map(lambda t: t.to(dev), host)
+    inputs = lm_inputs(cfg, 1, 16, seed + 22, cpu)
+    with torch.inference_mode():
+        want, _ = mapi.forward(host, cfg, inputs)
+        got, _ = mapi.forward(params, cfg,
+                              tree_map(lambda t: t.to(dev), inputs))
+    err = _lm_rel(got, want)
+    assert err < LM_CARD_CPU_TOL, f"card vs CPU rel err {err:.3e}"
+    toks_cpu = generate(host, cfg, inputs["tokens"], 8, 24)
+    toks_dev = generate(params, cfg, inputs["tokens"].to(dev), 8, 24)
+    assert torch.equal(toks_cpu, toks_dev.cpu()), \
+        f"greedy tokens: card {toks_dev.tolist()} vs CPU {toks_cpu.tolist()}"
+    lines.append(
+        f"lm {cfg.arch_id} at d {cfg.d_model}, vocab {cfg.vocab_size}, "
+        f"{cfg.n_layers} layers, f32 compute, batch 1, prompt 16: {device} "
+        f"vs CPU logits rel err {err:.2e} (limit {LM_CARD_CPU_TOL:.0e}), "
+        f"8 greedy tokens equal {toks_cpu[0].tolist()} [{card}]")
+    del host, params, want, got
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (3) every family at its published widths, one period deep
+    for i, arch in enumerate(ARCH_IDS):
+        cfg, n, cuts = _lm_family_cfg(arch, small)
+        base = _peak_from_here(on_card)
+        t0 = time.perf_counter()
+        params = init_params(mapi.spec(cfg), gen(dev, 2 + i), dev)
+        bb, ss, steps = LM_FAMILY
+        inputs = lm_inputs(cfg, bb, ss + steps, seed + 23 + i, dev)
+        if "frames" in inputs:          # the encoder reads ss frames
+            inputs["frames"] = inputs["frames"][:, :ss]
+        tol = LM_BF16_TOL if cfg.compute_dtype == torch.bfloat16 \
+            else LM_F32_TOL
+        err = _decode_matches_forward(params, cfg, inputs, steps, tol)
+        if on_card:
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+        lines.append(
+            f"lm family {arch} [{cfg.family}]: d {cfg.d_model}, ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}, {n / 1e9:.3f} G params "
+            f"({str(cfg.param_dtype)[6:]}), {str(cfg.compute_dtype)[6:]} "
+            f"compute; cut: {'; '.join(cuts)}; batch {bb}, prompt {ss}, "
+            f"{steps} decodes == forward rel err {err:.2e} (limit "
+            f"{tol:.0e}); {wall:.2f} s with init, peak "
+            f"{peak / 2**30:.2f} GiB above the start [{card}]")
+        del params, inputs
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    return lines
+
+
 def demo_phase(device, card):
     """``repro_torch.obs.demo.run_demo`` with ``MESH_WORKERS`` workers, a
     ledger file in a temporary directory and ``--json``: all seven phases
@@ -1675,6 +1963,7 @@ def main(argv=None) -> int:
         print("\n".join(lines))
         print(cf_phase(args.device, args.seed, True, rehearsal))
         print(demo_phase(args.device, rehearsal))
+        print("\n".join(lm_phase(args.device, args.seed, True, rehearsal)))
         print(json.dumps({"ok": True, "device": {
             "platform": "cpu", "kind": "cpu", "count": 0}}))
         return 0
@@ -1724,6 +2013,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print(demo_phase(args.device, card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("\n".join(lm_phase(args.device, args.seed, False, card)),
+          flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Serving launcher: the relational query-serving tier.
+"""Serving launchers: the relational query-serving tier and the LM demo.
 
 Relational serving (the paper's premise — queries over big matrix data as
 a service): spin a ``ServeEngine`` over a synthetic catalog and serve a
@@ -13,12 +13,21 @@ with and without cross-query CSE:
 The same arguments and seed give the JAX package's catalog, stream and
 counters (``python -m repro.launch.serve --relational``).
 ``--measure-comm`` records each ledger row's collective bytes, as there
-(0: the launcher's session has one worker). The LM demo of that launcher
-(``--arch``) is not ported yet.
+(0: the launcher's session has one worker).
+
+LM serving: prefill a batch of prompts and decode N tokens through the
+cached steps (``repro_torch.serve.step``, decode caches updated in place)
+from parameters drawn from ``--seed``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --batch 4 --prompt-len 64 --new-tokens 32     # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
+        --smoke --device cpu --batch 2 --prompt-len 16 --new-tokens 8
 """
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 
@@ -117,14 +126,98 @@ def serve_relational(args) -> int:
     return 0
 
 
+def lm_inputs(cfg, batch: int, prompt_len: int, seed: int, device):
+    """The demo's prompt batch from numpy's ``default_rng(seed)``, as the
+    JAX package's launcher draws it (tokens, then frames or image
+    embeddings)."""
+    import torch
+    rng = np.random.default_rng(seed)
+    prompt = torch.as_tensor(rng.integers(1, cfg.vocab_size,
+                                          (batch, prompt_len)),
+                             dtype=torch.int32, device=device)
+    inputs = {"tokens": prompt}
+    if cfg.family == "audio":
+        inputs["frames"] = torch.as_tensor(
+            rng.normal(size=(batch, prompt_len, cfg.d_model)),
+            dtype=torch.float32, device=device)
+    if cfg.family == "vlm":
+        inputs["img_embeds"] = torch.as_tensor(
+            rng.normal(size=(batch, cfg.n_img_tokens, cfg.img_embed_dim)),
+            dtype=torch.float32, device=device)
+    return inputs
+
+
+def run_lm(params, cfg, inputs, n_new: int, max_seq: int) -> dict:
+    """Prefill ``inputs`` and greedily decode ``n_new`` tokens through the
+    cached steps (the donating decode); the clocks are read after a
+    synchronize on the card. Returns the tokens [B, n_new] and the
+    seconds of prefill and of the ``n_new - 1`` decode steps."""
+    import torch
+
+    from repro_torch.serve.step import (compiled_decode, compiled_prefill,
+                                        first_position)
+    dev = inputs["tokens"].device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    prefill = compiled_prefill(cfg, max_seq)
+    decode = compiled_decode(cfg, donate=True)
+    sync()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, inputs)
+    sync()
+    t_prefill = time.perf_counter() - t0
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    pos0 = first_position(cfg, inputs["tokens"].shape[1])
+    outs = [tok]
+    t0 = time.perf_counter()
+    for i in range(n_new - 1):
+        _, tok, caches = decode(params, caches, tok, pos0 + i)
+        outs.append(tok)
+    sync()
+    t_decode = time.perf_counter() - t0
+    return {"tokens": torch.cat(outs, dim=1), "prefill_s": t_prefill,
+            "decode_s": t_decode, "prefill_logits": logits}
+
+
+def serve_lm(args) -> int:
+    import torch
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.device import resolve_device
+    from repro_torch.models import api as mapi
+    from repro_torch.models.module import init_params
+
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduced(cfg)
+    b, s, n_new = args.batch, args.prompt_len, args.new_tokens
+    max_seq = s + n_new + (cfg.n_img_tokens if cfg.family == "vlm" else 0)
+    gen = torch.Generator(device).manual_seed(args.seed)
+    params = init_params(mapi.spec(cfg), gen, device)
+    inputs = lm_inputs(cfg, b, s, args.seed, device)
+    r = run_lm(params, cfg, inputs, n_new, max_seq)
+    t_decode = r["decode_s"]
+    print(f"[serve] arch={cfg.arch_id} batch={b} prompt={s} new={n_new} "
+          f"device={device}")
+    print(f"[serve] prefill {r['prefill_s']*1e3:.0f} ms; decode "
+          f"{t_decode/max(1, n_new-1)*1e3:.1f} ms/tok; "
+          f"throughput {(b*(n_new-1))/max(t_decode,1e-9):.1f} tok/s")
+    print(f"[serve] sample tokens: {r['tokens'][0, :16].cpu().numpy()}")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--relational", action="store_true",
                     help="serve the relational matrix-query workload")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
-                    help="where the catalog and every query run (default "
-                         "cuda; raises without a card)")
+                    help="where the catalog and every query, or the LM, "
+                         "run (default cuda; raises without a card)")
     ap.add_argument("--clients", type=int, default=1000)
     ap.add_argument("--tenants", type=int, default=8)
     ap.add_argument("--dim", type=int, default=48)
@@ -160,14 +253,17 @@ def main(argv=None) -> int:
                          "terminal state and completed+errors == "
                          "submitted (the chaos gate; pair with "
                          "REPRO_FAULTS=...)")
-    ap.add_argument("--arch", default=None,
-                    help="the LM serving demo (not ported: raises)")
+    # LM serving
+    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the arch's reduced same-family config")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--new-tokens", type=int, default=32)
     args = ap.parse_args(argv)
     if args.relational:
         return serve_relational(args)
-    raise NotImplementedError(
-        f"LM serving (--arch {args.arch or 'qwen3-1.7b'}) is not ported yet "
-        "(ROADMAP: the LM substrate); pass --relational")
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

@@ -1163,3 +1163,77 @@ def test_best_tiles_with_a_real_runner_caches_a_member_of_the_grid(
     finally:
         autotune.clear_cache()
         autotune.reset_stats()
+
+
+# ---------------------------------------------------------------------------
+# The LM substrate: card against CPU (f32 compute, rel 1e-4; the card's f32
+# matmuls never run as TF32) and the MoE combine's determinism.
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("granite-moe-1b-a400m", "mixtral-8x7b", "command-r-plus-104b",
+            "qwen2.5-14b", "stablelm-12b", "qwen3-1.7b", "phi-3-vision-4.2b",
+            "whisper-small", "jamba-v0.1-52b", "rwkv6-7b")
+
+
+def _lm_rel(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return float((got - want).abs().max() / (want.abs().max() + 1e-9))
+
+
+def _lm_setup(arch, compute, device):
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import api as tapi
+    from repro_torch.models.module import init_params, tree_map
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              compute_dtype=compute)
+    params = init_params(tapi.spec(cfg), torch.Generator().manual_seed(0),
+                         "cpu")
+    rng = np.random.default_rng(1)
+    batch = {"tokens": torch.as_tensor(
+        rng.integers(1, cfg.vocab_size, (2, 17)), dtype=torch.int32)}
+    if cfg.family == "audio":
+        batch["frames"] = torch.as_tensor(
+            rng.normal(size=(2, 16, cfg.d_model)), dtype=torch.float32)
+    if cfg.family == "vlm":
+        batch["img_embeds"] = torch.as_tensor(
+            rng.normal(size=(2, cfg.n_img_tokens, cfg.img_embed_dim)),
+            dtype=torch.float32)
+    on = {k: v.to(device) for k, v in batch.items()}
+    card = tree_map(lambda t: t.to(device), params)
+    return tapi, cfg, params, batch, card, on
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_on_the_card_matches_cpu_f32(cuda, arch):
+    assert not torch.backends.cuda.matmul.allow_tf32
+    tapi, cfg, params, batch, card, on = _lm_setup(arch, torch.float32, cuda)
+    want, _ = tapi.forward(params, cfg, batch)
+    got, _ = tapi.forward(card, cfg, on)
+    assert got.device == on["tokens"].device
+    assert _lm_rel(got, want) < 1e-4, arch
+    pre = {k: (v[:, :16] if k == "tokens" else v) for k, v in batch.items()}
+    pre_on = {k: v.to(cuda) for k, v in pre.items()}
+    pos = 16 + (cfg.n_img_tokens if cfg.family == "vlm" else 0)
+    lp, c = tapi.prefill(params, cfg, pre, 32)
+    lp_card, c_card = tapi.prefill(card, cfg, pre_on, 32)
+    assert _lm_rel(lp_card, lp) < 1e-4, arch
+    tok = batch["tokens"][:, 16:17]
+    ld, _ = tapi.decode_step(params, cfg, c, tok, pos)
+    ld_card, _ = tapi.decode_step(card, cfg, c_card, tok.to(cuda), pos)
+    assert _lm_rel(ld_card, ld) < 1e-4, arch
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mixtral-8x7b"])
+def test_moe_combine_is_deterministic_on_the_card(cuda, arch):
+    from repro_torch.serve.step import generate
+    tapi, cfg, params, batch, card, on = _lm_setup(arch, torch.bfloat16,
+                                                   cuda)
+    first, _ = tapi.forward(card, cfg, on)
+    again, _ = tapi.forward(card, cfg, on)
+    assert torch.equal(first, again)
+    prompt = on["tokens"][:, :16]
+    t1 = generate(card, cfg, prompt, 8, 32)
+    t2 = generate(card, cfg, prompt, 8, 32)
+    assert torch.equal(t1, t2)

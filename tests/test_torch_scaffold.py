@@ -40,7 +40,15 @@ def test_import_leaves_jax_out():
             "repro_torch.serve.workload, repro_torch.launch.serve, "
             "repro_torch.runtime.elastic, repro_torch.quickstart, "
             "repro_torch.kernels.autotune, repro_torch.obs.demo, "
-            "repro_torch.collaborative_filtering; "
+            "repro_torch.collaborative_filtering, repro_torch.configs, "
+            "repro_torch.configs.base, repro_torch.models.module, "
+            "repro_torch.models.layers, repro_torch.models.mlp, "
+            "repro_torch.models.attention, repro_torch.models.moe, "
+            "repro_torch.models.mamba, repro_torch.models.rwkv, "
+            "repro_torch.models.lm, repro_torch.models.encdec, "
+            "repro_torch.models.api, repro_torch.sharding.ctx, "
+            "repro_torch.serve.step; "
+            "from repro_torch.configs import all_configs; all_configs(); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -66,9 +74,16 @@ def test_package_has_the_reference_layout():
                  "runtime/straggler.py", "runtime/elastic.py",
                  "obs/metrics.py", "obs/ledger.py", "core/calibrate.py",
                  "serve/engine.py", "serve/workload.py", "launch/serve.py",
-                 "kernels/autotune.py", "obs/demo.py"):
+                 "kernels/autotune.py", "obs/demo.py", "configs/__init__.py",
+                 "configs/base.py", "models/module.py", "models/layers.py",
+                 "models/mlp.py", "models/attention.py", "models/moe.py",
+                 "models/mamba.py", "models/rwkv.py", "models/lm.py",
+                 "models/encdec.py", "models/api.py", "sharding/ctx.py",
+                 "serve/step.py"):
         assert (PORT / path).exists(), path
         assert (ROOT / "src" / "repro" / path).exists(), path
+    for ref in (ROOT / "src" / "repro" / "configs").glob("*.py"):
+        assert (PORT / "configs" / ref.name).exists(), ref.name
     assert repro_torch.resolve_device is resolve_device
 
 
@@ -81,10 +96,14 @@ def test_session_without_device_needs_a_card(monkeypatch):
     assert Session(device="cpu").device.type == "cpu"
 
 
-def test_unported_session_options_raise():
+def test_unported_session_options_raise(monkeypatch):
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="LM substrate"):
-        serve.main(["--arch", "qwen3-1.7b"])
+    # the LM path (--arch) is ported: without a card it raises rather than
+    # running on the CPU (tests/test_torch_serve_step.py runs it there)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--arch", "qwen3-1.7b"])
     # multi-worker sessions and --measure-comm are ported: a two-worker
     # mesh on the session's device, and a launcher run that records bytes
     s2 = Session(device="cpu", n_workers=2)
