@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main query path, the PNMF path, the
-serving tier, the autotuner, the examples and the LM serving path on one
-NVIDIA card.
+serving tier, the autotuner, the examples, the LM serving path and LM
+training on one NVIDIA card.
 
     python3 chip_smoke.py                      # on the card: full size
     python3 chip_smoke.py --device cpu --small # CPU rehearsal, plain versions
@@ -91,7 +91,7 @@ ALS step to float64 within ``CF_RTOL`` of Σ|terms| (a TF32 control must
 miss it), and the observability demo (``obs.demo.run_demo``, 4 workers)
 must show all seven phases and a ledger row a query.
 
-The LM phase comes last (``repro_torch.models``, ``serve.step`` and the
+The LM phase (``repro_torch.models``, ``serve.step`` and the
 launcher's ``run_lm``; no kernel of the port lies on that path).
 qwen3-1.7b at its full published config (28 layers, d 2048, vocab
 151,936, 1.72 G parameters drawn from ``--seed``) serves batch 4,
@@ -109,10 +109,39 @@ block-program period deep (jamba 8 layers, whisper 1+1), batch 2, prompt
 capacity raised to drop-free, bf16 parameter storage where one period's
 f32 parameters pass 40 GB).
 
+The training phase comes last (``repro_torch.train``, ``optim``,
+``checkpoint``, ``data.pipeline`` and the training launcher's
+``device_batch``; no kernel of the port lies on that path either). The
+synthetic corpus (vocab 151,936, 256 documents of 512 tokens) is cleaned
+and split through ``Session(device="cuda")`` and held exactly to numpy's
+cleaning and fold split. qwen3-1.7b at its full config (f32 parameters
+and moments, bf16 compute, remat full) takes 10 AdamW steps on one packed
+batch (batch 4, seq 256): every loss and grad norm finite, the last loss
+below the first; the median step ms over steps 3-10, tokens/s, the peak
+above what earlier phases hold, and one step under torch.profiler
+(device ms, kernel launches, the top kernels and aten ops). Then, in
+turns, loss_chunk 0 against 512 and the blocks taken by ``torch.unbind``
+against ``x[i]`` (the port's earlier way), 3 steps each: median ms and
+the peak above the resident state. Then ``launch.train.main`` as a user
+runs it at that config (20 steps, a checkpoint at the last): its
+``[done]`` line, a ``[step]`` line a step and the checkpoint on disk;
+it raises itself unless the loss fell. At full width with 2 layers and f32
+compute, one step on the card against the CPU (loss rel 1e-5, grad norm
+rel 1e-4, parameters atol 5e-3), remat none/full/dots gradients within
+rel 1e-6, grad_accum 4 against 1 within ``tests/test_train_substrate.py``'s
+tolerances, a compressed step, and a checkpoint written after step 1 and
+restored (crc32 checked) into a fresh state whose next step equals the
+live one within rel 1e-6. Then each family at its published widths one
+period deep takes one finite step that moves every leaf, bar a bf16
+leaf whose first update, rebuilt from its moments, is under half an ulp
+(printed); bf16 parameter storage where the f32 train state passes 60
+GB, the reduced config where the bf16 one does too: jamba.
+
 Output: the card's name and power limit (``nvidia-smi``), the build time,
 after a fresh build the ptxas registers and spills of every instance of
 the three kernels with a launch parameter, one line per query and
-kernel, the serving, autotune, CF, demo and LM lines (each with the card's name and power limit), a ``{"kernels":
+kernel, the serving, autotune, CF, demo, LM and training lines (each with
+the card's name and power limit), a ``{"kernels":
 [...]}`` JSON line (with each tuned kernel's default and best tiles),
 and as the last line ``{"ok": true, "device": {"platform": "gpu",
 ...}}``. Any failure raises and exits non-zero without that line.
@@ -190,6 +219,21 @@ LM_PARAM_LIMIT = 40e9          # bytes of f32 parameters before bf16 storage
 LM_BF16_TOL = 2e-2             # tests/test_decode_equiv.py:53
 LM_F32_TOL = 5e-5              # tests/test_decode_equiv.py:53
 LM_CARD_CPU_TOL = 1e-4         # the port's f32 parity tolerance
+# The training phase: the corpus (vocab, seq, batch, docs, doc length) and
+# qwen3-1.7b's full config for TRAIN_STEPS steps on one packed batch; the
+# A/B's of loss_chunk and of the blocks' unbind take TRAIN_AB_STEPS each
+TRAIN_DATA = (151_936, 256, 4, 256, 512)
+TRAIN_STEPS = 10
+TRAIN_AB_STEPS = 3
+TRAIN_CHUNK = 512
+TRAIN_LAUNCH_STEPS = 20        # launch.train's own loop, one checkpoint
+TRAIN_CARD_CPU = (4, 16)       # batch, seq of the 2-layer f32 checks
+TRAIN_FAMILY = (2, 32)         # batch, seq of each family's step
+TRAIN_STATE_LIMIT = 60e9       # bytes of params + grads + m + v on the card
+TRAIN_LOSS_RTOL = 1e-5         # card vs CPU, f32, TF32 off
+TRAIN_GNORM_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 5e-3        # tests/test_train_substrate.py:65 (lr 1e-3)
+TRAIN_REMAT_RTOL = 1e-6        # recompute changes memory, never values
 MESH_GATED = {"Q3": "merge_join", "Q7": "masked_matmul", "Q8": "sddmm_agg",
               "Q9": "sddmm_agg", "Q10": "sddmm_agg"}
 
@@ -1841,6 +1885,497 @@ def lm_phase(device, seed, small, card):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# The training phase: the port's LM training path.
+# ---------------------------------------------------------------------------
+
+def _sync(on_card):
+    import torch
+    if on_card:
+        torch.cuda.synchronize()
+
+
+def _timed_steps(step, state, batch, n, on_card):
+    """``n`` train steps on ``batch``; returns (state, metrics as floats a
+    step, wall ms a step). Each step's clock stops after its loss reaches
+    the host (which waits for the card)."""
+    metrics, ms = [], []
+    for _ in range(n):
+        _sync(on_card)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        m = {k: float(v) for k, v in m.items()}
+        _sync(on_card)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        metrics.append(m)
+    return state, metrics, ms
+
+
+def _step_profile(step, state, batch):
+    """One train step under torch.profiler: device ms, kernel launches, the
+    four kernels and the six aten ops (by the device time of the kernels
+    each launched) with the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.key.startswith("aten::") and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in kernels)
+
+    def top(evs, n):
+        evs = sorted(evs, key=lambda e: -e.self_device_time_total)[:n]
+        return [(e.key, e.self_device_time_total / 1e3, e.count) for e in evs]
+
+    return state, busy, launches, top(kernels, 4), top(ops, 6)
+
+
+def _ab_steps(step, state, batch, on_card):
+    """TRAIN_AB_STEPS steps: (state, median ms, peak bytes above what was
+    allocated before them, i.e. above the resident train state)."""
+    import torch
+    base = _peak_from_here(on_card)
+    state, _, ms = _timed_steps(step, state, batch, TRAIN_AB_STEPS, on_card)
+    peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+    return state, float(np.median(ms)), peak
+
+
+def _indexed_blocks(tree, n):
+    """The blocks taken as each leaf's ``x[i]``, as the port did before
+    ``tree_unbind``: the backward of each select adds into a zero tensor
+    of the whole stacked leaf."""
+    from repro_torch.models.module import tree_map
+    return [tree_map(lambda x: x[i], tree) for i in range(n)]
+
+
+def _launcher_run(device, seed, small, card):
+    """``repro_torch.launch.train.main`` as a user runs it: qwen3-1.7b at
+    its full config, TRAIN_LAUNCH_STEPS steps (batch 4, seq 256, the
+    launcher's AdamW with its 100-step warmup), one checkpoint of params
+    and moments at the last step (``--device`` left at its default on the
+    card). Holds its ``[done]`` line, a ``[step]`` line a step and the
+    checkpoint on disk (listed, its manifest whole); the launcher itself
+    raises if the loss did not fall. Returns the line to print."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.launch import train as train_launch
+    steps = TRAIN_LAUNCH_STEPS
+    _, seq, b, _, _ = TRAIN_DATA
+    argv = ["--arch", LM_ARCH, "--batch", str(b), "--seq",
+            str(64 if small else seq), "--steps", str(steps), "--ckpt-every",
+            str(steps), "--log-every", "1", "--seed", str(seed)]
+    if small:
+        argv += ["--smoke", "--device", device]
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory(prefix="repro-launch-") as tmp:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = train_launch.main(argv + ["--ckpt-dir", tmp])
+        wall = time.perf_counter() - t0
+        kept = Checkpointer(tmp).available()
+        ck_dir = Path(tmp) / f"step_{steps:08d}"
+        manifest = json.loads((ck_dir / "manifest.json").read_text())
+        files = list(ck_dir.iterdir())
+        ck_bytes = sum(f.stat().st_size for f in files)
+    npy = [f for f in files if f.suffix == ".npy"]
+    assert len(npy) == len(manifest["leaves"]), \
+        f"launcher: {len(npy)} leaf files for {len(manifest['leaves'])}"
+    text = out.getvalue().splitlines()
+    done = [ln for ln in text if ln.startswith("[done]")]
+    step_lines = [ln for ln in text if ln.startswith("[step")]
+    assert rc == 0 and len(done) == 1, "\n".join(text)
+    assert len(step_lines) == steps, \
+        f"launcher: {len(step_lines)} [step] lines"
+    assert kept == [steps], f"launcher: checkpoints kept {kept}"
+    dts = [float(re.search(r"dt=(\d+)ms", ln).group(1)) for ln in step_lines]
+    losses = [float(re.search(r"loss=(\S+)", ln).group(1))
+              for ln in step_lines]
+    assert all(math.isfinite(x) for x in losses), losses
+    head = [ln for ln in text if ln.startswith(("[train]", "[data]"))]
+    ft = [ln for ln in text if ln.startswith("[ft]")]
+    return (f"train launcher: python -m repro_torch.launch.train "
+            f"{' '.join(argv)} --ckpt-dir <tmp>: {' | '.join(head)} | "
+            f"loss {' '.join(f'{x:.4f}' for x in losses)} | step dt ms "
+            f"{' '.join(f'{x:.0f}' for x in dts)} (median of steps 3-{steps} "
+            f"{float(np.median(dts[2:])):.0f} ms) | {done[0]} | checkpoint "
+            f"step_{steps:08d}: {len(manifest['leaves'])} leaves, "
+            f"{ck_bytes / 1e9:.2f} GB on disk; fault lines "
+            f"{ft or 'none'}; {wall:.1f} s in all [{card}]")
+
+
+def _tree_rel(got, want) -> float:
+    """Largest error over the leaves, each relative to its largest |x|."""
+    from repro_torch.models.module import tree_items
+    worst = 0.0
+    for (_, a), (_, b) in zip(tree_items(got), tree_items(want)):
+        a, b = a.double().cpu(), b.double().cpu()
+        worst = max(worst, float((a - b).abs().max()
+                                 / (b.abs().max() + 1e-30)))
+    return worst
+
+
+def _tree_max_abs(got, want) -> float:
+    from repro_torch.models.module import tree_items
+    return max(float((a.double().cpu() - b.double().cpu()).abs().max())
+               for (_, a), (_, b) in zip(tree_items(got), tree_items(want)))
+
+
+def _corpus_check(device, seed, small):
+    """``SyntheticCorpus`` preprocessed through the port's Session on
+    ``device``, held exactly to numpy's cleaning and fold split. Returns
+    (the DataConfig, the train matrix, the line to print)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.kernels import build
+    vocab, seq, b, n_docs, doc_len = TRAIN_DATA
+    if small:
+        vocab, seq = 512, 32
+    dc = DataConfig(vocab_size=vocab, seq_len=seq, global_batch=b,
+                    n_docs=n_docs, doc_len=doc_len, seed=seed)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    corpus = SyntheticCorpus(dc, device)
+    train, hold = corpus.preprocess(), corpus.holdout()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in build.LAUNCHES.items() if v}
+    m = corpus.matrix
+    cleaned = m[(m != 0).any(axis=1)]
+    fold = cleaned.shape[0] // dc.n_folds
+    lo = dc.holdout_fold * fold
+    want_train = np.concatenate([cleaned[:lo], cleaned[lo + fold:]])
+    assert train.dtype == np.float32 and np.array_equal(train, want_train), \
+        "corpus: the train matrix differs from numpy's"
+    assert np.array_equal(hold, cleaned[lo:lo + fold]), \
+        "corpus: the holdout fold differs from numpy's"
+    line = (f"train data: corpus {m.shape} (vocab {vocab}, seed {seed}), "
+            f"{m.shape[0] - cleaned.shape[0]} empty docs; sigma rows!=NULL + "
+            f"RID-range folds through Session(device={device}) in "
+            f"{wall:.2f} s: train {train.shape}, holdout {hold.shape}, equal "
+            f"to numpy's cleaning and split; kernel launches "
+            f"{launches or 'none'}")
+    return dc, train, line
+
+
+def _train_family_cfg(arch, small):
+    """The arch at its published widths, one block-program period deep
+    (whisper 1+1 layers), with the LM phase's compute dtype; bf16 parameter
+    storage where the f32 train state (params, grads, m, v: 16 bytes a
+    parameter) passes TRAIN_STATE_LIMIT, the reduced config where the bf16
+    one (8 bytes) does too. Returns (cfg, params, cuts printed)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import api as mapi
+    from repro_torch.models.lm import build_program
+    from repro_torch.models.module import param_count
+    full = get_config(arch)
+    cfg = reduced(full) if small else full
+    if cfg.enc_dec:
+        over = dict(n_layers=1, n_enc_layers=1)
+        cuts = [f"layers {full.n_layers}+{full.n_enc_layers} -> 1+1"]
+    else:
+        over = dict(n_layers=build_program(cfg).period)
+        cuts = [f"layers {full.n_layers} -> {over['n_layers']} (one period)"]
+    f32 = cfg.family in ("hybrid", "ssm") or cfg.moe is not None
+    over["compute_dtype"] = torch.float32 if f32 else torch.bfloat16
+    cfg = dataclasses.replace(cfg, **over)
+    n = param_count(mapi.spec(cfg))
+    if 8 * n > TRAIN_STATE_LIMIT:
+        cuts.append(f"reduced config: one period holds {n / 1e9:.1f} G "
+                    f"params, {8 * n / 1e9:.1f} GB of train state in bf16 "
+                    f"({16 * n / 1e9:.1f} GB in f32)")
+        cfg = dataclasses.replace(reduced(full), **over)
+        cfg = dataclasses.replace(cfg, n_layers=build_program(cfg).period)
+        n = param_count(mapi.spec(cfg))
+    elif 16 * n > TRAIN_STATE_LIMIT:
+        cfg = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
+        cuts.append(f"param_dtype bfloat16 ({16 * n / 1e9:.1f} GB of train "
+                    f"state in f32, {8 * n / 1e9:.1f} in bf16)")
+    return cfg, n, cuts
+
+
+def _below_half_ulp(p, m, v, ndim, opt) -> bool:
+    """Whether AdamW's first update, rebuilt in f32 from the moments it
+    left (``m``, ``v``, sampled as the leaf ``p`` of ``ndim`` dims is), is
+    under half an ulp of every value of ``p``: ``p`` ± 1.01 × the update
+    (a margin for its rounding) rounds back to ``p``. Never for f32."""
+    import torch
+    if p.dtype == torch.float32:
+        return False
+    x = p.float()
+    step = (m.float() / (1 - opt.b1)) / (torch.sqrt(v.float() / (1 - opt.b2))
+                                        + opt.eps)
+    if ndim >= 2:
+        step = step + opt.weight_decay * x
+    bound = 1.01 * float(opt._lr_at(torch.ones(()))) * step.abs()
+    return bool(torch.equal((x - bound).to(p.dtype), p)
+                and torch.equal((x + bound).to(p.dtype), p))
+
+
+def _sampled(tree):
+    """A strided sample (≤ 65536 values) of every leaf, to see it move."""
+    from repro_torch.models.module import tree_map
+    return tree_map(lambda t: t.reshape(-1)[::max(1, t.numel() // 65536)]
+                    .clone(), tree)
+
+
+def train_phase(device, seed, small, card):
+    """The LM training path (``repro_torch.train``, ``optim``,
+    ``checkpoint``, ``data`` and the launcher's ``device_batch``) on
+    ``device``. (1) The corpus through the port's Session, held to numpy.
+    (2) qwen3-1.7b at its full config for TRAIN_STEPS steps on one packed
+    batch: finite, falling loss; step ms, tokens/s, peak, one step under
+    torch.profiler; loss_chunk and the blocks' unbind against their
+    alternatives in turns; then ``launch.train.main`` at that config, with
+    a checkpoint (``_launcher_run``). (3) Full width, 2 layers, f32: one
+    step on the card against the CPU; remat none/full/dots; grad_accum 4
+    against 1; the compressed step; a checkpoint restored into a fresh
+    state. (4) Every family at its published widths one period deep: one
+    finite step that moves every leaf (bar bf16 leaves proven pinned).
+    Returns the lines to print."""
+    import dataclasses
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.configs import ARCH_IDS, get_config, reduced
+    from repro_torch.data.pipeline import pack_batches
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import api as mapi
+    from repro_torch.models import lm as lm_mod
+    from repro_torch.models.module import (init_params, param_count,
+                                           tree_items, tree_map)
+    from repro_torch.optim.adamw import AdamW, AdamWState
+    from repro_torch.train.step import (TrainState, init_state,
+                                        make_grad_fn, make_train_step)
+    on_card = device == "cuda"
+    dev, cpu = torch.device(device), torch.device("cpu")
+    lines = []
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 left on"
+    t_phase = time.perf_counter()
+
+    def gen(d, offset):
+        return torch.Generator(d).manual_seed(seed + 30 + offset)
+
+    # (1) the corpus
+    dc, train_matrix, line = _corpus_check(device, seed, small)
+    lines.append(f"{line} [{card}]")
+    host = next(iter(pack_batches(train_matrix, dc)))
+
+    # (2) qwen3-1.7b at its full config
+    cfg = get_config(LM_ARCH)
+    if small:
+        cfg = dataclasses.replace(reduced(cfg), remat=cfg.remat)
+    batch = device_batch(cfg, host, 1, dev)
+    b, s = batch["tokens"].shape
+    base = _peak_from_here(on_card)
+    params = init_params(mapi.spec(cfg), gen(dev, 0), dev)
+    opt = AdamW(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    state = init_state(params, opt)
+    step = make_train_step(cfg, opt)
+    state, mets, ms = _timed_steps(step, state, batch, TRAIN_STEPS, on_card)
+    peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+    losses = [m["loss"] for m in mets]
+    gnorms = [m["grad_norm"] for m in mets]
+    assert all(math.isfinite(x) for x in losses + gnorms), (losses, gnorms)
+    assert losses[-1] < losses[0], f"train: loss did not fall {losses}"
+    med = float(np.median(ms[2:]))
+    profiled = ""
+    if on_card:
+        state, busy, kernels, top, ops = _step_profile(step, state, batch)
+        profiled = (
+            f"; one step by torch.profiler: device {busy:.2f} ms "
+            f"({100 * busy / med:.1f}% of the median wall), {kernels} kernel "
+            "launches; top kernels: " + ", ".join(
+                f"{k[:72]} {t:.2f} ms x{n}" for k, t, n in top)
+            + "; top ops by their kernels' device time: " + ", ".join(
+                f"{k} {t:.2f} ms x{n}" for k, t, n in ops))
+    lines.append(
+        f"train {cfg.arch_id}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+        f"{cfg.vocab_size} ({param_count(mapi.spec(cfg)) / 1e9:.3f} G params "
+        f"{str(cfg.param_dtype)[6:]}, moments {str(cfg.param_dtype)[6:]}, "
+        f"{str(cfg.compute_dtype)[6:]} compute, remat {cfg.remat}); batch "
+        f"{b}, seq {s}, AdamW lr 3e-4 warmup 2, {TRAIN_STEPS} steps: loss "
+        f"{' '.join(f'{x:.4f}' for x in losses)}; grad norm "
+        f"{' '.join(f'{x:.3f}' for x in gnorms)}; step ms "
+        f"{' '.join(f'{x:.1f}' for x in ms)}; median of steps 3-"
+        f"{TRAIN_STEPS} {med:.2f} ms, {b * s / med * 1e3:.0f} tokens/s; peak "
+        f"{peak / 2**30:.2f} GiB above the phase's start (earlier phases hold "
+        f"{base / 2**30:.2f} GiB){profiled} [{card}]")
+    # the chunked loss, and the blocks' unbind against x[i], in turns
+    chunked = make_train_step(dataclasses.replace(cfg, loss_chunk=TRAIN_CHUNK),
+                              opt)
+    runs = []
+    for name, fn in (("loss_chunk 0", step), (f"loss_chunk {TRAIN_CHUNK}",
+                                              chunked),
+                     (f"loss_chunk {TRAIN_CHUNK}", chunked),
+                     ("loss_chunk 0", step)):
+        state, t, p = _ab_steps(fn, state, batch, on_card)
+        runs.append(f"{name} {t:.2f} ms, peak +{p / 2**30:.2f} GiB")
+    unbind = lm_mod.tree_unbind
+    for name in ("unbind", "x[i]", "x[i]", "unbind"):
+        lm_mod.tree_unbind = _indexed_blocks if name == "x[i]" else unbind
+        try:
+            state, t, p = _ab_steps(step, state, batch, on_card)
+        finally:
+            lm_mod.tree_unbind = unbind
+        runs.append(f"blocks by {name} {t:.2f} ms, peak +{p / 2**30:.2f} GiB")
+    lines.append(
+        f"train {cfg.arch_id} A/B ({TRAIN_AB_STEPS} steps each, median ms, "
+        "peak above the resident params and moments; in turns): "
+        + "; ".join(runs) + f" [{card}]")
+    del params, state, step, chunked, batch
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    lines.append(_launcher_run(device, seed, small, card))
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (3) full width, 2 layers, f32 compute: the card against the CPU
+    cfg = dataclasses.replace(get_config(LM_ARCH), n_layers=2,
+                              compute_dtype=torch.float32)
+    if small:
+        cfg = dataclasses.replace(reduced(cfg), n_layers=2,
+                                  compute_dtype=torch.float32, remat="full")
+    bb, ss = TRAIN_CARD_CPU
+    small_host = {k: v[:bb, :ss] for k, v in host.items()}
+    host_p = init_params(mapi.spec(cfg), gen(cpu, 1), cpu)
+    card0 = tree_map(lambda t: t.to(dev, copy=True), host_p)
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, opt)
+    on_dev = device_batch(cfg, small_host, 1, dev)
+    on_cpu = device_batch(cfg, small_host, 1, cpu)
+    copy = lambda: tree_map(torch.clone, card0)  # noqa: E731
+    cpu_state, m_cpu = step(init_state(host_p, opt), on_cpu)
+    card_state, m_card = step(init_state(copy(), opt), on_dev)
+    e_loss = abs(float(m_card["loss"]) / float(m_cpu["loss"]) - 1)
+    e_norm = abs(float(m_card["grad_norm"]) / float(m_cpu["grad_norm"]) - 1)
+    e_par = _tree_max_abs(card_state.params, cpu_state.params)
+    assert e_loss < TRAIN_LOSS_RTOL, f"train card vs CPU loss {e_loss:.2e}"
+    assert e_norm < TRAIN_GNORM_RTOL, f"train card vs CPU gnorm {e_norm:.2e}"
+    assert e_par < TRAIN_PARAM_ATOL, f"train card vs CPU params {e_par:.2e}"
+    del cpu_state, host_p
+    grads = {}
+    for policy in ("none", "full", "dots"):
+        grads[policy], _, _ = make_grad_fn(
+            dataclasses.replace(cfg, remat=policy))(card0, on_dev)
+    e_remat = max(_tree_rel(grads[p], grads["none"]) for p in ("full", "dots"))
+    assert e_remat <= TRAIN_REMAT_RTOL, f"train remat rel err {e_remat:.2e}"
+    del grads
+    one, m1 = step(init_state(copy(), opt), on_dev)
+    four, m4 = make_train_step(cfg, opt, grad_accum=4)(
+        init_state(copy(), opt), on_dev)
+    e_acc_loss = abs(m4["loss"].item() / m1["loss"].item() - 1)
+    e_acc_par = _tree_max_abs(four.params, one.params)
+    assert e_acc_loss < 2e-2 and e_acc_par < 5e-3, \
+        f"grad_accum 4 vs 1: loss {e_acc_loss:.2e}, params {e_acc_par:.2e}"
+    del four
+    comp_state, mc = make_train_step(cfg, opt, compress=True)(
+        init_state(copy(), opt, compress=True), on_dev)
+    assert all(math.isfinite(float(v)) for v in mc.values()), mc
+    del comp_state
+    # a checkpoint after step 1, restored into a fresh state
+    with tempfile.TemporaryDirectory(prefix="repro-train-") as tmp:
+        ck = Checkpointer(tmp)
+        t0 = time.perf_counter()
+        ck.save(1, {"params": one.params, "opt": one.opt._asdict()},
+                blocking=True)
+        t_save = time.perf_counter() - t0
+        fresh = init_params(mapi.spec(cfg), gen(dev, 2), dev)
+        like = {"params": fresh, "opt": init_state(fresh, opt).opt._asdict()}
+        t0 = time.perf_counter()
+        tree, _ = ck.restore(like, device=dev, verify=True)
+        t_restore = time.perf_counter() - t0
+        ck_bytes = sum(t.numel() * t.element_size()
+                       for _, t in tree_items(tree))
+    del fresh, like
+    restored = TrainState(tree["params"], AdamWState(**tree["opt"]), None,
+                          tree["opt"]["count"])
+    one, m_live = step(one, on_dev)
+    restored, m_rest = step(restored, on_dev)
+    e_ck = max(abs(float(m_rest["loss"]) / float(m_live["loss"]) - 1),
+               _tree_rel(restored.params, one.params))
+    assert e_ck <= TRAIN_REMAT_RTOL, f"restored step rel err {e_ck:.2e}"
+    lines.append(
+        f"train {cfg.arch_id} at d {cfg.d_model}, vocab {cfg.vocab_size}, "
+        f"{cfg.n_layers} layers, f32 compute, batch {bb}, seq {ss}: {device} "
+        f"vs CPU one step: loss rel err {e_loss:.2e} (limit "
+        f"{TRAIN_LOSS_RTOL:.0e}), grad norm {e_norm:.2e} (limit "
+        f"{TRAIN_GNORM_RTOL:.0e}), params max abs {e_par:.2e} (limit "
+        f"{TRAIN_PARAM_ATOL:.0e}); remat none/full/dots gradients rel err "
+        f"{e_remat:.2e} (limit {TRAIN_REMAT_RTOL:.0e}); grad_accum 4 vs 1: "
+        f"loss {e_acc_loss:.2e} (limit 2e-02), params {e_acc_par:.2e} (limit "
+        f"5e-03); compressed step loss {float(mc['loss']):.4f}, grad norm "
+        f"{float(mc['grad_norm']):.3f}; checkpoint {ck_bytes / 1e9:.2f} GB "
+        f"saved in {t_save:.2f} s, restored with crc32 checks in "
+        f"{t_restore:.2f} s, next step vs the live state rel err {e_ck:.2e} "
+        f"(limit {TRAIN_REMAT_RTOL:.0e}) [{card}]")
+    del card0, card_state, one, restored, tree
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (4) every family at its published widths, one period deep
+    bb, ss = TRAIN_FAMILY
+    rng = np.random.default_rng(seed + 31)
+    for i, arch in enumerate(ARCH_IDS):
+        cfg, n, cuts = _train_family_cfg(arch, small)
+        base = _peak_from_here(on_card)
+        t0 = time.perf_counter()
+        params = init_params(mapi.spec(cfg), gen(dev, 3 + i), dev)
+        toks = rng.integers(1, cfg.vocab_size, (bb, ss + 1))
+        fam = device_batch(cfg, {"tokens": toks[:, :-1].astype(np.int32),
+                                 "labels": toks[:, 1:].astype(np.int32)},
+                           1, dev)
+        before = _sampled(params)
+        ndims = [t.ndim for _, t in tree_items(params)]
+        opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10)
+        state, m = make_train_step(cfg, opt)(init_state(params, opt), fam)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        _sync(on_card)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+        after = _sampled(state.params)
+        pairs = list(zip(tree_items(after), tree_items(before), ndims,
+                         tree_items(_sampled(state.opt.m)),
+                         tree_items(_sampled(state.opt.v))))
+        stuck = [(k, b, nd, mm, vv) for (k, a), (_, b), nd, (_, mm), (_, vv)
+                 in pairs if torch.equal(a, b)]
+        pinned = ["/".join(k) for k, b, nd, mm, vv in stuck
+                  if _below_half_ulp(b, mm, vv, nd, opt)]
+        moved = len(pairs) - len(stuck)
+        assert math.isfinite(loss) and math.isfinite(gnorm), (arch, m)
+        assert len(pinned) == len(stuck), f"{arch}: leaves that did not " \
+            f"move {['/'.join(k[0]) for k in stuck]}, pinned {pinned}"
+        lines.append(
+            f"train family {arch} [{cfg.family}]: d {cfg.d_model}, ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}, {n / 1e9:.3f} G params "
+            f"({str(cfg.param_dtype)[6:]}), {str(cfg.compute_dtype)[6:]} "
+            f"compute, remat {cfg.remat}; cut: {'; '.join(cuts)}; batch {bb}, "
+            f"seq {ss}: loss {loss:.4f}, grad norm {gnorm:.3f}, "
+            f"{moved}/{len(pairs)} leaves moved (the rest's first update "
+            f"under half an ulp: {', '.join(pinned) or 'none'}); "
+            f"{wall:.2f} s with init, "
+            f"peak {peak / 2**30:.2f} GiB above the start [{card}]")
+        del params, state, before, after, pairs, fam
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    lines.append(f"train phase: {time.perf_counter() - t_phase:.1f} s "
+                 f"[{card}]")
+    return lines
+
+
 def demo_phase(device, card):
     """``repro_torch.obs.demo.run_demo`` with ``MESH_WORKERS`` workers, a
     ledger file in a temporary directory and ``--json``: all seven phases
@@ -1964,6 +2499,8 @@ def main(argv=None) -> int:
         print(cf_phase(args.device, args.seed, True, rehearsal))
         print(demo_phase(args.device, rehearsal))
         print("\n".join(lm_phase(args.device, args.seed, True, rehearsal)))
+        print("\n".join(train_phase(args.device, args.seed, True,
+                                    rehearsal)))
         print(json.dumps({"ok": True, "device": {
             "platform": "cpu", "kind": "cpu", "count": 0}}))
         return 0
@@ -2001,8 +2538,9 @@ def main(argv=None) -> int:
         if row["name"] in tiles:
             row["tiles"] = tiles[row["name"]]
     # the main path's catalog (nine 1 GiB matrices) and the captured
-    # kernel arguments go before the serving catalog is made
-    del queries, records, mats, s, calls, pnmf_call
+    # kernel arguments go before the serving catalog is made; ``rec``, the
+    # loop's last record, holds a Matrix and through it the Session
+    del queries, records, rec, mats, s, calls, pnmf_call
     gc.collect()
     torch.cuda.empty_cache()
     lines, _ = serving_workload_phase(args.device, args.seed, SERVE_N, card)
@@ -2016,6 +2554,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print("\n".join(lm_phase(args.device, args.seed, False, card)),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("\n".join(train_phase(args.device, args.seed, False, card)),
           flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

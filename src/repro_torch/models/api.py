@@ -27,7 +27,7 @@ from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import lm as lm_mod
 from repro_torch.models.layers import apply_norm
 from repro_torch.models.module import (
-    ParamSpec, init_params, tree_index, tree_items, tree_map,
+    ParamSpec, init_params, tree_items, tree_map, tree_unbind,
 )
 
 
@@ -67,8 +67,7 @@ def _encdec_self_cache(params, cfg, tokens, memory, max_seq):
     """The decoder's self-attention caches, layer by layer."""
     x = encdec_mod.embed_tokens(params, cfg, tokens)
     caches = []
-    for i in range(cfg.n_layers):
-        pp = tree_index(params["dec"]["layers"], i)
+    for pp in tree_unbind(params["dec"]["layers"], cfg.n_layers):
         h = apply_norm(pp["ln1"], x, cfg.norm)
         caches.append(attn.prefill_kv(pp["self_attn"], cfg, h, max_seq))
         x = encdec_mod.decoder_layer(pp, cfg, x, memory)

@@ -20,7 +20,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.lm import _stacked_norm
 from repro_torch.models.mlp import apply_mlp, mlp_spec
-from repro_torch.models.module import tree_index
+from repro_torch.models.module import remat, tree_unbind
 
 
 def encdec_spec(cfg: ModelConfig) -> Dict:
@@ -59,19 +59,28 @@ def embed_tokens(params, cfg: ModelConfig, tokens: torch.Tensor
                                     tokens.device).to(dt)
 
 
+def _policy(cfg: ModelConfig) -> str:
+    # as in the JAX package, any policy other than "none" recomputes the
+    # whole layer here ("dots" included)
+    return "none" if cfg.remat == "none" else "full"
+
+
 def encode(params, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
     """frames [B, S, d_model] (stubbed conv output) → memory [B, S, d]."""
     dt = cfg.compute_dtype
     s = frames.shape[1]
     x = frames.to(dt) + sinusoidal_positions(s, cfg.d_model,
                                              frames.device).to(dt)
-    layers = params["enc"]["layers"]
-    for i in range(cfg.n_enc_layers):
-        pp = tree_index(layers, i)
+
+    def block(x, pp):
         h = apply_norm(pp["ln1"], x, cfg.norm)
         x = x + attn.attention(pp["attn"], cfg, h, causal=False)
         h = apply_norm(pp["ln2"], x, cfg.norm)
-        x = x + apply_mlp(pp["mlp"], cfg, h)
+        return x + apply_mlp(pp["mlp"], cfg, h)
+
+    block = remat(block, _policy(cfg))
+    for pp in tree_unbind(params["enc"]["layers"], cfg.n_enc_layers):
+        x = block(x, pp)
     return apply_norm(params["enc"]["final_norm"], x, cfg.norm)
 
 
@@ -91,9 +100,10 @@ def decode_train(params, cfg: ModelConfig, tokens: torch.Tensor,
                  memory: torch.Tensor) -> torch.Tensor:
     """Teacher-forced decoder pass → logits [B, S, V]."""
     x = embed_tokens(params, cfg, tokens)
-    for i in range(cfg.n_layers):
-        x = decoder_layer(tree_index(params["dec"]["layers"], i), cfg, x,
-                          memory)
+    layer = remat(lambda x, pp, memory: decoder_layer(pp, cfg, x, memory),
+                  _policy(cfg))
+    for pp in tree_unbind(params["dec"]["layers"], cfg.n_layers):
+        x = layer(x, pp, memory)
     x = apply_norm(params["dec"]["final_norm"], x, cfg.norm)
     return unembed(params["embed"], x, cfg.compute_dtype)
 
@@ -130,8 +140,8 @@ def build_cross_cache(params, cfg: ModelConfig, memory: torch.Tensor
     dt = cfg.compute_dtype
     b, s, _ = memory.shape
     ks, vs = [], []
-    for i in range(cfg.n_layers):
-        pp = tree_index(params["dec"]["layers"]["cross_attn"], i)
+    for pp in tree_unbind(params["dec"]["layers"]["cross_attn"],
+                          cfg.n_layers):
         k = memory @ pp["wk"].to(dt)
         v = memory @ pp["wv"].to(dt)
         if cfg.qkv_bias:
@@ -152,11 +162,10 @@ def encdec_decode_step(params, cfg: ModelConfig, caches,
     # sinusoidal position of the current decode position
     pe = sinusoid(torch.tensor(float(pos), device=token.device), cfg.d_model)
     x = x + pe.to(dt)
-    layers = params["dec"]["layers"]
-    for i in range(cfg.n_layers):
-        pp = tree_index(layers, i)
-        self_c = tree_index(caches["self"], i)
-        cross_c = tree_index(caches["cross"], i)
+    n = cfg.n_layers
+    for pp, self_c, cross_c in zip(tree_unbind(params["dec"]["layers"], n),
+                                   tree_unbind(caches["self"], n),
+                                   tree_unbind(caches["cross"], n)):
         h = apply_norm(pp["ln1"], x, cfg.norm)
         mx, _ = attn.decode_attention(pp["self_attn"], cfg, h, self_c, pos)
         x = x + mx

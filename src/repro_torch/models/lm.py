@@ -4,8 +4,10 @@ Heterogeneous depth patterns (jamba's 1-attention-per-8 interleave, MoE
 every-other-layer, RWKV's paired mixers) are expressed as a *block
 program*: the minimal repeating period of (mixer, ffn) positions.
 Parameters for each period position are stacked over the n_blocks repeats
-(a leading dim on every leaf) and the model loops over blocks, indexing
-that dim — the JAX package scans over it.
+(a leading dim on every leaf) and the model loops over blocks — the JAX
+package scans over it. Every loop takes the blocks once with
+``tree_unbind`` (one gradient stack a leaf in the backward); a training
+forward wraps each in ``cfg.remat``'s recompute policy.
 
 Decode writes the stacked caches in place: block i's slice of every cache
 leaf is a view, and each mixer updates its view.
@@ -25,7 +27,8 @@ from repro_torch.models.layers import apply_norm, embed, embed_spec, \
     norm_spec, unembed
 from repro_torch.models.mlp import apply_mlp, mlp_spec
 from repro_torch.models.moe import apply_moe, moe_spec
-from repro_torch.models.module import ParamSpec, tree_index, tree_map
+from repro_torch.models.module import ParamSpec, remat, tree_map, \
+    tree_unbind
 from repro_torch.sharding.ctx import shard_act
 
 
@@ -148,20 +151,31 @@ def _apply_position(cfg: ModelConfig, ps: PositionSpec, pp, x, aux):
     return x, aux
 
 
+def _block_fn(cfg: ModelConfig, prog: BlockProgram):
+    """One block (every position of the program) under ``cfg.remat``."""
+    def block(x, aux, blk_params):
+        for i, ps in enumerate(prog.positions):
+            x, aux = _apply_position(cfg, ps, blk_params[f"pos{i}"], x, aux)
+        return x, aux
+
+    return remat(block, cfg.remat)
+
+
 def lm_hidden(params, cfg: ModelConfig, tokens: torch.Tensor,
               img_embeds: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone forward without the unembedding: (x [B,S,d], aux).
 
-    ``cfg.remat`` has no effect here: it is a training-memory policy."""
+    Under grad mode each block runs under ``cfg.remat`` (``full``: only its
+    inputs are kept for the backward; ``dots``: its products' outputs
+    too); the values do not depend on it."""
     prog = build_program(cfg)
     x = shard_act(_embed_inputs(params, cfg, tokens, img_embeds),
                   "batch", None, None)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bi in range(prog.n_blocks):
-        blk = tree_index(params["blocks"], bi)
-        for i, ps in enumerate(prog.positions):
-            x, aux = _apply_position(cfg, ps, blk[f"pos{i}"], x, aux)
+    block = _block_fn(cfg, prog)
+    for blk in tree_unbind(params["blocks"], prog.n_blocks):
+        x, aux = block(x, aux, blk)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return x, aux
 
@@ -192,8 +206,7 @@ def lm_prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
     prog = build_program(cfg)
     x = _embed_inputs(params, cfg, tokens, img_embeds)
     per_block = []
-    for bi in range(prog.n_blocks):
-        blk = tree_index(params["blocks"], bi)
+    for blk in tree_unbind(params["blocks"], prog.n_blocks):
         caches = {}
         for i, ps in enumerate(prog.positions):
             pp = blk[f"pos{i}"]
@@ -291,9 +304,8 @@ def lm_decode_step(params, cfg: ModelConfig, caches,
     The caches are updated in place and returned."""
     prog = build_program(cfg)
     x = embed(params["embed"], token, cfg.compute_dtype)
-    for bi in range(prog.n_blocks):
-        blk = tree_index(params["blocks"], bi)
-        blk_cache = tree_index(caches, bi)
+    for blk, blk_cache in zip(tree_unbind(params["blocks"], prog.n_blocks),
+                              tree_unbind(caches, prog.n_blocks)):
         for i, ps in enumerate(prog.positions):
             x = _decode_position(cfg, ps, blk[f"pos{i}"],
                                  blk_cache[f"pos{i}"], x, pos)

@@ -97,9 +97,53 @@ def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     return fn(tree, *rest)
 
 
-def tree_index(tree: Tree, i: int) -> Tree:
-    """Every leaf's ``[i]`` along its leading (stacked block) dim: views."""
-    return tree_map(lambda x: x[i], tree)
+def tree_unbind(tree: Tree, n: int) -> list:
+    """The stacked tree's ``n`` blocks as ``n`` trees of views, each leaf
+    split once by ``torch.unbind`` along its leading dim: its backward
+    stacks the ``n`` blocks' gradients into one tensor of the leaf (each
+    block's ``x[i]`` would add into a zero tensor of the whole leaf).
+    Decode writes its caches in place through these views."""
+    split = tree_map(lambda x: torch.unbind(x, 0), tree)
+    return [tree_map(lambda parts: parts[i], split) for i in range(n)]
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under the activation-recompute policy ``policy``, as the JAX
+    package wraps a block in ``jax.checkpoint``: ``"full"`` saves only the
+    block's inputs and recomputes the rest in the backward; ``"dots"``
+    saves the outputs of the matrix products (``aten.mm``/``bmm``/
+    ``addmm``, the counterpart of ``checkpoint_dots``) and recomputes the
+    rest; ``"none"`` returns ``fn``. Recompute changes memory, never
+    values. Without grad mode there is no backward, and ``fn`` runs as
+    is."""
+    if policy == "none":
+        return fn
+    if policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _save_dots)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped
 
 
 def _init_leaf(s: ParamSpec, generator: torch.Generator,

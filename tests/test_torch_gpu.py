@@ -1237,3 +1237,114 @@ def test_moe_combine_is_deterministic_on_the_card(cuda, arch):
     t1 = generate(card, cfg, prompt, 8, 32)
     t2 = generate(card, cfg, prompt, 8, 32)
     assert torch.equal(t1, t2)
+
+
+# ---------------------------------------------------------------------------
+# LM training on the card (-k train_): a step against the CPU's, remat, the
+# chunked loss, and a checkpoint written on the CPU restored onto the card.
+# Tolerances as in tests/test_torch_train.py: f32 loss rel 1e-5, grad norm
+# rel 1e-4, parameters atol 5e-3 at lr 1e-3 (AdamW's first step moves a
+# parameter by ≈ lr·sign(g)), remat rel 1e-6.
+# ---------------------------------------------------------------------------
+
+def _train_setup(arch, **over):
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import api as tapi
+    from repro_torch.models.module import init_params
+    cfg = dataclasses.replace(reduced(get_config(arch)),
+                              compute_dtype=torch.float32, **over)
+    params = init_params(tapi.spec(cfg), torch.Generator().manual_seed(0),
+                         "cpu")
+    rng = np.random.default_rng(2)
+    toks = rng.integers(1, cfg.vocab_size, (4, 17))
+    host = {"tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32)}
+    return cfg, params, host
+
+
+def _train_rel(got, want) -> float:
+    return abs(float(got) / float(want) - 1)
+
+
+@pytest.mark.parametrize("arch,chunk", [
+    ("qwen3-1.7b", 0), ("qwen3-1.7b", 8), ("granite-moe-1b-a400m", 0),
+    ("whisper-small", 0), ("jamba-v0.1-52b", 0), ("phi-3-vision-4.2b", 0)])
+def test_train_step_on_the_card_matches_cpu(cuda, arch, chunk):
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models.module import tree_items, tree_map
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import init_state, make_train_step
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg, params, host = _train_setup(arch, remat="full", loss_chunk=chunk)
+    card = tree_map(lambda t: t.to(cuda), params)
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, opt)
+    s_cpu, m_cpu = step(init_state(params, opt),
+                        device_batch(cfg, host, 1, torch.device("cpu")))
+    s_card, m_card = step(init_state(card, opt),
+                          device_batch(cfg, host, 1, cuda))
+    assert s_card.params["embed"].device.type == "cuda"
+    assert _train_rel(m_card["loss"], m_cpu["loss"]) < 1e-5, arch
+    assert _train_rel(m_card["grad_norm"], m_cpu["grad_norm"]) < 1e-4, arch
+    for (k, a), (_, b) in zip(tree_items(s_card.params),
+                              tree_items(s_cpu.params)):
+        assert float((a.cpu() - b).abs().max()) < 5e-3, (arch, k)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-moe-1b-a400m",
+                                  "whisper-small", "rwkv6-7b"])
+def test_train_remat_policies_agree_on_the_card(cuda, arch):
+    import dataclasses
+
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models.module import tree_items, tree_map
+    from repro_torch.train.step import make_grad_fn
+    cfg, params, host = _train_setup(arch)
+    card = tree_map(lambda t: t.to(cuda), params)
+    batch = device_batch(cfg, host, 1, cuda)
+    grads = {p: make_grad_fn(dataclasses.replace(cfg, remat=p))(card, batch)[0]
+             for p in ("none", "full", "dots")}
+    for p in ("full", "dots"):
+        for (k, a), (_, b) in zip(tree_items(grads[p]),
+                                  tree_items(grads["none"])):
+            assert _lm_rel(a, b) <= 1e-6, (arch, p, k)
+
+
+def test_train_checkpoint_written_on_the_cpu_restores_onto_the_card(
+        cuda, tmp_path):
+    from repro_torch.checkpoint.ckpt import Checkpointer
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models.module import tree_items, tree_map
+    from repro_torch.optim.adamw import AdamW, AdamWState
+    from repro_torch.train.step import TrainState, init_state, \
+        make_train_step
+    cfg, params, host = _train_setup("qwen3-1.7b")
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10)
+    step = make_train_step(cfg, opt)
+    state, _ = step(init_state(params, opt),
+                    device_batch(cfg, host, 1, torch.device("cpu")))
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, {"params": state.params, "opt": state.opt._asdict()},
+            blocking=True)
+    like = {"params": state.params, "opt": state.opt._asdict()}
+    tree, step_no = ck.restore(like, device=cuda)
+    assert step_no == 1
+    for (k, a), (_, b) in zip(tree_items(like), tree_items(tree)):
+        assert b.device.type == "cuda" and b.dtype == a.dtype, k
+        assert torch.equal(a, b.cpu()), k
+    restored = TrainState(tree["params"], AdamWState(**tree["opt"]), None,
+                          tree["opt"]["count"])
+    moved = TrainState(tree_map(lambda t: t.to(cuda), state.params),
+                       AdamWState(*(tree_map(lambda t: t.to(cuda), x)
+                                    for x in state.opt)), None,
+                       state.step.to(cuda))
+    batch = device_batch(cfg, host, 2, cuda)
+    a, ma = step(restored, batch)
+    b, mb = step(moved, batch)
+    # within rel 1e-6 rather than equal: the embedding's backward may
+    # accumulate its rows in another order from run to run
+    assert _train_rel(ma["loss"], mb["loss"]) <= 1e-6
+    for (k, x), (_, y) in zip(tree_items(a.params), tree_items(b.params)):
+        assert _lm_rel(x, y) <= 1e-6, k

@@ -47,7 +47,11 @@ def test_import_leaves_jax_out():
             "repro_torch.models.mamba, repro_torch.models.rwkv, "
             "repro_torch.models.lm, repro_torch.models.encdec, "
             "repro_torch.models.api, repro_torch.sharding.ctx, "
-            "repro_torch.serve.step; "
+            "repro_torch.serve.step, repro_torch.train.loss, "
+            "repro_torch.train.step, repro_torch.optim.adamw, "
+            "repro_torch.optim.compression, repro_torch.checkpoint.ckpt, "
+            "repro_torch.data.pipeline, repro_torch.launch.train, "
+            "repro_torch.train_lm, repro_torch.serve_lm; "
             "from repro_torch.configs import all_configs; all_configs(); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
@@ -67,7 +71,8 @@ def test_no_source_imports_jax_or_repro(path):
 
 
 def test_package_has_the_reference_layout():
-    for sub in ("core", "plan", "kernels", "obs"):
+    for sub in ("core", "plan", "kernels", "obs", "train", "optim",
+                "checkpoint", "data"):
         assert (PORT / sub / "__init__.py").exists()
     assert (PORT / "core" / "joins_device.py").exists()
     for path in ("runtime/faults.py", "runtime/fault_tolerance.py",
@@ -79,7 +84,9 @@ def test_package_has_the_reference_layout():
                  "models/mlp.py", "models/attention.py", "models/moe.py",
                  "models/mamba.py", "models/rwkv.py", "models/lm.py",
                  "models/encdec.py", "models/api.py", "sharding/ctx.py",
-                 "serve/step.py"):
+                 "serve/step.py", "train/loss.py", "train/step.py",
+                 "optim/adamw.py", "optim/compression.py",
+                 "checkpoint/ckpt.py", "data/pipeline.py", "launch/train.py"):
         assert (PORT / path).exists(), path
         assert (ROOT / "src" / "repro" / path).exists(), path
     for ref in (ROOT / "src" / "repro" / "configs").glob("*.py"):
