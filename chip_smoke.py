@@ -137,11 +137,26 @@ leaf whose first update, rebuilt from its moments, is under half an ulp
 (printed); bf16 parameter storage where the f32 train state passes 60
 GB, the reduced config where the bf16 one does too: jamba.
 
+The dry-run phase comes last (``launch.dryrun``, ``analysis.opstats``,
+``roofline`` and ``report``; it launches no kernel of the port). The
+sweep of every arch, shape and mesh (16×16 and 2×16×16), each arch one
+block-program period deep, in worker processes: a line a cell, the
+report's tables and the wall; every cell ok, bar ``long_500k`` skipped
+for the full-attention archs. Then qwen3-1.7b's training step at the
+training phase's configuration (batch 4, seq 256, remat full, AdamW) and
+one decode step at the LM phase's shape (batch 4, 160 positions) are
+traced on ``meta`` by ``trace_step`` and run on the card: the predicted
+dot flops within 1e-3 of ``FlopCounterMode``'s on the card, the
+predicted peak within 10% of ``max_memory_allocated`` above what earlier
+phases hold; the roofline's step time (H100 datasheet peaks) beside the
+measured median, the MFU of both, and the traced launches beside
+torch.profiler's kernels.
+
 Output: the card's name and power limit (``nvidia-smi``), the build time,
 after a fresh build the ptxas registers and spills of every instance of
 the three kernels with a launch parameter, one line per query and
-kernel, the serving, autotune, CF, demo, LM and training lines (each with
-the card's name and power limit), a ``{"kernels":
+kernel, the serving, autotune, CF, demo, LM, training and dry-run lines
+(each with the card's name and power limit), a ``{"kernels":
 [...]}`` JSON line (with each tuned kernel's default and best tiles),
 and as the last line ``{"ok": true, "device": {"platform": "gpu",
 ...}}``. Any failure raises and exits non-zero without that line.
@@ -234,6 +249,16 @@ TRAIN_LOSS_RTOL = 1e-5         # card vs CPU, f32, TF32 off
 TRAIN_GNORM_RTOL = 1e-4
 TRAIN_PARAM_ATOL = 5e-3        # tests/test_train_substrate.py:65 (lr 1e-3)
 TRAIN_REMAT_RTOL = 1e-6        # recompute changes memory, never values
+# The dry-run phase: the sweep of every (arch x shape x mesh) cell, each
+# arch one block-program period deep (a full-depth trace of the recurrent
+# archs' 4k training and 32k prefill steps takes many minutes on a CPU),
+# then the one-H100 estimate of qwen3-1.7b's training step (batch 4, seq
+# 256, the training phase's) and decode step (batch 4, 160 positions, the
+# LM phase's) held to the same steps on the card
+DRYRUN_BLOCKS = 1
+DRYRUN_DECODE = (4, 160, 16)     # batch, positions, timed decode steps
+DRYRUN_FLOP_RTOL = 1e-3          # predicted dot flops against measured
+DRYRUN_PEAK_RTOL = 0.10          # predicted peak against max allocated
 MESH_GATED = {"Q3": "merge_join", "Q7": "masked_matmul", "Q8": "sddmm_agg",
               "Q9": "sddmm_agg", "Q10": "sddmm_agg"}
 
@@ -2376,6 +2401,216 @@ def train_phase(device, seed, small, card):
     return lines
 
 
+def _dryrun_sweep(small, card):
+    """``launch.dryrun.main`` over every arch, shape and mesh (one block-
+    program period deep; on the CPU rehearsal qwen3-1.7b alone) into a
+    temporary directory, then ``analysis.report``'s tables. Returns
+    (lines, wall s)."""
+    import contextlib
+    import io
+    import os
+    import tempfile
+    from repro_torch.analysis import report
+    from repro_torch.configs import ARCH_IDS, SHAPES, cell_supported, \
+        get_config
+    from repro_torch.launch import dryrun
+    archs = ["qwen3-1.7b"] if small else list(ARCH_IDS)
+    with tempfile.TemporaryDirectory() as tmp:
+        cells_dir = os.path.join(tmp, "cells")
+        saved = os.environ.get("REPRO_HLO_DIR")
+        os.environ["REPRO_HLO_DIR"] = os.path.join(tmp, "hlo")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = dryrun.main(
+                    ["--arch", archs[0] if small else "all", "--shape", "all",
+                     "--mesh", "both", "--out", cells_dir, "--blocks",
+                     str(DRYRUN_BLOCKS)])
+        finally:
+            if saved is None:
+                os.environ.pop("REPRO_HLO_DIR")
+            else:
+                os.environ["REPRO_HLO_DIR"] = saved
+        wall = time.perf_counter() - t0
+        assert rc == 0, f"dry run exited {rc}:\n{out.getvalue()}"
+        cells = report.load_cells(cells_dir)
+        assert len(cells) == len(archs) * len(SHAPES) * 2, len(cells)
+        for c in cells:
+            ok, _ = cell_supported(get_config(c["arch"]), SHAPES[c["shape"]])
+            assert c["status"] == ("ok" if ok else "skipped"), c
+            if c["status"] != "ok":
+                continue
+            r, m = c["roofline"], c["memory_analysis"]
+            assert r["hlo_flops"] > 0 and math.isfinite(r["step_time_s"]) \
+                and r["step_time_s"] > 0, c["arch"]
+            assert m["argument_bytes"] > 0 and c["hlo"]["op_count"] > 0
+        tables = io.StringIO()
+        with contextlib.redirect_stdout(tables):
+            report.main([cells_dir])
+    lines = [f"{x} [{card}]" for x in out.getvalue().rstrip().splitlines()]
+    lines.append("dry-run report: the bytes each chip holds at the mesh, "
+                 "and one H100's roofline on its datasheet peaks (no time "
+                 f"in it was measured) [{card}]")
+    lines += tables.getvalue().rstrip().splitlines()
+    return lines, wall
+
+
+def _rel(got, want) -> float:
+    return abs(got / want - 1.0)
+
+
+def dryrun_phase(device, seed, small, card):
+    """The dry run (``launch.dryrun``, ``analysis.{opstats,roofline,
+    report}``). (1) The sweep of every cell at both meshes, one period
+    deep: one line a cell, the report's tables and the wall. (2) The
+    one-H100 estimate of qwen3-1.7b's training step at the training
+    phase's configuration (full config, batch 4, seq 256, remat full,
+    AdamW), traced on ``meta`` by ``trace_step`` (a second trace names what
+    the live bytes hold at the peak), against the same step on the card:
+    dot flops by ``FlopCounterMode`` within DRYRUN_FLOP_RTOL,
+    the peak (``max_memory_allocated`` above what earlier phases hold)
+    within DRYRUN_PEAK_RTOL, the roofline's step time beside the measured
+    median, and the predicted launches beside torch.profiler's kernels.
+    (3) The same for one decode step at the LM phase's shape (batch 4, 160
+    positions), with ms a token. The CPU rehearsal holds the flops only
+    (the CPU has no allocator peak and no kernels). Returns the lines to
+    print."""
+    import dataclasses
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.analysis.opstats import trace_step
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api as mapi
+    from repro_torch.models.module import init_params
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import init_state, make_train_step
+    on_card = device == "cuda"
+    dev = torch.device(device)
+    import os
+    lines, wall = _dryrun_sweep(small, card)
+    lines.append(f"dry run: {len([x for x in lines if x.startswith('[')])} "
+                 f"cells (one block-program period deep) in {wall:.1f} s, a "
+                 f"worker process a core ({os.cpu_count()} cores) [{card}]")
+
+    cfg = get_config(LM_ARCH)
+    if small:
+        cfg = dataclasses.replace(reduced(cfg), remat=cfg.remat)
+    sp = mapi.spec(cfg)
+    n_params = rl.active_param_count(sp)
+    gen = torch.Generator(dev).manual_seed(seed + 40)
+    rng = np.random.default_rng(seed + 40)
+
+    def measured(step, live_fn):
+        """(outputs, dot flops, peak bytes above the start) of one step of
+        ``step`` on the state ``live_fn`` makes."""
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        base = _peak_from_here(on_card)
+        live = live_fn()
+        with FlopCounterMode(display=False) as fc:
+            out = step(*live)
+        _sync(on_card)
+        peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+        return live, out, fc.get_total_flops(), peak
+
+    def verdict(kind, pred, flops, peak):
+        ferr = _rel(flops, pred.stats.dot_flops)
+        assert ferr <= DRYRUN_FLOP_RTOL, \
+            f"{kind}: dot flops {pred.stats.dot_flops} vs measured {flops}"
+        text = (f"dot flops predicted {pred.stats.dot_flops:.6e}, measured "
+                f"{flops:.6e} (rel err {ferr:.2e}, limit "
+                f"{DRYRUN_FLOP_RTOL:g})")
+        if on_card:
+            perr = _rel(pred.stats.peak_bytes, peak)
+            assert perr <= DRYRUN_PEAK_RTOL, (
+                f"{kind}: peak predicted {pred.stats.peak_bytes} vs "
+                f"max_memory_allocated {peak}")
+            text += (f"; peak predicted {pred.stats.peak_bytes / 2**30:.3f} "
+                     f"GiB, measured {peak / 2**30:.3f} GiB above what "
+                     f"earlier phases hold (rel err {perr:.2e}, limit "
+                     f"{DRYRUN_PEAK_RTOL:g})")
+        return text
+
+    # (2) the training step
+    b, s = (4, 256) if not small else (2, 32)
+    shape = ShapeConfig(f"train_b{b}_s{s}", s, b, "train")
+    opt = AdamW(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    pred = trace_step(cfg, shape, opt=opt)
+    toks = rng.integers(0, cfg.vocab_size, (2, b, s)).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(toks[0], device=dev),
+             "labels": torch.as_tensor(toks[1], device=dev)}
+    step = make_train_step(cfg, opt)
+    _, (state, _), flops, peak = measured(
+        step, lambda: (init_state(init_params(sp, gen, dev), opt), batch))
+    state, mets, ms = _timed_steps(step, state, batch, 5, on_card)
+    med = float(np.median(ms[1:]))
+    mf = rl.model_flops(n_params, n_params, b * s, "train")
+    roof = rl.analyze(pred.stats, mf, 1)
+    # what the live bytes hold at the peak, from a second trace
+    at_peak = trace_step(cfg, shape, opt=opt,
+                         peak_of=pred.stats.peak_bytes).at_peak
+    held = ", ".join(f"{k} {v / 2**30:.3f}" for k, v in sorted(
+        at_peak.items(), key=lambda kv: -kv[1])[:5])
+    line = (f"dryrun train {cfg.arch_id} ({cfg.n_layers} layers, batch {b}, "
+            f"seq {s}, remat {cfg.remat}, AdamW): "
+            + verdict("train", pred, flops, peak)
+            + f"; roofline step {roof.step_time_s * 1e3:.2f} ms "
+            f"({roof.dominant}: compute {roof.compute_s * 1e3:.2f} ms, "
+            f"memory {roof.memory_s * 1e3:.2f} ms of "
+            f"{pred.stats.bytes_accessed / 1e9:.1f} GB), measured median "
+            f"{med:.2f} ms of steps 2-5: the card runs at "
+            f"{roof.step_time_s * 1e3 / med:.3f} of the roofline; MFU at the "
+            f"roofline {roof.mfu:.4f}, measured "
+            f"{mf / (med / 1e3) / rl.PEAK_FLOPS:.4f}; at the traced peak "
+            f"(GiB by the op that made them): {held}; trace "
+            f"{pred.seconds:.1f} s")
+    if on_card:
+        state, busy, kernels, _, _ = _step_profile(step, state, batch)
+        line += (f"; launches predicted {pred.stats.op_count:.0f}, "
+                 f"torch.profiler {kernels} kernels ({busy:.2f} ms of "
+                 "device time)")
+    lines.append(f"{line} [{card}]")
+    del state, step, batch
+    # (3) one decode step
+    b, n_pos, n_steps = DRYRUN_DECODE if not small else (2, 24, 4)
+    shape = ShapeConfig(f"decode_b{b}_{n_pos}", n_pos, b, "decode")
+    pred = trace_step(cfg, shape)
+    token = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32), device=dev)
+
+    def decode(params, caches, pos):
+        with torch.inference_mode():
+            return mapi.decode_step(params, cfg, caches, token, pos)
+
+    (params, caches, _), _, flops, peak = measured(
+        decode, lambda: (init_params(sp, gen, dev),
+                         mapi.init_caches(cfg, b, n_pos, device=dev),
+                         n_pos - 1))
+    ms = []
+    for pos in range(n_pos - n_steps, n_pos):
+        _sync(on_card)
+        t0 = time.perf_counter()
+        decode(params, caches, pos)
+        _sync(on_card)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    med = float(np.median(ms))
+    roof = rl.analyze(pred.stats, rl.model_flops(n_params, n_params, b,
+                                                 "decode"), 1)
+    lines.append(
+        f"dryrun decode {cfg.arch_id} (batch {b}, {n_pos} positions): "
+        + verdict("decode", pred, flops, peak)
+        + f"; bytes predicted {pred.stats.bytes_accessed / 1e9:.3f} GB, "
+        f"roofline {roof.step_time_s * 1e3:.3f} ms ({roof.dominant}), "
+        f"measured {med:.3f} ms a token (median of {n_steps}): the card "
+        f"runs at {roof.step_time_s * 1e3 / med:.3f} of the roofline; "
+        f"launches predicted {pred.stats.op_count:.0f} [{card}]")
+    return lines
+
+
 def demo_phase(device, card):
     """``repro_torch.obs.demo.run_demo`` with ``MESH_WORKERS`` workers, a
     ledger file in a temporary directory and ``--json``: all seven phases
@@ -2501,6 +2736,8 @@ def main(argv=None) -> int:
         print("\n".join(lm_phase(args.device, args.seed, True, rehearsal)))
         print("\n".join(train_phase(args.device, args.seed, True,
                                     rehearsal)))
+        print("\n".join(dryrun_phase(args.device, args.seed, True,
+                                     rehearsal)))
         print(json.dumps({"ok": True, "device": {
             "platform": "cpu", "kind": "cpu", "count": 0}}))
         return 0
@@ -2558,6 +2795,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print("\n".join(train_phase(args.device, args.seed, False, card)),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("\n".join(dryrun_phase(args.device, args.seed, False, card)),
           flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

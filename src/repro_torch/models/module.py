@@ -4,8 +4,10 @@ A model definition is a nested dict of ``ParamSpec`` leaves;
 ``init_params`` materializes values and forward passes are plain
 functions over the materialized tree of tensors (what the JAX package's
 pytrees are there). ``MeshRules`` maps a leaf's *logical axes* onto mesh
-axes; the port runs on one card, so the functions that turn those rules
-into shardings wait for a multi-card program.
+axes and ``partition_specs`` turns a spec tree into per-leaf
+``PartitionSpec``s over an abstract ``Mesh`` (``sharding/partition.py``):
+the dry run sizes each chip's bytes from them; the port runs the models
+on one device.
 """
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ import math
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
 
 import torch
+
+from repro_torch.sharding.partition import NamedSharding, PartitionSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,6 +70,42 @@ class MeshRules:
             "stage": ("pod",),
         }
         return table.get(logical, ())
+
+
+def _axes_size(mesh, axes: Tuple[str, ...]) -> int:
+    n = 1
+    for a in axes:
+        if a in mesh.shape:
+            n *= mesh.shape[a]
+    return n
+
+
+def spec_for(mesh, rules: MeshRules, axes: Tuple[Optional[str], ...],
+             shape: Tuple[int, ...]) -> PartitionSpec:
+    """PartitionSpec with a divisibility guard: a dim is sharded only when
+    its extent divides the product of the mapped mesh axes (8 KV heads on
+    a 16-way tensor axis stay replicated); otherwise the longest prefix of
+    those axes that divides it, if any. A mesh axis shards one dim."""
+    out = []
+    used: set = set()
+    for dim, logical in zip(shape, axes):
+        mesh_axes = tuple(a for a in rules.mesh_axes_for(logical)
+                          if a in mesh.shape and a not in used)
+        if not mesh_axes:
+            out.append(None)
+            continue
+        picked = None
+        for k in range(len(mesh_axes), 0, -1):
+            size = _axes_size(mesh, mesh_axes[:k])
+            if size > 1 and dim % size == 0:
+                picked = mesh_axes[:k]
+                break
+        if picked:
+            out.append(picked if len(picked) > 1 else picked[0])
+            used.update(picked)
+        else:
+            out.append(None)
+    return PartitionSpec(*out)
 
 
 def is_param_spec(x) -> bool:
@@ -175,3 +215,36 @@ def init_params(spec_tree: Tree, generator: torch.Generator,
 
 def param_count(spec_tree: Tree) -> int:
     return sum(int(math.prod(s.shape)) for _, s in tree_items(spec_tree))
+
+
+def abstract_params(spec_tree: Tree) -> Dict:
+    """``meta`` tensors of each leaf's shape and dtype: the dry run traces
+    over them without allocating."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                          device="meta"), spec_tree)
+
+
+def partition_specs(spec_tree: Tree, mesh, rules: MeshRules) -> Dict:
+    return tree_map(lambda s: spec_for(mesh, rules, s.axes, s.shape),
+                    spec_tree)
+
+
+def shardings(spec_tree: Tree, mesh, rules: MeshRules) -> Dict:
+    return tree_map(lambda p: NamedSharding(mesh, p),
+                    partition_specs(spec_tree, mesh, rules))
+
+
+def act_spec(mesh, rules: MeshRules, *logical: Optional[str]
+             ) -> PartitionSpec:
+    """PartitionSpec for an activation given logical axis names."""
+    out = []
+    used: set = set()
+    for lg in logical:
+        axes = tuple(a for a in rules.mesh_axes_for(lg)
+                     if a in mesh.shape and a not in used)
+        if axes:
+            out.append(axes if len(axes) > 1 else axes[0])
+            used.update(axes)
+        else:
+            out.append(None)
+    return PartitionSpec(*out)

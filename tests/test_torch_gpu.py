@@ -1348,3 +1348,46 @@ def test_train_checkpoint_written_on_the_cpu_restores_onto_the_card(
     assert _train_rel(ma["loss"], mb["loss"]) <= 1e-6
     for (k, x), (_, y) in zip(tree_items(a.params), tree_items(b.params)):
         assert _lm_rel(x, y) <= 1e-6, k
+
+
+# ---------------------------------------------------------------------------
+# The dry run's one-card estimate against the step on the card: dot flops
+# within 1e-3 (the same formulas over the same aten ops) and the traced
+# peak within 10% of max_memory_allocated (chip_smoke.py's limits).
+# ---------------------------------------------------------------------------
+
+def test_dryrun_trace_matches_the_train_step_on_the_card(cuda):
+    import dataclasses
+    import gc
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.analysis.opstats import trace_step
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import api as tapi
+    from repro_torch.models.module import init_params
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.train.step import init_state, make_train_step
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), n_layers=2)
+    b, s = 2, 64
+    opt = AdamW()
+    pred = trace_step(cfg, ShapeConfig("t", s, b, "train"), opt=opt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = init_params(tapi.spec(cfg),
+                         torch.Generator(cuda).manual_seed(0), cuda)
+    state = init_state(params, opt)
+    g = torch.Generator(cuda).manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                              device=cuda, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    with FlopCounterMode(display=False) as fc:
+        make_train_step(cfg, opt)(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert abs(fc.get_total_flops() / pred.stats.dot_flops - 1) <= 1e-3
+    assert abs(pred.stats.peak_bytes / peak - 1) <= 0.10, \
+        (pred.stats.peak_bytes, peak)

@@ -51,7 +51,11 @@ def test_import_leaves_jax_out():
             "repro_torch.train.step, repro_torch.optim.adamw, "
             "repro_torch.optim.compression, repro_torch.checkpoint.ckpt, "
             "repro_torch.data.pipeline, repro_torch.launch.train, "
-            "repro_torch.train_lm, repro_torch.serve_lm; "
+            "repro_torch.train_lm, repro_torch.serve_lm, "
+            "repro_torch.sharding.partition, repro_torch.sharding.specs, "
+            "repro_torch.launch.mesh, repro_torch.launch.dryrun, "
+            "repro_torch.analysis.opstats, repro_torch.analysis.roofline, "
+            "repro_torch.analysis.report, repro_torch.analysis.reanalyze; "
             "from repro_torch.configs import all_configs; all_configs(); "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
@@ -86,9 +90,15 @@ def test_package_has_the_reference_layout():
                  "models/encdec.py", "models/api.py", "sharding/ctx.py",
                  "serve/step.py", "train/loss.py", "train/step.py",
                  "optim/adamw.py", "optim/compression.py",
-                 "checkpoint/ckpt.py", "data/pipeline.py", "launch/train.py"):
+                 "checkpoint/ckpt.py", "data/pipeline.py", "launch/train.py",
+                 "launch/mesh.py", "launch/dryrun.py", "sharding/specs.py",
+                 "analysis/roofline.py", "analysis/report.py",
+                 "analysis/reanalyze.py"):
         assert (PORT / path).exists(), path
         assert (ROOT / "src" / "repro" / path).exists(), path
+    # the counterparts of analysis/hlo.py and of jax.sharding's objects
+    for path in ("analysis/opstats.py", "sharding/partition.py"):
+        assert (PORT / path).exists(), path
     for ref in (ROOT / "src" / "repro" / "configs").glob("*.py"):
         assert (PORT / "configs" / ref.name).exists(), ref.name
     assert repro_torch.resolve_device is resolve_device
