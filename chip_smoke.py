@@ -59,6 +59,20 @@ which the main path builds over B's compacted entries, is held bit for
 bit to the plain ``bloom.build`` over all of B's cells (x*y skips
 zeros), with both builds' device times.
 
+The merges phase (``kernels.merge_codes``: general merges compiled to
+register programs) runs nine merges (the JAX package's gated merge,
+NaN-propagating ``maximum``, a square, a quotient, ``abs``, ``clamp``,
+``exp``/``log1p``, ``pow``, a flipped gated merge) through the program
+instances of ``merge_join`` on Q3's operands and ``coo_expand`` on Q4's
+and Q5's captured inputs, each held to its plain version on the card (bit
+for bit, the transcendental ones within ``MERGE_ULPS``) and timed beside
+the bilinear instance, then the same merges on NaN, ±inf, ±0 and
+subnormals in float32 and float64, and the gated merge (made
+sparsity-inducing) in an overlay and a D2D join through
+``Session(device="cuda")`` against the CPU; the program launches must
+rise. Then the float64 ``masked_matmul`` on the PNMF product, within
+``MM_F64_ATOL`` of its plain version.
+
 The serving phase comes last. Q1–Q10 go three times each through one
 ``ServeEngine`` (cross-query CSE, two worker threads, one ticket a batch);
 every result is held to the same float64 checks and every kernel must
@@ -154,10 +168,13 @@ torch.profiler's kernels.
 
 Output: the card's name and power limit (``nvidia-smi``), the build time,
 after a fresh build the ptxas registers and spills of every instance of
-the three kernels with a launch parameter, one line per query and
-kernel, the serving, autotune, CF, demo, LM, training and dry-run lines
-(each with the card's name and power limit), a ``{"kernels":
-[...]}`` JSON line (with each tuned kernel's default and best tiles),
+the three kernels with a launch parameter and of the program and float64
+instances, one line per query and kernel, the merges, serving,
+autotune, CF, demo, LM, training and dry-run lines (each with the card's
+name and power limit), a ``{"kernels":
+[...]}`` JSON line (with each tuned kernel's default and best tiles, the
+program launches of ``merge_join`` and ``coo_expand`` in the merges
+phase, and the float64 ``masked_matmul``'s numbers),
 and as the last line ``{"ok": true, "device": {"platform": "gpu",
 ...}}``. Any failure raises and exits non-zero without that line.
 """
@@ -184,6 +201,7 @@ DENSITY = 1e-3
 OVERLAY_DENSITY = 1e-2
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+FP64_OPS_PER_S = 67e12         # H100 SXM FP64 tensor cores (34e12 outside)
 ATOL = RTOL = 1e-5
 SUM_RTOL = 1e-4                # reductions in another order (Q1, Q7–Q10)
 REPS = 20                      # kernel launches per CUDA-event timing
@@ -259,6 +277,12 @@ DRYRUN_BLOCKS = 1
 DRYRUN_DECODE = (4, 160, 16)     # batch, positions, timed decode steps
 DRYRUN_FLOP_RTOL = 1e-3          # predicted dot flops against measured
 DRYRUN_PEAK_RTOL = 0.10          # predicted peak against max allocated
+# the merges phase: general merges in the program instances; the
+# transcendental ones (exp/log1p, pow) within MERGE_ULPS of the plain
+# version (CUDA's math library on both sides; a few ulp between its
+# functions' builds), the IEEE-exact ones bit for bit
+MERGE_ULPS = 4
+MM_F64_ATOL = 1e-10            # the float64 masked_matmul against its plain
 MESH_GATED = {"Q3": "merge_join", "Q7": "masked_matmul", "Q8": "sddmm_agg",
               "Q9": "sddmm_agg", "Q10": "sddmm_agg"}
 
@@ -1330,9 +1354,16 @@ _TYPES = {"f": "float", "d": "double", "s": "int16", "i": "int32",
 # the instances of the kernels with a launch parameter (the last template
 # argument: vt, kc, threads), by their mangled names
 _INSTANCES = (
-    (re.compile(r"coo_expand_kernelI([fd])([si])Li(\d+)ELi(\d+)ELi(\d+)E"),
+    (re.compile(r"coo_expand_kernelI([fd])([si])Li(\d+)ELi(\d+)ELi(\d+)E"
+                r"Lb([01])E"),
      lambda m: f"coo_expand_kernel<{_TYPES[m[1]]}, {_TYPES[m[2]]}, {m[3]}, "
-               f"{m[4]}, vt {m[5]}>"),
+               f"{m[4]}, vt {m[5]}{', program' if m[6] == '1' else ''}>"),
+    # merge_join: its program instances (value type, 16-byte lanes)
+    (re.compile(r"merge_join_kernelI([fd])Lb([01])ELb1E"),
+     lambda m: f"merge_join_kernel<{_TYPES[m[1]]}, "
+               f"{'vector' if m[2] == '1' else 'scalar'}, program>"),
+    (re.compile(r"masked_matmul_f64_kernelILi(\d+)E"),
+     lambda m: f"masked_matmul_f64_kernel<kc {m[1]}>"),
     (re.compile(r"masked_matmul_kernelI(f|13__nv_bfloat16)Li(\d+)E"),
      lambda m: f"masked_matmul_kernel<{_TYPES[m[1]]}, kc {m[2]}>"),
     (re.compile(r"bloom_probe_sharedILi(\d+)ELi(\d+)E"),
@@ -1341,9 +1372,9 @@ _INSTANCES = (
 
 
 def ptxas_usage(log: str) -> list:
-    """One line per instance of the three kernels with a launch parameter
-    from nvcc's ``-Xptxas -v`` log: its registers, stack frame and
-    spills."""
+    """One line per instance of the three kernels with a launch parameter,
+    and per program instance of ``merge_join`` and ``coo_expand``, from
+    nvcc's ``-Xptxas -v`` log: its registers, stack frame and spills."""
     usage, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -1359,6 +1390,273 @@ def ptxas_usage(log: str) -> list:
             usage[entry] = f"{regs} registers, {usage.get(entry, '')}"
             entry = None
     return [f"ptxas {name}: {u}" for name, u in sorted(usage.items())]
+
+
+# ---------------------------------------------------------------------------
+# The merges phase: general merges through the program instances of
+# merge_join and coo_expand, and the float64 masked_matmul.
+# ---------------------------------------------------------------------------
+
+def _gated(x, y):
+    """The JAX package's gated merge (tests/test_memo_search.py)."""
+    import torch
+    return torch.where(x < 10, x + y, 0.0)
+
+
+def general_merges():
+    """name: (merge, exact) for the merges phase; the exact ones hold IEEE
+    ops alone and are held bit for bit, the others within MERGE_ULPS."""
+    import torch
+    return {
+        "gated": (_gated, True),
+        "maximum": (torch.maximum, True),
+        "square": (lambda x, y: x * x, True),
+        "quotient": (lambda x, y: x / y, True),
+        "abs": (lambda x, y: torch.abs(x) - y, True),
+        "clamp": (lambda x, y: torch.clamp(x * y, -0.5, 0.5), True),
+        "flipped_gated": (lambda x, y: _gated(y, x), True),
+        "exp_log1p": (lambda x, y: torch.exp(-torch.abs(x))
+                      * torch.log1p(torch.abs(y)), False),
+        "pow": (lambda x, y: torch.abs(x) ** 1.5 * y, False),
+    }
+
+
+def _ordered(t):
+    """float32 or float64 bits as integers in the order of the values."""
+    import torch
+    ints = torch.int64 if t.dtype == torch.float64 else torch.int32
+    b = t.contiguous().view(ints).to(torch.int64)
+    low = -(1 << 63) if ints == torch.int64 else -(1 << 31)
+    return torch.where(b < 0, low - b, b)
+
+
+def merge_mismatches(got, want, exact: bool) -> int:
+    """Elements where ``got`` is not ``want``: bit for bit, signed zeros
+    included and NaN against any NaN, when ``exact``; else more than
+    MERGE_ULPS apart (NaN against NaN equal)."""
+    import torch
+    both_nan = torch.isnan(got) & torch.isnan(want)
+    if exact:
+        ints = torch.int64 if got.dtype == torch.float64 else torch.int32
+        bad = got.contiguous().view(ints) != want.contiguous().view(ints)
+    else:
+        bad = (_ordered(got) - _ordered(want)).abs() > MERGE_ULPS
+        bad |= torch.isnan(got) ^ torch.isnan(want)
+    return int((bad & ~both_nan).sum())
+
+
+def _special_operands(seed, shape, dtype, device):
+    """Normal values with NaN, ±inf, ±0, subnormals and large values
+    seeded among them."""
+    import torch
+    rng = np.random.default_rng(seed)
+    tiny = np.finfo(np.float32 if dtype == torch.float32
+                    else np.float64).smallest_subnormal
+    specials = np.array([np.nan, -np.nan, np.inf, -np.inf, 0.0, -0.0, tiny,
+                         -tiny, 3e38, 10.0, -1.0])
+    out = []
+    for _ in range(2):
+        v = rng.normal(size=shape) * 4
+        pick = rng.uniform(size=shape) < 0.3
+        v[pick] = rng.choice(specials, int(pick.sum()))
+        out.append(torch.as_tensor(v, dtype=dtype, device=device))
+    return out
+
+
+def merges_phase(calls, env, n, card, on_card):
+    """General merges on the main path's kernel inputs: ``merge_join`` on
+    Q3's operands and ``coo_expand`` on Q4's (D2D) and Q5's (V2V), each
+    merge in the program instance against its plain version on the card
+    (the mode of a merge_join is its own sparsity profile's), with the
+    program's CUDA-event and device ms beside the bilinear (x*y) instance's
+    on the same inputs; a small case with NaN, ±inf, ±0 and subnormals in
+    float32 and float64. Then the gated merge made sparsity-inducing
+    (gated where x*y != 0) in an overlay and a D2D join through
+    ``Session(device="cuda")``, each equal to the port's CPU result, and
+    the float64 ``masked_matmul``. Each program's bound is the kernel
+    phase's (bytes of the live tiles, or of the inputs and slots). Returns
+    the lines, the program launches of each kernel over the phase and the
+    programs' device ms by kernel (and query). On the CPU (the rehearsal)
+    the kernels are the plain versions and only the Session part runs."""
+    import torch
+    from repro_torch.core import Session
+    from repro_torch.core.expr import MergeFn
+    from repro_torch.core.sparsity import analyze_merge
+    from repro_torch.kernels import build
+    from repro_torch.kernels.coo_join import coo_expand_cuda, coo_expand_plain
+    from repro_torch.kernels.merge_join import (
+        live_tiles, merge_join_cuda, merge_join_plain, mode_for,
+    )
+    lines, device_ms = [], {"merge_join": {}, "coo_expand": {}}
+    t_phase = time.perf_counter()
+    before = dict(build.PROGRAM_LAUNCHES)
+    merges = general_merges()
+    if on_card:
+        # merge_join on Q3's operands
+        (a, b, ma, mb), kw = calls["merge_join"][0]
+        bs = kw["block_size"]
+        base = {"x*y": (cuda_time_ms(lambda: merge_join_cuda(a, b, ma, mb,
+                                                             **kw)),
+                        device_time_ms(lambda: merge_join_cuda(a, b, ma, mb,
+                                                               **kw)))}
+        rows = []
+        for name, (fn, exact) in merges.items():
+            # merge profiles are cached by name: one name a merge
+            prof = analyze_merge(MergeFn(f"merges_kernel_{name}", fn))
+            mkw = dict(merge=fn, mode=mode_for(prof.inducing_x,
+                                               prof.inducing_y),
+                       block_size=bs)
+            kern = lambda mkw=mkw: merge_join_cuda(a, b, ma, mb, **mkw)  # noqa
+            bad = merge_mismatches(kern(), merge_join_plain(a, b, ma, mb,
+                                                            **mkw), exact)
+            assert bad == 0, f"merge_join {name}: {bad} elements differ"
+            live = int(live_tiles(ma, mb, mkw["mode"]).sum()) * bs * bs
+            bms, _ = bound(2 * live * a.element_size() + ma.nbytes
+                           + mb.nbytes + a.nbytes, live)
+            dev = device_time_ms(kern)
+            device_ms["merge_join"][name] = dev
+            rows.append(f"{name} {cuda_time_ms(kern):.4f}/{dev:.4f} (mode "
+                        f"{mkw['mode']}, bound {bms:.4f})")
+        lines.append(
+            f"merges merge_join [Q3 {tuple(a.shape)}, block {bs}]: x*y "
+            f"(bilinear, mode {kw['mode']}) {base['x*y'][0]:.4f}/"
+            f"{base['x*y'][1]:.4f} ms (events/device); programs: "
+            + ", ".join(rows) + f" ms; every one equal to its plain version "
+            f"(bits, or {MERGE_ULPS} ulp for exp/log1p and pow); bounds by "
+            f"bytes [{card}]")
+        # coo_expand on Q4's and Q5's inputs
+        for q, (args, kw) in zip(("Q4 D2D", "Q5 V2V"), calls["coo_expand"]):
+            times = {}
+            for name, (fn, exact) in [("x*y", (kw["merge"], None))] + list(
+                    merges.items()):
+                ckw = dict(kw, merge=fn)
+                kern = lambda ckw=ckw: coo_expand_cuda(*args, **ckw)  # noqa
+                (ik, vk), (ip, vp) = kern(), coo_expand_plain(*args, **ckw)
+                assert torch.equal(ik, ip), f"coo_expand {q} {name} idx"
+                if exact is None:
+                    # the bilinear instance, held as in the kernel phase
+                    # (it computes 0 + x*y: a -0 product reads +0)
+                    torch.testing.assert_close(vk, vp.to(vk.dtype),
+                                               atol=ATOL, rtol=RTOL)
+                else:
+                    bad = merge_mismatches(vk, vp.to(vk.dtype), exact)
+                    assert bad == 0, \
+                        f"coo_expand {q} {name}: {bad} values differ"
+                times[name] = (cuda_time_ms(kern), device_time_ms(kern))
+            device_ms["coo_expand"][q] = {k: d for k, (_, d) in
+                                          times.items() if k != "x*y"}
+            bms, _ = bound(sum(t.nbytes for t in args) + ik.nbytes
+                           + vk.nbytes, 0)
+            lines.append(
+                f"merges coo_expand [{q} cap={kw['cap']}]: " + ", ".join(
+                    f"{k} {e:.4f}/{d:.4f}" for k, (e, d) in times.items())
+                + f" ms (events/device; x*y is the bilinear instance, the "
+                f"others programs; bound {bms:.4f} ms by bytes); every slot "
+                f"equal to the plain version [{card}]")
+        # the special values, float32 and float64
+        for dtype in (torch.float32, torch.float64):
+            x, y = _special_operands(5, (384, 320), dtype, a.device)
+            mk = torch.rand((3, 3), generator=torch.Generator().manual_seed(
+                3)).to(a.device) < 0.7
+            ends = torch.arange(1, 2001, dtype=torch.int32,
+                                device=a.device)            # one slot each
+            delta = torch.zeros(2000, dtype=torch.int32, device=a.device)
+            coords = torch.zeros((2000, 2), dtype=torch.int16,
+                                 device=a.device)
+            xv, yv = x.reshape(-1)[:2000], y.reshape(-1)[:2000]
+            for name, (fn, exact) in merges.items():
+                mkw = dict(merge=fn, mode=3, block_size=128)
+                bad = merge_mismatches(merge_join_cuda(x, y, mk, mk, **mkw),
+                                       merge_join_plain(x, y, mk, mk, **mkw),
+                                       exact)
+                ckw = dict(merge=fn, cap=2000)
+                _, vk = coo_expand_cuda(ends, delta, xv, coords, yv, coords,
+                                        **ckw)
+                _, vp = coo_expand_plain(ends, delta, xv, coords, yv, coords,
+                                         **ckw)
+                bad += merge_mismatches(vk, vp.to(dtype), exact)
+                assert bad == 0, f"special values {dtype} {name}: {bad}"
+        lines.append(f"merges special values (NaN, ±inf, ±0, subnormals, "
+                     f"3e38) float32 and float64: {len(merges)} merges "
+                     "through merge_join and coo_expand equal to the plain "
+                     "versions")
+    # the Session: the gated merge made inducing, overlay and D2D on the
+    # top-left quarter of Q3's and Q4's operands
+    gated = MergeFn("merges_session_gated", lambda x, y: torch.where(
+        x * y != 0, _gated(x, y), 0.0))
+    half = n // 2
+    ops = {k: env[k].value[:half, :half].contiguous()
+           for k in ("Ao", "Bo", "A", "B")}
+    results, sess_launch = {}, {}
+    for dev in (("cpu", "cuda") if on_card else ("cpu",)):
+        s = Session(block_size=256, device=dev)
+        m = {k: s.load(v.to(dev), k) for k, v in ops.items()}
+        p0 = dict(build.PROGRAM_LAUNCHES)
+        t0 = time.perf_counter()
+        results[dev] = (
+            m["Ao"].join(m["Bo"], "RID=RID AND CID=CID", gated).collect(),
+            m["A"].join(m["B"], "RID=RID", gated).collect())
+        sess_launch[dev] = ({k: build.PROGRAM_LAUNCHES[k] - p0[k]
+                             for k in p0}, time.perf_counter() - t0)
+    (oc, dc) = results["cpu"]
+    if on_card:
+        og, dg = results["cuda"]
+        assert torch.equal(og.value.cpu(), oc.value), "gated overlay"
+        assert np.array_equal(dg.idx, dc.idx), "gated D2D coordinates"
+        assert np.array_equal(dg.val, dc.val), "gated D2D values"
+        assert all(v > 0 for v in sess_launch["cuda"][0].values()), \
+            f"program instances not launched: {sess_launch['cuda'][0]}"
+    progs, wall = sess_launch["cuda" if on_card else "cpu"]
+    lines.append(
+        f"merges Session: gated where x*y != 0, overlay {half}x{half} "
+        f"({int(torch.count_nonzero(oc.value))} entries) and D2D ({dc.nnz} "
+        f"entries) on the {'card' if on_card else 'CPU'} in {wall:.2f} s"
+        + (", equal to the CPU's; program launches " + " ".join(
+            f"{k}={v}" for k, v in progs.items()) if on_card else "")
+        + f" [{card}]")
+    launches = {k: build.PROGRAM_LAUNCHES[k] - before[k] for k in before}
+    lines.append(f"merges phase: {time.perf_counter() - t_phase:.2f} s; "
+                 "program launches over the phase: " + " ".join(
+                     f"{k}={v}" for k, v in launches.items()))
+    return lines, launches, device_ms
+
+
+def masked_matmul_f64_line(pnmf_call, card):
+    """The float64 instance on the PNMF phase's product in float64: within
+    MM_F64_ATOL of its plain version, same bits twice; its time beside the
+    float32 instance's on the same values, the bound (the output's bytes
+    against the FP64 FLOPs of the live tiles at FP64_OPS_PER_S) and
+    ``torch.matmul``'s dense float64 product. Returns the line and a dict
+    for the kernels' JSON row."""
+    import torch
+    from repro_torch.kernels.masked_matmul import (
+        masked_matmul_cuda, masked_matmul_plain,
+    )
+    (w, h, mask), kw = pnmf_call
+    w64, h64 = w.double(), h.double()
+    kern = lambda: masked_matmul_cuda(w64, h64, mask, **kw)  # noqa: E731
+    got, want = kern(), masked_matmul_plain(w64, h64, mask, **kw)
+    err = float((got - want).abs().max())
+    assert err <= MM_F64_ATOL, f"masked_matmul float64: max |err| {err}"
+    assert torch.equal(kern(), got), "masked_matmul float64: launches differ"
+    ms, dev = cuda_time_ms(kern), device_time_ms(kern)
+    f32 = cuda_time_ms(lambda: masked_matmul_cuda(w, h, mask, **kw))
+    dense = cuda_time_ms(lambda: torch.matmul(w64, h64))
+    live = live_elements(mask, got.shape, kw["block_size"])
+    nbytes = w64.nbytes + h64.nbytes + got.nbytes + mask.nbytes
+    ops = 2 * w.shape[1] * live
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S
+    bms, by = max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+    line = (f"masked_matmul float64 [{tuple(w.shape)}x{tuple(h.shape)} live "
+            f"tiles {int(mask.sum())}/{mask.numel()}]: {ms:.4f} ms (device "
+            f"{dev:.4f} ms; float32 instance on the same values {f32:.4f} "
+            f"ms; dense torch.matmul float64 over all tiles, not the same "
+            f"function, {dense:.4f} ms), bound {bms:.4f} ms by {by} "
+            f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP at "
+            f"{FP64_OPS_PER_S / 1e12:.0f} TFLOP/s), max |err| {err:.3g} "
+            f"(limit {MM_F64_ATOL}) [{card}]")
+    return line, {"f64_ms": ms, "f64_device_ms": dev, "f64_bound_ms": bms,
+                  "f64_bound_by": by, "f64_max_abs_err": err}
 
 
 # ---------------------------------------------------------------------------
@@ -2722,6 +3020,7 @@ def main(argv=None) -> int:
                   s.env["Ap"].block_mask), {"block_size": bs})
     if not on_card:
         rehearsal = "CPU rehearsal"
+        print("\n".join(merges_phase(calls, s.env, n, rehearsal, False)[0]))
         multi_worker_phase(s, data, ref, n, bs, args.device, args.seed,
                            rehearsal)
         print(engine_queries_phase(queries, rehearsal, on_card))
@@ -2758,6 +3057,17 @@ def main(argv=None) -> int:
         rows[-1].update((k, row[k]) for k in ("device_ms", "host_us",
                                               "dispatch_us") if k in row)
     print(bloom_build_phase(s.env["Bq"].value, records, calls["bloom_probe"]))
+    lines, program_launches, program_ms = merges_phase(calls, s.env, n, card,
+                                                       on_card)
+    print("\n".join(lines))
+    line, f64 = masked_matmul_f64_line(pnmf_call, card)
+    print(line)
+    for row in rows:
+        if row["name"] in program_launches:
+            row["program_launches"] = program_launches[row["name"]]
+            row["program_device_ms"] = program_ms[row["name"]]
+        if row["name"] == "masked_matmul":
+            row.update(f64)
     walls, busy_s, top = warm_profile(records)
     print("warm rerun: " + ", ".join(
         f"{r['query'].split()[0]} {w:.4f} s" for r, w in zip(records, walls))

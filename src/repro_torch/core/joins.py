@@ -149,6 +149,14 @@ def join_dense(a: torch.Tensor, b: torch.Tensor, pred: JoinPred,
 # Sparse eager implementations (paper's optimized execution).
 # ---------------------------------------------------------------------------
 
+def _merge_host(fn: Callable, x: np.ndarray, y) -> np.ndarray:
+    """The merge over host operands (numpy arrays or a numpy scalar), as
+    CPU tensors: the port's merges are torch code (``torch.where`` and
+    ``torch.maximum`` refuse numpy arrays, as jnp's take them in the JAX
+    package)."""
+    return np.asarray(fn(torch.as_tensor(x), torch.as_tensor(y)))
+
+
 def cross_sparse(a: BlockMatrix, b: BlockMatrix,
                  merge: MergeFn) -> COOTensor:
     """Sparsity-inducing cross-product: iterate only nonzero entries of the
@@ -168,7 +176,7 @@ def cross_sparse(a: BlockMatrix, b: BlockMatrix,
                          np.zeros((0,), _out_dtype(adense, bdense)),
                          a.shape + b.shape)
     # all pairs (vectorized): [na*nb]
-    vals = np.asarray(merge.fn(np.repeat(av, nb), np.tile(bv, na)))
+    vals = _merge_host(merge.fn, np.repeat(av, nb), np.tile(bv, na))
     idx = np.concatenate(
         [np.repeat(ai, nb, axis=0), np.tile(bi, (na, 1))], axis=1)
     keep = vals != 0
@@ -283,7 +291,7 @@ def d2d_sparse(a: BlockMatrix, b: BlockMatrix, left: Field, right: Field,
         out_x[pos:pos + k] = np.repeat(av[a0:a1], nb)
         out_y[pos:pos + k] = np.tile(bv[b0:b1], na)
         pos += k
-    vals = np.asarray(merge.fn(out_x, out_y))
+    vals = _merge_host(merge.fn, out_x, out_y)
     keep = vals != 0
     idx = np.stack([out_i, out_j, out_l], axis=1)[keep]
     return COOTensor(idx, vals[keep], (d1, d2, d3))
@@ -343,7 +351,7 @@ def v2v_sparse(a: BlockMatrix, b: BlockMatrix, merge: MergeFn,
     gather_b = np.concatenate(
         [np.arange(l, h) for l, h in zip(lo, hi) if h > l]) \
         if total else np.zeros((0,), np.int64)
-    vals = np.asarray(merge.fn(av[rep_a], bv_s[gather_b]))
+    vals = _merge_host(merge.fn, av[rep_a], bv_s[gather_b])
     idx = np.concatenate([ai[rep_a], bi_s[gather_b]], axis=1)
     keep = vals != 0
     return COOTensor(idx[keep], vals[keep], a.shape + b.shape)
@@ -368,7 +376,7 @@ def d2v_sparse(a: BlockMatrix, b: BlockMatrix, dim: Field,
             else np.arange(line.shape[0])
         if nz.size == 0:
             continue
-        merged = np.asarray(merge.fn(line[nz], bval))
+        merged = _merge_host(merge.fn, line[nz], bval)
         live = merged != 0
         nz, merged = nz[live], merged[live]
         for o, v in zip(nz, merged):

@@ -31,8 +31,12 @@ _PROBES = (0.7548776662466927, -1.3247179572447458, 2.718281828459045)
 
 
 def _probe(fn, zero_first: bool) -> bool:
+    # the merge sees 0-d float32 tensors, so torch functions evaluate as
+    # jnp's do on the JAX package's Python floats (torch.where and
+    # torch.maximum refuse Python floats; float32 is jnp's weak scalar type)
     for s in _PROBES:
         x, y = (0.0, s) if zero_first else (s, 0.0)
+        x, y = torch.tensor(x), torch.tensor(y)
         try:
             t = float(np.asarray(fn(x, y)))
         except Exception:

@@ -10,6 +10,9 @@ a source changes.
 
 ``LAUNCHES`` counts kernel launches by kernel name: each CUDA wrapper
 adds one where it launches its kernel, and nowhere else.
+``PROGRAM_LAUNCHES`` counts, of those, the launches of ``merge_join``'s
+and ``coo_expand``'s program instances (a general merge, run as a merge
+program: ``merge_codes.PROGRAM``).
 
 A wrapper's launch path: ``function(name)`` is the bound C function,
 looked up once (the first lookup builds and loads the library, under its
@@ -40,6 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"coo_expand": 0, "bloom_probe": 0,
                             "merge_join": 0, "masked_matmul": 0,
                             "sddmm_agg": 0}
+PROGRAM_LAUNCHES: Dict[str, int] = {"coo_expand": 0, "merge_join": 0}
 
 _LIB: Optional[ctypes.CDLL] = None
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
@@ -52,13 +56,16 @@ BUILD_INFO: Dict[str, object] = {}
 
 def reset_launches() -> None:
     with _COUNT_LOCK:
-        for k in LAUNCHES:
-            LAUNCHES[k] = 0
+        for counts in (LAUNCHES, PROGRAM_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, program: bool = False) -> None:
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
+        if program:
+            PROGRAM_LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -123,7 +130,7 @@ def _bind(lib: ctypes.CDLL) -> None:
         I, I,                 # value dtype code, coord dtype code
         P, P, P, P, P, P,     # ends, delta, a_vals, a_coords, b_vals, b_coords
         I, I, I, I, L, I,     # ns, nb, ca, cb, cap, items a thread
-        I, D, D, D, D,        # merge op, c0, cx, cy, cxy
+        I, D, D, D, D, P,     # merge op, c0, cx, cy, cxy, program
         P, P, P]              # idx out, val out, stream
     lib.bloom_probe_launch.argtypes = [
         P, P, L, I, I, I, P, P]  # words, vals, n, k, log2, threads, out, stream
@@ -132,7 +139,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.merge_join_launch.argtypes = [
         I, P, P, P, P, P,     # value dtype code, a, b, mask_a, mask_b, out
         L, L, I, I, I,        # m, n, block size, mode, vectorised
-        I, D, D, D, D, P]     # merge op, c0, cx, cy, cxy, stream
+        I, D, D, D, D, P, P]  # merge op, c0, cx, cy, cxy, program, stream
     lib.masked_matmul_launch.argtypes = [
         I, I, P, P, P, P,     # value dtype code, K chunk, a, b, mask, out
         L, L, L,              # m, n, k

@@ -45,6 +45,15 @@
 // with double (the wrapper refuses another vt there); the run-time-width
 // instances take vt as an argument. Registers are bounded so that 5 CTAs
 // fit on an SM; PERF.md §6 gives the times of each vt.
+// A general merge (MERGE_PROGRAM) runs in the program instances (PROG =
+// true): the run-time-width instance, one per value and coordinate type,
+// which takes every width and every vt of the grid, so no tuned vt makes a
+// general merge refuse (float64 too). Thread 0 copies the program into
+// shared memory; step 4 then writes the coordinates first and runs the
+// merges in a rolled loop over the thread's slots, its partner value
+// picked from registers by an unrolled select, so the interpreter
+// (merge.cuh) is inlined once. They are bounded at 4 CTAs an SM (64
+// registers), the interpreter's registers on top of the slots'.
 #include <cstdint>
 #include <mutex>
 #include <type_traits>
@@ -55,7 +64,10 @@ constexpr int kThreads = 256;
 constexpr int kVt = 8;          // merge items a thread: the default, the most
 constexpr int kProbes = 4;      // probes a lane in a round of the split search
 constexpr int kMinBlocks = 5;   // CTAs an SM that registers must allow
+constexpr int kProgMinBlocks = 4;  // the same for the program instances
 constexpr int kMaxSmem = 232448 - 64;  // the H100's 227 KB a block, less static
+// the program instances' dynamic limit: their shared program is static
+constexpr int kProgMaxSmem = kMaxSmem - 512;
 
 __host__ __device__ inline int up16(int x) { return (x + 15) & ~15; }
 
@@ -132,21 +144,32 @@ __device__ int merge_split(const int32_t* __restrict__ ends, int lo, int hi,
   return lo;
 }
 
+// Stands for the code's TypedMerge in the program instances.
+struct NoMerge {
+  __device__ explicit NoMerge(const MergeProgram&) {}
+};
+
 // Item, slot and segment counts fit int: the host checks cap + ns < 2^31.
 // CA, CB > 0 fix the coordinate counts at compile time (the joins' 2 + 1
 // and 2 + 2), and VT the items a thread; CA = CB = 0 takes the counts, and
-// vt (at most VT), from the arguments.
-template <typename T, typename C, int CA, int CB, int VT>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
+// vt (at most VT), from the arguments. PROG runs a merge program.
+template <typename T, typename C, int CA, int CB, int VT, bool PROG = false>
+__global__ void __launch_bounds__(kThreads, PROG ? kProgMinBlocks : kMinBlocks)
 coo_expand_kernel(const int32_t* __restrict__ ends,
                   const int32_t* __restrict__ delta,
                   const T* __restrict__ a_vals, const C* __restrict__ a_coords,
                   const T* __restrict__ b_vals, const C* __restrict__ b_coords,
                   int ns, int nb, int ca_, int cb_, int cap, int vt_,
-                  MergeCode merge, C* __restrict__ idx_out,
-                  T* __restrict__ val_out) {
+                  std::conditional_t<PROG, MergeProgram, MergeCode> merge,
+                  C* __restrict__ idx_out, T* __restrict__ val_out) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int split[2];
+  const SharedProgram<T>* prog = nullptr;
+  if constexpr (PROG) {
+    __shared__ SharedProgram<T> s_prog;  // read after the syncs below
+    if (threadIdx.x == 0) s_prog.load(merge);
+    prog = &s_prog;
+  }
   const int ca = CA ? CA : ca_, cb = CB ? CB : cb_;
   const int vt = CA && CB ? VT : vt_;    // fixed widths always fit VT
   const int nv = kThreads * vt, w = ca + cb;
@@ -216,7 +239,7 @@ coo_expand_kernel(const int32_t* __restrict__ ends,
   //    them is used, one round trip in place of VT.
   const long long e0 = (long long)t0 * w;
   const int lead = (int)(((uintptr_t)(idx_out + e0) & 15) / sizeof(C));
-  const TypedMerge<T> mrg(merge);
+  const std::conditional_t<PROG, NoMerge, TypedMerge<T>> mrg(merge);
   T bval[VT];
   C bco[VT][2];                   // the first two partner coords
 #pragma unroll
@@ -235,7 +258,7 @@ coo_expand_kernel(const int32_t* __restrict__ ends,
     const int j = threadIdx.x + k * kThreads;
     if (k < vt && j < nt) {
       const int ls = s_seg[j];
-      val_out[t0 + j] = mrg(s_aval[ls], bval[k]);
+      if constexpr (!PROG) val_out[t0 + j] = mrg(s_aval[ls], bval[k]);
       C* o = s_idx + lead + j * w;
       for (int c = 0; c < ca; ++c) o[c] = s_acoord[ls * ca + c];
 #pragma unroll
@@ -245,6 +268,15 @@ coo_expand_kernel(const int32_t* __restrict__ ends,
         const long long sb = partner(t0 + j, s_delta[ls], nb);
         for (int c = 2; c < cb; ++c) o[ca + c] = __ldg(b_coords + sb * cb + c);
       }
+    }
+  }
+  if constexpr (PROG) {
+    // the merges, once the coordinates no longer hold registers
+#pragma unroll 1
+    for (int k = 0; k < vt; ++k) {
+      const int j = threadIdx.x + k * kThreads;
+      if (j < nt)
+        val_out[t0 + j] = (*prog)(s_aval[s_seg[j]], lane_get<VT>(bval, k));
     }
   }
   __syncthreads();
@@ -271,9 +303,9 @@ struct Plan {
 };
 
 template <typename T, typename C>
-static Plan plan(int ca, int cb, int vt) {
+static Plan plan(int ca, int cb, int vt, int max_smem = kMaxSmem) {
   Layout lay(kThreads * vt, ca, cb, sizeof(T), sizeof(C));
-  while (lay.bytes > kMaxSmem && vt > 1) {
+  while (lay.bytes > max_smem && vt > 1) {
     vt >>= 1;
     lay = Layout(kThreads * vt, ca, cb, sizeof(T), sizeof(C));
   }
@@ -282,7 +314,7 @@ static Plan plan(int ca, int cb, int vt) {
 
 // Lets a kernel take all of an SM's shared memory on the current device
 // (once a device and instance).
-template <typename T, typename C, int CA, int CB, int VT>
+template <typename T, typename C, int CA, int CB, int VT, bool PROG = false>
 static cudaError_t allow_shared() {
   constexpr int MAX_DEVICES = 64;
   static std::mutex mu;
@@ -293,9 +325,9 @@ static cudaError_t allow_shared() {
   if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
   std::lock_guard<std::mutex> lock(mu);
   if (!done[dev]) {
-    err = cudaFuncSetAttribute(coo_expand_kernel<T, C, CA, CB, VT>,
+    err = cudaFuncSetAttribute(coo_expand_kernel<T, C, CA, CB, VT, PROG>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxSmem);
+                               PROG ? kProgMaxSmem : kMaxSmem);
     if (err != cudaSuccess) return err;
     done[dev] = true;
   }
@@ -350,6 +382,29 @@ static cudaError_t launch(const void* ends, const void* delta,
   });
 }
 
+// The program instance: run-time widths and vt, every width, any vt.
+template <typename T, typename C>
+static cudaError_t launch_program(const void* ends, const void* delta,
+                                  const void* a_vals, const void* a_coords,
+                                  const void* b_vals, const void* b_coords,
+                                  int ns, int nb, int ca, int cb,
+                                  long long cap, int vt,
+                                  const MergeProgram& prog, void* idx_out,
+                                  void* val_out, cudaStream_t stream) {
+  const Plan p = plan<T, C>(ca, cb, vt, kProgMaxSmem);
+  if (p.lay.bytes > kProgMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t e = allow_shared<T, C, 0, 0, kVt, true>();
+  if (e != cudaSuccess) return e;
+  const long long nv = (long long)kThreads * p.vt;
+  const unsigned blocks = (unsigned)((cap + ns + nv - 1) / nv);
+  coo_expand_kernel<T, C, 0, 0, kVt, true>
+      <<<blocks, kThreads, p.lay.bytes, stream>>>(
+          (const int32_t*)ends, (const int32_t*)delta, (const T*)a_vals,
+          (const C*)a_coords, (const T*)b_vals, (const C*)b_coords, ns, nb,
+          ca, cb, (int)cap, p.vt, prog, (C*)idx_out, (T*)val_out);
+  return cudaGetLastError();
+}
+
 // Calls f(T(), C()) for value_code 0 float, 1 double and coord_code
 // 0 int16, 1 int32.
 template <typename F>
@@ -361,18 +416,31 @@ static int by_type(int value_code, int coord_code, F&& f) {
   return (int)cudaErrorInvalidValue;
 }
 
+// op MERGE_PROGRAM takes the program at `prog` (copied into the launch's
+// parameter) and ignores the coefficients; the other ops ignore `prog`.
 extern "C" int coo_expand_launch(int value_code, int coord_code,
                                  const void* ends, const void* delta,
                                  const void* a_vals, const void* a_coords,
                                  const void* b_vals, const void* b_coords,
                                  int ns, int nb, int ca, int cb, long long cap,
                                  int vt, int op, double c0, double cx,
-                                 double cy, double cxy, void* idx_out,
+                                 double cy, double cxy,
+                                 const MergeProgram* prog, void* idx_out,
                                  void* val_out, void* stream) {
   if (cap <= 0) return 0;
   if (ns <= 0 || nb <= 0 || ca < 0 || cb < 0 || ca + cb <= 0 ||
       cap + ns > 0x7fffffffLL || vt < 1 || vt > kVt)
     return (int)cudaErrorInvalidValue;
+  if (op == MERGE_PROGRAM) {
+    if (prog == nullptr || prog->n < 0 || prog->n > kProgCode)
+      return (int)cudaErrorInvalidValue;
+    const MergeProgram p = *prog;
+    return by_type(value_code, coord_code, [&](auto t, auto c) {
+      return (int)launch_program<decltype(t), decltype(c)>(
+          ends, delta, a_vals, a_coords, b_vals, b_coords, ns, nb, ca, cb,
+          cap, vt, p, idx_out, val_out, (cudaStream_t)stream);
+    });
+  }
   const MergeCode m{op, c0, cx, cy, cxy};
   return by_type(value_code, coord_code, [&](auto t, auto c) {
     return (int)launch<decltype(t), decltype(c)>(

@@ -70,6 +70,21 @@
 //    nothing; A and B come with their strides.
 // Its times on the card, beside the bound and both ends, are printed by
 // chip_smoke.py's masked_matmul line and kept in PERF.md.
+//
+// float64 (masked_matmul_f64_kernel) accumulates in double, as the Pallas
+// body does (out dtype promote_types(f64, f32) = f64, preferred_element_type
+// f64). It is a plain tiled DFMA kernel, not the pool above: one CTA per
+// 64 x 64 output tile, whose gate is the OR of the mask entries it
+// overlaps (elements under a dead entry are stored as 0 where it spans
+// several); 16 x 16 threads each hold a 4 x 4 register tile at rows
+// ty + 16i and columns tx + 16j, so each shared-memory read of a k row is
+// conflict-free; K goes in chunks of kc (the same grid, 16/32/64) staged
+// in shared memory, A k-major and B as is, each element read by its own
+// thread with the operands' strides (coalesced along k for A and along n
+// for B when row-major). Accumulation is fma with k ascending from +0,
+// zero-filled past the edges, so every kc gives the same bits. It is
+// bound by the bytes of its output on the PNMF path, as the float32
+// kernel; FP64 tensor-core MMA is later work.
 #include <climits>
 #include <cstdint>
 #include <mutex>
@@ -476,6 +491,129 @@ cudaError_t launch(const void* a, const void* b, const void* mask, void* out,
   return cudaGetLastError();
 }
 
+constexpr int D_TILE = 64;          // float64 output tile edge
+constexpr int D_LD = D_TILE + 1;    // a staged row of doubles, padded
+__host__ __device__ constexpr int d_smem_bytes(int kc) {  // {A, B}
+  return 2 * kc * D_LD * (int)sizeof(double);
+}
+
+template <int KC>
+__global__ void __launch_bounds__(THREADS)
+masked_matmul_f64_kernel(const double* __restrict__ a,
+                         const double* __restrict__ b,
+                         const bool* __restrict__ mask,
+                         double* __restrict__ out, const Shape s) {
+  extern __shared__ __align__(16) double dpanels[];
+  double* as = dpanels;             // [KC][D_LD]: as[k][row]
+  double* bp = dpanels + KC * D_LD; // [KC][D_LD]: bp[k][column]
+  const int tiles_n = (s.n + D_TILE - 1) / D_TILE;
+  const int r0 = blockIdx.x / tiles_n * D_TILE;
+  const int c0 = blockIdx.x % tiles_n * D_TILE;
+  const int t = threadIdx.x, ty = t / 16, tx = t % 16;
+  const int r1 = imin(r0 + D_TILE, s.m) - 1, c1 = imin(c0 + D_TILE, s.n) - 1;
+  const int mr0 = r0 / s.bs, mc0 = c0 / s.bs;
+  const int nc = c1 / s.bs - mc0 + 1;
+  const int entries = (r1 / s.bs - mr0 + 1) * nc;
+  int seen = 0;
+  for (int e = t; e < entries; e += THREADS)
+    seen |= mask[(long long)(mr0 + e / nc) * s.gn + mc0 + e % nc];
+  const bool live = __syncthreads_or(seen);
+  double acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0;
+  if (live) {
+    for (int k0 = 0; k0 < s.k; k0 += KC) {
+      for (int e = t; e < KC * D_TILE; e += THREADS) {
+        const int kk = e % KC, rr = e / KC;           // A along k
+        const int gr = r0 + rr, gk = k0 + kk;
+        as[kk * D_LD + rr] = (gr < s.m && gk < s.k)
+                                 ? a[gr * s.sa0 + gk * s.sa1] : 0.0;
+        const int kb = e / D_TILE, cc = e % D_TILE;   // B along n
+        const int gkb = k0 + kb, gc = c0 + cc;
+        bp[kb * D_LD + cc] = (gkb < s.k && gc < s.n)
+                                 ? b[gkb * s.sb0 + gc * s.sb1] : 0.0;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = 0; kk < KC; ++kk) {
+        double x[4], y[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) x[i] = as[kk * D_LD + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) y[j] = bp[kk * D_LD + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fma(x[i], y[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+  }
+  const bool uniform = r0 / s.bs == r1 / s.bs && c0 / s.bs == c1 / s.bs;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = r0 + ty + 16 * i;
+    if (r >= s.m) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = c0 + tx + 16 * j;
+      if (c >= s.n) continue;
+      const bool keep =
+          uniform || mask[(long long)(r / s.bs) * s.gn + c / s.bs];
+      out[(long long)r * s.n + c] = keep ? acc[i][j] : 0.0;
+    }
+  }
+}
+
+// Lets the float64 kernel of kc take its shared memory (above 48 KB at kc
+// 64), once a device and kc.
+template <int KC>
+cudaError_t f64_allow() {
+  constexpr int MAX_DEVICES = 64;
+  static std::mutex mu;
+  static bool done[MAX_DEVICES];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(mu);
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(masked_matmul_f64_kernel<KC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               d_smem_bytes(KC));
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+template <int KC>
+cudaError_t launch_f64(const void* a, const void* b, const void* mask,
+                       void* out, long long m, long long n, long long k,
+                       long long sa0, long long sa1, long long sb0,
+                       long long sb1, int bs, cudaStream_t stream) {
+  if (m > INT_MAX - 2 * D_TILE || n > INT_MAX - 2 * D_TILE ||
+      k > INT_MAX - 2 * KC)
+    return cudaErrorInvalidValue;
+  const long long tiles =
+      (m + D_TILE - 1) / D_TILE * ((n + D_TILE - 1) / D_TILE);
+  if (tiles > INT_MAX) return cudaErrorInvalidValue;
+  cudaError_t err = f64_allow<KC>();
+  if (err != cudaSuccess) return err;
+  Shape s;
+  s.m = (int)m; s.n = (int)n; s.k = (int)k;
+  s.sa0 = sa0; s.sa1 = sa1; s.sb0 = sb0; s.sb1 = sb1;
+  s.gn = (int)((n + bs - 1) / bs);
+  s.bs = bs;
+  s.units_n = s.units = s.chunks = s.a_vec = s.b_async = 0;  // unused
+  masked_matmul_f64_kernel<KC><<<(unsigned)tiles, THREADS, d_smem_bytes(KC),
+                                 stream>>>(
+      (const double*)a, (const double*)b, (const bool*)mask, (double*)out, s);
+  return cudaGetLastError();
+}
+
 // Calls f(T(), std::integral_constant<int, KC>()) for value_code 0 float32,
 // 1 bfloat16 and kc 16, 32 or 64; cudaErrorInvalidValue for anything else.
 template <typename F>
@@ -493,9 +631,9 @@ int by_instance(int value_code, int kc, F&& f) {
 
 }  // namespace
 
-// value_code: 0 float32, 1 bfloat16; kc: the K chunk, 16, 32 or 64. The
-// output is contiguous [m, n]; counter is one int32 on the device, zero at
-// launch (the work queue).
+// value_code: 0 float32, 1 bfloat16, 2 float64; kc: the K chunk, 16, 32
+// or 64. The output is contiguous [m, n]; counter is one int32 on the
+// device, zero at launch (the work queue; float64 does not use it).
 extern "C" int masked_matmul_launch(int value_code, int kc, const void* a,
                                     const void* b, const void* mask,
                                     void* out, long long m, long long n,
@@ -505,6 +643,19 @@ extern "C" int masked_matmul_launch(int value_code, int kc, const void* a,
   if (m <= 0 || n <= 0) return 0;
   if (bs <= 0 || k < 0 || counter == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (value_code == 2) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (kc == 16)
+      return (int)launch_f64<16>(a, b, mask, out, m, n, k, sa0, sa1, sb0,
+                                 sb1, bs, st);
+    if (kc == 32)
+      return (int)launch_f64<32>(a, b, mask, out, m, n, k, sa0, sa1, sb0,
+                                 sb1, bs, st);
+    if (kc == 64)
+      return (int)launch_f64<64>(a, b, mask, out, m, n, k, sa0, sa1, sb0,
+                                 sb1, bs, st);
+    return (int)cudaErrorInvalidValue;
+  }
   return by_instance(value_code, kc, [&](auto t, auto kc_c) {
     return (int)launch<decltype(t), decltype(kc_c)::value>(
         a, b, mask, out, m, n, k, sa0, sa1, sb0, sb1, bs,

@@ -3,8 +3,9 @@
 For sparse A, ``A ∘ (W × H)`` needs only the blocks of W×H that land
 under live blocks of A (paper §6, PNMF): the output tile (i, j) of
 ``block_size``² is computed where ``out_block_mask[i, j]`` is set and is
-zero otherwise. Products accumulate in float32 and are returned in A's
-dtype.
+zero otherwise. Products accumulate in ``promote_types(dtype, float32)``
+— float32 for float32 and bfloat16, float64 for float64, as the Pallas
+body's ``preferred_element_type`` — and are returned in A's dtype.
 
 ``masked_matmul_plain`` is the plain PyTorch version (any device);
 ``masked_matmul_cuda`` launches the kernel of ``csrc/masked_matmul.cu`` on
@@ -15,7 +16,9 @@ zero stores, a live one an FFMA product with an 8 × 8 register tile per
 thread. Its launch parameter is ``kc``, the K chunk staged in shared
 memory (``GRID``, the autotuner's candidates; the default 32): each
 element sums k in ascending order whatever the chunk, so every member of
-the grid writes the same bits.
+the grid writes the same bits. float64 runs a plain tiled DFMA kernel of
+the same source (64 × 64 output tiles, one CTA each, K staged by the same
+``kc``), with the same rule: every ``kc`` gives the same bits.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.registry import Tiles, checked_tiles
 
-_VALUE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_VALUE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
 GRID = ({"kc": 16}, {"kc": 32}, {"kc": 64})
 DEFAULT_TILES = {"kc": 32}
 
@@ -36,10 +39,12 @@ def masked_matmul_plain(a: torch.Tensor, b: torch.Tensor,
                         out_block_mask: torch.Tensor, *,
                         block_size: int = 256,
                         tiles: Tiles = None) -> torch.Tensor:
-    """Full product, then zero the output tiles the mask leaves out. Like
-    the JAX package's dense oracle, it multiplies in float32 whatever the
-    input dtype. ``tiles`` is ignored."""
-    full = torch.matmul(a.to(torch.float32), b.to(torch.float32)).to(a.dtype)
+    """Full product, then zero the output tiles the mask leaves out. It
+    multiplies in ``promote_types(a.dtype, float32)``, as the Pallas body
+    accumulates (float32 for float32 and bfloat16, float64 for float64).
+    ``tiles`` is ignored."""
+    acc = torch.promote_types(a.dtype, torch.float32)
+    full = torch.matmul(a.to(acc), b.to(acc)).to(a.dtype)
     big = out_block_mask.repeat_interleave(block_size, 0) \
         .repeat_interleave(block_size, 1)
     return torch.where(big[: full.shape[0], : full.shape[1]], full,
@@ -54,8 +59,8 @@ def masked_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     output units, staging K in chunks of ``tiles["kc"]`` (a member of
     ``GRID``; None: ``DEFAULT_TILES``).
 
-    ``a`` [M, K] and ``b`` [K, N] share float32 or bfloat16; float64 raises
-    ``TypeError`` (the card kernel accumulates in float32 only).
+    ``a`` [M, K] and ``b`` [K, N] share float32, bfloat16 or float64 (the
+    float64 kernel accumulates in double).
     ``out_block_mask`` is bool [ceil(M/bs), ceil(N/bs)]. The operands'
     strides go to the kernel, so a transposed view is read in place and
     no operand is copied (float32 operands with unit inner stride and
@@ -73,7 +78,7 @@ def masked_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
         raise ValueError("masked_matmul_cuda needs every input on one CUDA "
                          f"device, got {[str(x.device) for x in ins]}")
     if a.dtype != b.dtype or a.dtype not in _VALUE_CODES:
-        raise TypeError(f"a and b must share float32/bfloat16, got "
+        raise TypeError(f"a and b must share float32/bfloat16/float64, got "
                         f"{a.dtype}, {b.dtype}")
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"shapes {tuple(a.shape)} x {tuple(b.shape)}")

@@ -8,7 +8,11 @@ its inputs are never read.
 
 ``merge_join_plain`` is the plain PyTorch version (any device);
 ``merge_join_cuda`` launches the kernel of ``csrc/merge_join.cu`` on a
-CUDA tensor and raises on anything else.
+CUDA tensor and raises on anything else. The merge reaches the kernel as
+``merge_codes.merge_code``'s code: a bilinear merge or the safe division
+runs in the code instances, any other merge in the op set as a program in
+the program instances, and a merge the compiler refuses raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.merge_codes import merge_code
+from repro_torch.kernels.merge_codes import PROGRAM, merge_code
 from repro_torch.kernels.registry import Tiles, checked_tiles
 
 # compute-gating modes derived from the sparsity profile of the merge fn
@@ -107,7 +111,7 @@ def merge_join_cuda(a: torch.Tensor, b: torch.Tensor, mask_a: torch.Tensor,
         _VALUE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
         mask_a.data_ptr(), mask_b.data_ptr(), out.data_ptr(),
         ctypes.c_longlong(m), ctypes.c_longlong(n), bs, mode, vec,
-        code.op, *code.coeffs, build.stream_ptr(a))
+        code.op, *code.coeffs, code.program_ptr(), build.stream_ptr(a))
     build.check(rc, "merge_join")
-    build.count_launch("merge_join")
+    build.count_launch("merge_join", program=code.op == PROGRAM)
     return out

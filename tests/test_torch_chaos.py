@@ -416,8 +416,8 @@ def test_faulted_dispatch_raises_then_quarantines(rng, monkeypatch):
     assert kreg.BREAKER.state(kreg.CUDA) == "closed"
 
 
-def _cubic(x, y):                           # degree 3: no kernel evaluates it
-    return x * x * y
+def _erf(x, y):                 # erf is outside the merge compiler's set
+    return torch.erf(x) * y
 
 
 def _prod(x, y):
@@ -441,7 +441,7 @@ def _refusing_card_merge_join(monkeypatch):
     card) and the ``cuda`` ``merge_join`` is a stand-in that refuses as the
     card's wrapper does (``ValueError`` for masks of another grid,
     ``merge_code``'s ``NotImplementedError`` for a merge outside the
-    kernels' family) and otherwise records the launch and runs the plain
+    compiler's set) and otherwise records the launch and runs the plain
     version. Returns the list of launches."""
     from repro_torch.kernels.merge_codes import merge_code
     spec = kreg.get("merge_join")
@@ -476,7 +476,7 @@ def test_refused_dispatch_feeds_no_breaker(monkeypatch):
     f0 = REGISTRY.counter("kernel_dispatch_failures", **labels).value
     for _ in range(4):                       # past the threshold
         with pytest.raises(NotImplementedError):
-            kreg.dispatch("merge_join", a, b, ma, mb, merge=_cubic,
+            kreg.dispatch("merge_join", a, b, ma, mb, merge=_erf,
                           block_size=4)
     with pytest.raises(ValueError):          # masks of the wrong grid
         kreg.dispatch("merge_join", a, b, ma[:2], mb, merge=_prod,
@@ -489,7 +489,7 @@ def test_refused_dispatch_feeds_no_breaker(monkeypatch):
         kreg.BREAKER.record_failure(kreg.CUDA)
     clock.t = 31.0
     with pytest.raises(NotImplementedError):  # the probe is refused ...
-        kreg.dispatch("merge_join", a, b, ma, mb, merge=_cubic,
+        kreg.dispatch("merge_join", a, b, ma, mb, merge=_erf,
                       block_size=4)
     assert kreg.BREAKER.state(kreg.CUDA) == "half-open"
     got = kreg.dispatch("merge_join", a, b, ma, mb, merge=_prod,
@@ -511,7 +511,7 @@ def test_unsupported_merges_do_not_quarantine_the_card(monkeypatch):
     with ServeEngine(s, cse=False, n_threads=1, retry_backoff_s=0.0) as eng:
         for _ in range(3):
             with pytest.raises(NotImplementedError):
-                eng.run(A.join(B, "RID=RID AND CID=CID", _cubic),
+                eng.run(A.join(B, "RID=RID AND CID=CID", _erf),
                         tenant="t0", timeout=60.0)
         got = eng.run(A.join(B, "RID=RID AND CID=CID", _prod),
                       tenant="t1", timeout=60.0)

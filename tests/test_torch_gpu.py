@@ -590,11 +590,36 @@ def test_masked_matmul_load_paths_agree_bit_for_bit(cuda, view):
     torch.testing.assert_close(got, want, atol=0, rtol=0)
 
 
-def test_masked_matmul_refuses_float64(cuda):
-    a = torch.zeros(8, 8, dtype=torch.float64, device=cuda)
-    with pytest.raises(TypeError, match="float32/bfloat16"):
-        masked_matmul_cuda(a, a, torch.ones(1, 1, dtype=torch.bool,
-                                            device=cuda), block_size=8)
+@pytest.mark.parametrize("shape,k,bs", [((300, 257), 7, 16),
+                                        ((1024, 768), 32, 256),
+                                        ((520, 299), 300, 64)])
+@pytest.mark.parametrize("density", [0.0, 0.4, 1.0])
+def test_masked_matmul_float64_matches_plain(cuda, shape, k, bs, density):
+    """The float64 instance accumulates in double, as the Pallas body and
+    the plain version do: within 1e-10 of the plain version, the same bits
+    at every kc of the grid and from launch to launch, zeros under dead
+    tiles; a transposed view gives the same bits."""
+    from repro_torch.kernels import masked_matmul as mm
+    rng = np.random.default_rng(16)
+    m, n = shape
+    a = torch.as_tensor(rng.normal(size=(m, k)), dtype=torch.float64,
+                        device=cuda)
+    b = torch.as_tensor(rng.normal(size=(k, n)), dtype=torch.float64,
+                        device=cuda)
+    mask = _mask(rng, shape, bs, density, cuda)
+    before = build.LAUNCHES["masked_matmul"]
+    got = masked_matmul_cuda(a, b, mask, block_size=bs)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["masked_matmul"] == before + 1
+    want = masked_matmul_plain(a, b, mask, block_size=bs)
+    assert got.dtype == torch.float64 and got.shape == (m, n)
+    torch.testing.assert_close(got, want, atol=1e-10, rtol=0)
+    assert bool((got[~_expand(mask, shape, bs)] == 0).all())
+    for tiles in mm.GRID:
+        assert torch.equal(masked_matmul_cuda(a, b, mask, block_size=bs,
+                                              tiles=tiles), got)
+    at, bt = a.T.contiguous().T, b.T.contiguous().T
+    assert torch.equal(masked_matmul_cuda(at, bt, mask, block_size=bs), got)
 
 
 def _agg_inputs(rng, shape, k, bs, density, dtype, device):
@@ -832,9 +857,10 @@ def test_faulted_cuda_dispatch_raises_then_quarantines(cuda, monkeypatch):
 
 
 def test_unsupported_merges_leave_the_card_serving(cuda, monkeypatch):
-    """Three tickets whose overlay ``merge_join_cuda`` refuses (a merge of
-    degree 3) fail alone: no launch, no retry, the breaker stays closed,
-    and another tenant's supported overlay then launches the kernel."""
+    """Three tickets whose overlay ``merge_join_cuda`` refuses (a merge
+    outside the merge compiler's set) fail alone: no launch, no retry,
+    the breaker stays closed, and another tenant's supported overlay then
+    launches the kernel."""
     from repro_torch.core import Session
     from repro_torch.core.sparsity import product_merge
     from repro_torch.kernels import registry
@@ -847,8 +873,8 @@ def test_unsupported_merges_leave_the_card_serving(cuda, monkeypatch):
     a[:64, :] = 0.0
     b[:, :64] = 0.0                          # 9 of 16 blocks live
 
-    def cubic(x, y):
-        return x * x * y
+    def erf(x, y):                 # outside the merge compiler's set
+        return torch.erf(x) * y
 
     s = Session(block_size=64, device="cuda")
     A, B = s.load(a, "A"), s.load(b, "B")
@@ -856,7 +882,7 @@ def test_unsupported_merges_leave_the_card_serving(cuda, monkeypatch):
     with ServeEngine(s, cse=False, n_threads=1, retry_backoff_s=0.0) as eng:
         for _ in range(3):
             with pytest.raises(NotImplementedError):
-                eng.run(A.join(B, "RID=RID AND CID=CID", cubic),
+                eng.run(A.join(B, "RID=RID AND CID=CID", erf),
                         tenant="t0", timeout=120.0)
         assert build.LAUNCHES["merge_join"] == before
         got = eng.run(A.join(B, "RID=RID AND CID=CID", product_merge()),
@@ -1391,3 +1417,117 @@ def test_dryrun_trace_matches_the_train_step_on_the_card(cuda):
     assert abs(fc.get_total_flops() / pred.stats.dot_flops - 1) <= 1e-3
     assert abs(pred.stats.peak_bytes / peak - 1) <= 0.10, \
         (pred.stats.peak_bytes, peak)
+
+
+# ---------------------------------------------------------------------------
+# general merges: the program instances of merge_join and coo_expand
+# ---------------------------------------------------------------------------
+
+def _merge_case(name):
+    """(merge, exact, device of the plain version it is held to): a merge
+    that divides by a constant is held to the plain version on the CPU,
+    which divides as the kernels do (torch on the card multiplies by the
+    reciprocal)."""
+    from torch_merge_cases import CARD_RECIPROCAL, GENERAL
+    fn, exact = GENERAL[name]
+    return fn, exact, "cpu" if name in CARD_RECIPROCAL else "cuda"
+
+
+def _general_names():
+    from torch_merge_cases import GENERAL
+    return sorted(GENERAL)
+
+
+@pytest.mark.parametrize("shape,bs", [((80, 72), 16), ((67, 70), 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", _general_names())
+def test_merge_join_program_matches_plain(cuda, name, dtype, shape, bs):
+    """Every merge of the compiler's tests through the program instance
+    (16-byte lanes and element by element), on random values and every
+    pair of special values: bit for bit for the exact ops, within
+    TRANSCENDENTAL_ULPS for the others."""
+    from torch_merge_cases import check, operands
+    fn, exact, plain_on = _merge_case(name)
+    xs, ys = operands(21, {torch.float32: "float32",
+                           torch.float64: "float64"}[dtype])
+    a = torch.as_tensor(np.resize(xs, shape), device=cuda)
+    b = torch.as_tensor(np.resize(ys, shape), device=cuda)
+    rng = np.random.default_rng(5)
+    ma, mb = _mask(rng, shape, bs, 0.6, cuda), _mask(rng, shape, bs, 0.6,
+                                                     cuda)
+    for mode in (MODE_ALL, MODE_BOTH):
+        kw = dict(merge=fn, mode=mode, block_size=bs)
+        before = dict(build.PROGRAM_LAUNCHES)
+        got = merge_join_cuda(a, b, ma, mb, **kw)
+        torch.cuda.synchronize()
+        assert build.PROGRAM_LAUNCHES["merge_join"] == \
+            before["merge_join"] + 1
+        want = merge_join_plain(*(t.to(plain_on) for t in (a, b, ma, mb)),
+                                **kw)
+        check(got.cpu(), want.cpu(), exact, name)
+
+
+@pytest.mark.parametrize("vt", [4, 6, 8])
+@pytest.mark.parametrize("dtype,cdt,ca,cb", [
+    (torch.float32, torch.int16, 2, 1), (torch.float32, torch.int32, 2, 2),
+    (torch.float64, torch.int16, 2, 2), (torch.float64, torch.int32, 1, 3)])
+@pytest.mark.parametrize("name", ["gated", "maximum", "square", "quotient",
+                                  "every_register", "logic", "exp_log1p",
+                                  "pow", "clamp", "flipped_gated"])
+def test_coo_expand_program_matches_plain(cuda, name, dtype, cdt, ca, cb,
+                                          vt):
+    """The program instance takes every width and every vt of the grid, in
+    float32 and float64 (a tuned vt never refuses a general merge), with
+    special values among the operands."""
+    from torch_merge_cases import SPECIALS, check
+    fn, exact, plain_on = _merge_case(name)
+    rng = np.random.default_rng(8)
+    ins, cap, _ = _expand_inputs(rng, 3000, 2000, cb, 0.5, dtype, cdt,
+                                 cap_extra=37)
+    ends, delta, av, ac, bv, bc = ins
+    with np.errstate(over="ignore"):
+        sp = torch.as_tensor(SPECIALS.astype(
+            "float32" if dtype == torch.float32 else "float64"), dtype=dtype)
+    av[::7] = sp[torch.arange(0, av.numel(), 7) % sp.numel()]
+    bv[::5] = sp[torch.arange(0, bv.numel(), 5) % sp.numel()]
+    ac = torch.as_tensor(rng.integers(0, 1000, (ac.shape[0], ca)), dtype=cdt)
+    ins = [x.to(cuda) for x in (ends, delta, av, ac, bv, bc)]
+    before = dict(build.PROGRAM_LAUNCHES)
+    idx_k, val_k = coo_expand_cuda(*ins, merge=fn, cap=cap,
+                                   tiles={"vt": vt})
+    torch.cuda.synchronize()
+    assert build.PROGRAM_LAUNCHES["coo_expand"] == before["coo_expand"] + 1
+    idx_p, val_p = coo_expand_plain(*(t.to(plain_on) for t in ins), merge=fn,
+                                    cap=cap)
+    assert torch.equal(idx_k.cpu(), idx_p.cpu())
+    check(val_k.cpu(), val_p.to(dtype).cpu(), exact, name)
+
+
+def test_general_merges_through_the_session_on_the_card(cuda):
+    """The gated merge in an overlay and a D2D join through
+    ``Session(device="cuda")``: the program instances launch, and the
+    results equal the same queries on the CPU."""
+    from repro_torch.core import Session
+    from repro_torch.core.expr import MergeFn
+    rng = np.random.default_rng(9)
+    n, bs = 512, 64
+    a = np.round(np.where(rng.uniform(size=(n, n)) < 0.02,
+                          rng.normal(size=(n, n)) * 8, 0), 1)
+    b = np.round(np.where(rng.uniform(size=(n, n)) < 0.02,
+                          rng.normal(size=(n, n)) * 8, 0), 1)
+    a[:bs] = 0.0
+    a, b = a.astype(np.float32), b.astype(np.float32)
+    gated = MergeFn("gated_card", lambda x, y: torch.where(
+        x > 0, torch.where(x < 10, x + y, 0.0), 0.0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = Session(block_size=bs, device=dev)
+        A, B = s.load(a, "A"), s.load(b, "B")
+        build.reset_launches()
+        out[dev] = (A.join(B, "RID=RID AND CID=CID", gated).collect(),
+                    A.join(B, "RID=RID", gated).collect())
+    assert build.PROGRAM_LAUNCHES == {"merge_join": 1, "coo_expand": 1}
+    (oc, dc), (og, dg) = out["cpu"], out["cuda"]
+    assert torch.equal(og.value.cpu(), oc.value)
+    assert np.array_equal(dg.idx, dc.idx)
+    np.testing.assert_array_equal(dg.val, dc.val)

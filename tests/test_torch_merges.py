@@ -1,0 +1,378 @@
+"""General merges on the CPU: the merge compiler (``kernels.merge_codes``)
+against the merges themselves, the sparsity probe against the JAX
+package's, joins with general merges through the port's ``Session``
+against the reference's ``collect()`` (through the plain versions, and
+through stand-in ``cuda`` kernels that run the compiled code), and the
+float64 ``masked_matmul`` against the Pallas body in interpret mode.
+
+Tolerances: the compiler's host interpreter (``evaluate``) bit for bit
+for the IEEE-exact ops, within ``TRANSCENDENTAL_ULPS`` for the others
+(``tests/torch_merge_cases.py``); joins exact (values, coordinates and
+NaN places); float64 products atol 1e-10 (``tests/test_kernels_fused.py``).
+"""
+import gc
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import Session as JSession
+from repro.core import sparsity as j_sparsity
+from repro.core.expr import MergeFn as JMergeFn
+from repro.kernels.masked_matmul import masked_matmul_pallas
+from repro_torch.core import Session
+from repro_torch.core import sparsity as t_sparsity
+from repro_torch.core.expr import MergeFn
+from repro_torch.core.sparsity import (
+    left_merge, product_merge, safe_div, safe_div_merge, sum_merge,
+)
+from repro_torch.kernels import merge_codes as mc
+from repro_torch.kernels import registry as kreg
+from repro_torch.kernels.coo_join import coo_expand_plain
+from repro_torch.kernels.masked_matmul import masked_matmul_plain
+from repro_torch.kernels.merge_join import live_tiles
+from torch_merge_cases import GENERAL, REFUSED, check, operands
+
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+# ---------------------------------------------------------------------------
+# the compiler
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(GENERAL))
+def test_compiled_merge_equals_the_merge(name, dtype):
+    fn, exact = GENERAL[name]
+    code = mc.merge_code(fn)
+    assert code.op == mc.PROGRAM, name
+    assert len(code.code) <= mc.MAX_CODE
+    assert len(code.consts) <= mc.MAX_CONSTS
+    xs, ys = operands(7, dtype)
+    x, y = torch.from_numpy(xs), torch.from_numpy(ys)
+    want = fn(x, y)
+    want = (want if isinstance(want, torch.Tensor)
+            else torch.tensor(want)).to(x.dtype).expand_as(x)
+    got = mc.evaluate(code, x, y)
+    assert got.dtype == x.dtype
+    check(got, want, exact, name)
+
+
+def test_program_uses_every_register():
+    """x and y in r0 and r1, six temporaries in r2..r7, all live at once
+    (the sixth is written while the other seven are still to be read)."""
+    code = mc.merge_code(GENERAL["every_register"][0])
+    assert {ins[1] for ins in code.code} | {0, 1} == set(range(mc.N_REGS))
+    assert [ins[1] for ins in code.code[:6]] == [2, 3, 4, 5, 6, 7]
+
+
+def test_programs_of_the_gated_merge_and_its_flip():
+    """``where(x < 10, x + y, 0)``: a compare, an add, a select, two
+    constants; the flipped merge compares y."""
+    lt, add, where = mc.LT, mc.ADD, mc.WHERE
+    k = mc.N_REGS
+    assert mc.merge_code(GENERAL["gated"][0]) == mc.MergeCode(
+        mc.PROGRAM, code=((lt, 2, 0, k, 0), (add, 1, 0, 1, 0),
+                          (where, 0, 2, 1, k + 1)), consts=(10.0, 0.0))
+    flip = mc.merge_code(GENERAL["flipped_gated"][0])
+    assert flip.code[0] == (lt, 2, 1, k, 0)
+    assert flip.consts == (10.0, 0.0)
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_refused_merges_name_their_cause(name):
+    fn, cause = REFUSED[name]
+    with pytest.raises(NotImplementedError, match=re.escape(cause)):
+        mc.merge_code(fn)
+    with pytest.raises(NotImplementedError, match="general merges"):
+        mc.merge_code(fn)                    # the cached refusal too
+
+
+@pytest.mark.parametrize("fn,coeffs", [
+    (product_merge().fn, (0, 0, 0, 1)),
+    (sum_merge().fn, (0, 1, 1, 0)),
+    (lambda x, y: x - y, (0, 1, -1, 0)),
+    (left_merge().fn, (0, 1, 0, 0)),
+    (lambda x, y: 2.0 * x * y + x, (0, 1, 0, 2)),
+    (lambda x, y: x / 4 + y * 0.1, (0, 0.25, 0.1, 0)),
+    (lambda x, y: -(x * y) / 0.5 + 3, (3, 0, 0, -2)),
+], ids=["mul", "add", "sub", "left", "affine", "quarter", "half"])
+def test_bilinear_codes_do_not_change(fn, coeffs):
+    code = mc.merge_code(fn)
+    assert code.op == mc.BILINEAR
+    assert code.coeffs == tuple(float(c) for c in coeffs)
+    assert code.code == () and code.program is None
+
+
+def test_safe_division_keeps_its_code_and_division_by_three_does_not():
+    for merge in (safe_div_merge(), safe_div):
+        assert mc.merge_code(merge) == mc.MergeCode(mc.SAFE_DIV)
+    # 1/3 has no exact float: x / 3 is a division, not a multiplication
+    code = mc.merge_code(lambda x, y: x / 3)
+    assert code.op == mc.PROGRAM
+    assert code.code == ((mc.DIV, 0, 0, mc.N_REGS, 0),)
+    assert code.consts == (3.0,)
+
+
+def test_the_host_struct_encodes_the_program():
+    code = mc.merge_code(GENERAL["gated"][0])
+    p = code.program
+    assert p.n == 3
+    for word, (op, d, a, b, c) in zip(p.code, code.code):
+        assert (word & 63, word >> 6 & 7, word >> 9 & 31, word >> 14 & 31,
+                word >> 19 & 31) == (op, d, a, b, c)
+    assert list(p.consts[:2]) == [10.0, 0.0]
+    assert code.program_ptr() is not None
+    assert mc.MergeCode(mc.BILINEAR).program_ptr() is None
+
+
+def test_a_cached_code_dies_with_its_callable():
+    """The cache holds callables weakly and no entry refers back: when a
+    merge is collected its entry goes, so a later lambda (perhaps at the
+    same address) is compiled anew."""
+    gc.collect()
+    n0 = len(mc._CACHE)
+    f = eval("lambda x, y: torch.maximum(x, y) * 2.0", {"torch": torch})
+    g = eval("lambda x, y: torch.erf(x)", {"torch": torch})
+    assert mc.merge_code(f).op == mc.PROGRAM
+    with pytest.raises(NotImplementedError):
+        mc.merge_code(g)
+    assert len(mc._CACHE) == n0 + 2
+    del f, g
+    gc.collect()
+    assert len(mc._CACHE) == n0
+    h = eval("lambda x, y: torch.minimum(x, y)", {"torch": torch})
+    assert mc.merge_code(h).code[0][0] == mc.MIN
+
+
+# ---------------------------------------------------------------------------
+# the sparsity probe against the JAX package's
+# ---------------------------------------------------------------------------
+
+PROBED = {
+    "where_pos": (lambda x, y: jnp.where(x > 0, x * y, 0),
+                  lambda x, y: torch.where(x > 0, x * y, 0)),
+    "gated": (lambda x, y: jnp.where(x < 10, x + y, 0.0),
+              lambda x, y: torch.where(x < 10, x + y, 0.0)),
+    "maximum": (jnp.maximum, torch.maximum),
+    "minimum": (jnp.minimum, torch.minimum),
+    "abs_times": (lambda x, y: jnp.abs(x) * y, lambda x, y: torch.abs(x) * y),
+    "xxy": (lambda x, y: x * x * y,) * 2,
+    "mul": (lambda x, y: x * y,) * 2,
+    "add": (lambda x, y: x + y,) * 2,
+    "sub": (lambda x, y: x - y,) * 2,
+    "left": (lambda x, y: x,) * 2,
+    "quotient": (lambda x, y: x / y,) * 2,
+}
+
+
+@pytest.fixture
+def fresh_merge_profiles():
+    """Both packages cache merge profiles by name: start from empty
+    caches and restore them afterwards."""
+    saved = dict(j_sparsity._CACHE), dict(t_sparsity._CACHE)
+    j_sparsity._CACHE.clear()
+    t_sparsity._CACHE.clear()
+    yield
+    for cache, old in zip((j_sparsity._CACHE, t_sparsity._CACHE), saved):
+        cache.clear()
+        cache.update(old)
+
+
+@pytest.mark.parametrize("name", sorted(PROBED))
+def test_probe_matches_reference(fresh_merge_profiles, name):
+    jf, tf = PROBED[name]
+    want = j_sparsity.analyze_merge(JMergeFn(f"probe_{name}", jf))
+    got = t_sparsity.analyze_merge(MergeFn(f"probe_{name}", tf))
+    assert (got.inducing_x, got.inducing_y) == (want.inducing_x,
+                                                want.inducing_y)
+
+
+def _strip_backends(text: str) -> str:
+    return re.sub(r"backend=\S+", "backend=*", text)
+
+
+def test_gated_overlay_cost_and_explain_match_reference(
+        fresh_merge_profiles):
+    """``where(x > 0, x*y, 0)`` induces sparsity on both sides: the
+    optimizer costs the overlay over A's live blocks alone, as the
+    reference does (the probe once called it on Python floats, where
+    ``torch.where`` raises, and costed every block)."""
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=(32, 32)).astype(np.float32)
+    a[:16, :16] = 0.0
+    b = rng.normal(size=(32, 32)).astype(np.float32)
+    jm = JMergeFn("gated_pos", PROBED["where_pos"][0])
+    tm = MergeFn("gated_pos", PROBED["where_pos"][1])
+    js, ts = JSession(block_size=8), Session(block_size=8, device="cpu")
+    jq = js.load(a, "A").join(js.load(b, "B"), "RID=RID AND CID=CID", jm)
+    tq = ts.load(a, "A").join(ts.load(b, "B"), "RID=RID AND CID=CID", tm)
+    assert "(cost 1792)" in tq.explain()
+    assert tq.explain() == jq.explain()
+    assert _strip_backends(tq.explain(physical=True)) == _strip_backends(
+        jq.explain(physical=True))
+    np.testing.assert_array_equal(tq.collect().value.numpy(),
+                                  np.asarray(jq.collect().value))
+
+
+# ---------------------------------------------------------------------------
+# joins with general merges through the Session
+# ---------------------------------------------------------------------------
+
+JOIN_MERGES = {
+    "gated": (lambda x, y: jnp.where(x < 10, x + y, 0.0),
+              lambda x, y: torch.where(x < 10, x + y, 0.0)),
+    "gated_pos": PROBED["where_pos"],
+    "maximum": (jnp.maximum, torch.maximum),
+    "square": (lambda x, y: x * x,) * 2,
+    "quotient": (lambda x, y: x / y,) * 2,
+}
+PREDS = {"overlay": "RID=RID AND CID=CID", "d2d": "RID=RID",
+         "v2v": "VAL=VAL"}
+
+
+def _join_operands():
+    """32 x 32 operands at block 8: sparse, one empty block row in A and a
+    dead block in B, values rounded so that VAL=VAL finds matches."""
+    rng = np.random.default_rng(11)
+    a = np.round(np.where(rng.uniform(size=(32, 32)) < 0.3,
+                          rng.normal(size=(32, 32)) * 3, 0), 1)
+    b = np.round(np.where(rng.uniform(size=(32, 32)) < 0.3,
+                          rng.normal(size=(32, 32)) * 3, 0), 1)
+    a[:8] = 0.0
+    b[8:16, 8:16] = 0.0
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+def _collect_both(pred, merge):
+    jf, tf = JOIN_MERGES[merge]
+    a, b = _join_operands()
+    js, ts = JSession(block_size=8), Session(block_size=8, device="cpu")
+    name = f"join_{merge}"
+    want = js.load(a, "A").join(js.load(b, "B"), PREDS[pred],
+                                JMergeFn(name, jf)).collect()
+    got = ts.load(a, "A").join(ts.load(b, "B"), PREDS[pred],
+                               MergeFn(name, tf)).collect()
+    return got, want
+
+
+def _assert_same_result(got, want):
+    if hasattr(want, "idx"):
+        assert np.array_equal(got.idx, np.asarray(want.idx))
+        np.testing.assert_array_equal(np.asarray(got.val),
+                                      np.asarray(want.val))
+    else:
+        np.testing.assert_array_equal(got.value.numpy(),
+                                      np.asarray(want.value))
+
+
+@pytest.mark.parametrize("merge", sorted(JOIN_MERGES))
+@pytest.mark.parametrize("pred", sorted(PREDS))
+def test_join_with_general_merge_matches_reference(fresh_merge_profiles,
+                                                   pred, merge):
+    got, want = _collect_both(pred, merge)
+    _assert_same_result(got, want)
+
+
+def _compiled_merge_join(a, b, mask_a, mask_b, *, merge, mode=3,
+                         block_size=256, tiles=None):
+    """What ``merge_join_cuda`` computes, with the compiled code run by
+    ``evaluate`` in place of the kernel's interpreter."""
+    live = live_tiles(mask_a, mask_b, mode)
+    big = live.repeat_interleave(block_size, 0) \
+        .repeat_interleave(block_size, 1)[: a.shape[0], : a.shape[1]]
+    out = mc.evaluate(mc.merge_code(merge), a, b)
+    return torch.where(big, out, torch.zeros((), dtype=a.dtype))
+
+
+def _compiled_coo_expand(ends, delta, a_vals, a_coords, b_vals, b_coords, *,
+                         merge, cap, tiles=None):
+    """What ``coo_expand_cuda`` computes, the merge by ``evaluate``."""
+    code = mc.merge_code(merge)
+    return coo_expand_plain(
+        ends, delta, a_vals, a_coords, b_vals, b_coords, cap=cap,
+        merge=lambda x, y: mc.evaluate(code, x, y))
+
+
+@pytest.fixture
+def compiled_card(monkeypatch):
+    """Every device claims the ``cuda`` backend; its ``merge_join`` and
+    ``coo_expand`` compile the merge (refusing as the card's wrappers do)
+    and run it with ``evaluate``, the other kernels are their plain
+    versions. Returns the merges each of the two ran."""
+    ran = {"merge_join": [], "coo_expand": []}
+    stand_ins = {"merge_join": _compiled_merge_join,
+                 "coo_expand": _compiled_coo_expand}
+    for name in kreg.kernels():
+        spec = kreg.get(name)
+        impl = stand_ins.get(name, spec.impls[kreg.TORCH])
+        if name in stand_ins:
+            def impl(*args, _impl=impl, _name=name, **kw):
+                ran[_name].append(mc.merge_code(kw["merge"]).op)
+                return _impl(*args, **kw)
+        monkeypatch.setitem(spec.impls, kreg.CUDA, impl)
+    monkeypatch.setattr(kreg, "backend_for", lambda device: kreg.CUDA)
+    return ran
+
+
+@pytest.mark.parametrize("merge", sorted(JOIN_MERGES))
+@pytest.mark.parametrize("pred", ["overlay", "d2d"])
+def test_join_through_the_compiler_matches_plain(fresh_merge_profiles,
+                                                 compiled_card, pred, merge):
+    """The Session reaches the compiler: the same join with the stand-in
+    kernels gives the plain run's result, and the kernel ran a program
+    (an overlay whose merge induces no sparsity skips no block and runs
+    the merge itself, as the reference's planner does)."""
+    a, b = _join_operands()
+    tf = JOIN_MERGES[merge][1]
+    results = []
+    for backend in (kreg.TORCH, kreg.CUDA):
+        s = Session(block_size=8, device="cpu")
+        if backend == kreg.TORCH:
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setattr(kreg, "backend_for", lambda device: kreg.TORCH)
+                results.append(s.load(a, "A").join(
+                    s.load(b, "B"), PREDS[pred],
+                    MergeFn(f"c_{merge}", tf)).collect())
+        else:
+            results.append(s.load(a, "A").join(
+                s.load(b, "B"), PREDS[pred],
+                MergeFn(f"c_{merge}", tf)).collect())
+    kernel = "merge_join" if pred == "overlay" else "coo_expand"
+    skips = pred == "d2d" or merge in ("gated_pos", "square", "quotient")
+    assert compiled_card[kernel] == [mc.PROGRAM] * skips, compiled_card
+    _assert_same_result(results[1], results[0])
+
+
+# ---------------------------------------------------------------------------
+# float64 masked_matmul
+# ---------------------------------------------------------------------------
+
+def test_masked_matmul_float64_plain_matches_pallas():
+    """The plain version accumulates float64 in float64, as the Pallas body
+    does (``preferred_element_type`` = promote_types(f64, f32)); the JAX
+    package's dense oracle rounds through float32 instead."""
+    rng = np.random.default_rng(3)
+    a = rng.normal(size=(128, 96))
+    b = rng.normal(size=(96, 192))
+    mask = rng.uniform(size=(4, 6)) < 0.5
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        want = np.asarray(masked_matmul_pallas(
+            jnp.asarray(a), jnp.asarray(b), jnp.asarray(mask), bm=32, bn=32,
+            bk=32, interpret=True))
+    finally:
+        jax.config.update("jax_enable_x64", old)
+    assert want.dtype == np.float64
+    got = masked_matmul_plain(torch.from_numpy(a), torch.from_numpy(b),
+                              torch.from_numpy(mask), block_size=32)
+    assert got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-10, rtol=0)
+    # the float32 oracle is further off than that
+    f32 = (a.astype(np.float32) @ b.astype(np.float32)).astype(np.float64)
+    big = np.kron(mask, np.ones((32, 32), bool))
+    assert np.abs(np.where(big, f32, 0.0) - want).max() > 1e-10
