@@ -59,19 +59,25 @@ which the main path builds over B's compacted entries, is held bit for
 bit to the plain ``bloom.build`` over all of B's cells (x*y skips
 zeros), with both builds' device times.
 
-The merges phase (``kernels.merge_codes``: general merges compiled to
-register programs) runs nine merges (the JAX package's gated merge,
+The merges phase (``kernels.merge_codes``: a general merge traced, emitted
+as C++ and compiled by nvcc into its own instances of both kernels) builds
+twenty merges' libraries together (the JAX package's gated merge,
 NaN-propagating ``maximum``, a square, a quotient, ``abs``, ``clamp``,
-``exp``/``log1p``, ``pow``, a flipped gated merge) through the program
+``exp``/``log1p``, ``pow``, a flipped gated merge; then ``erf``,
+trigonometry, rounding, remainder and floor division, ``atan2``,
+``fmax``, int64 and bool arithmetic, a forty-op chain, ten live values;
+``clamp`` and ``pow`` by a tensor), runs each through its generated
 instances of ``merge_join`` on Q3's operands and ``coo_expand`` on Q4's
 and Q5's captured inputs, each held to its plain version on the card (bit
 for bit, the transcendental ones within ``MERGE_ULPS``) and timed beside
-the bilinear instance, then the same merges on NaN, ±inf, ±0 and
-subnormals in float32 and float64, and the gated merge (made
-sparsity-inducing) in an overlay and a D2D join through
-``Session(device="cuda")`` against the CPU; the program launches must
-rise. Then the float64 ``masked_matmul`` on the PNMF product, within
-``MM_F64_ATOL`` of its plain version.
+its byte bound, the bilinear instance and, where one PyTorch call
+computes the same result, that call, with its cold and warm build
+seconds; then the same merges on NaN, ±inf, ±0 and subnormals in float32
+and float64, and the gated merge (made sparsity-inducing) in an overlay
+and a D2D join and an ``erf`` overlay through ``Session(device="cuda")``
+against the CPU; the generated launches must rise. Then the float64
+``masked_matmul`` on the PNMF product, within ``MM_F64_ATOL`` of its
+plain version.
 
 The serving phase comes last. Q1–Q10 go three times each through one
 ``ServeEngine`` (cross-query CSE, two worker threads, one ticket a batch);
@@ -168,12 +174,13 @@ torch.profiler's kernels.
 
 Output: the card's name and power limit (``nvidia-smi``), the build time,
 after a fresh build the ptxas registers and spills of every instance of
-the three kernels with a launch parameter and of the program and float64
-instances, one line per query and kernel, the merges, serving,
+the three kernels with a launch parameter and of the float64 instance
+(each generated merge's on its merges line), one line per query and
+kernel, the merges, serving,
 autotune, CF, demo, LM, training and dry-run lines (each with the card's
 name and power limit), a ``{"kernels":
 [...]}`` JSON line (with each tuned kernel's default and best tiles, the
-program launches of ``merge_join`` and ``coo_expand`` in the merges
+generated launches of ``merge_join`` and ``coo_expand`` in the merges
 phase, and the float64 ``masked_matmul``'s numbers),
 and as the last line ``{"ok": true, "device": {"platform": "gpu",
 ...}}``. Any failure raises and exits non-zero without that line.
@@ -181,6 +188,7 @@ and as the last line ``{"ok": true, "device": {"platform": "gpu",
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import math
@@ -277,9 +285,9 @@ DRYRUN_BLOCKS = 1
 DRYRUN_DECODE = (4, 160, 16)     # batch, positions, timed decode steps
 DRYRUN_FLOP_RTOL = 1e-3          # predicted dot flops against measured
 DRYRUN_PEAK_RTOL = 0.10          # predicted peak against max allocated
-# the merges phase: general merges in the program instances; the
-# transcendental ones (exp/log1p, pow) within MERGE_ULPS of the plain
-# version (CUDA's math library on both sides; a few ulp between its
+# the merges phase: general merges in their generated instances; the
+# transcendental ones (exp/log1p, pow, erf, ...) within MERGE_ULPS of the
+# plain version (CUDA's math library on both sides; a few ulp between its
 # functions' builds), the IEEE-exact ones bit for bit
 MERGE_ULPS = 4
 MM_F64_ATOL = 1e-10            # the float64 masked_matmul against its plain
@@ -1355,13 +1363,9 @@ _TYPES = {"f": "float", "d": "double", "s": "int16", "i": "int32",
 # argument: vt, kc, threads), by their mangled names
 _INSTANCES = (
     (re.compile(r"coo_expand_kernelI([fd])([si])Li(\d+)ELi(\d+)ELi(\d+)E"
-                r"Lb([01])E"),
+                r"9MergeCode"),
      lambda m: f"coo_expand_kernel<{_TYPES[m[1]]}, {_TYPES[m[2]]}, {m[3]}, "
-               f"{m[4]}, vt {m[5]}{', program' if m[6] == '1' else ''}>"),
-    # merge_join: its program instances (value type, 16-byte lanes)
-    (re.compile(r"merge_join_kernelI([fd])Lb([01])ELb1E"),
-     lambda m: f"merge_join_kernel<{_TYPES[m[1]]}, "
-               f"{'vector' if m[2] == '1' else 'scalar'}, program>"),
+               f"{m[4]}, vt {m[5]}>"),
     (re.compile(r"masked_matmul_f64_kernelILi(\d+)E"),
      lambda m: f"masked_matmul_f64_kernel<kc {m[1]}>"),
     (re.compile(r"masked_matmul_kernelI(f|13__nv_bfloat16)Li(\d+)E"),
@@ -1369,17 +1373,20 @@ _INSTANCES = (
     (re.compile(r"bloom_probe_sharedILi(\d+)ELi(\d+)E"),
      lambda m: f"bloom_probe_shared<K {m[1]}, threads {m[2]}>"),
 )
+# a generated merge's instances: kernel, value type, merge_join's path or
+# coo_expand's coordinate type
+_GENERATED = re.compile(r"(merge_join|coo_expand)_kernelI([fd])(Lb1|Lb0|[si])")
 
 
-def ptxas_usage(log: str) -> list:
-    """One line per instance of the three kernels with a launch parameter,
-    and per program instance of ``merge_join`` and ``coo_expand``, from
-    nvcc's ``-Xptxas -v`` log: its registers, stack frame and spills."""
+def ptxas_usage(log: str, patterns=_INSTANCES) -> list:
+    """One line per instance of the three kernels with a launch parameter
+    (or of ``patterns``) from nvcc's ``-Xptxas -v`` log: its registers,
+    stack frame and spills."""
     usage, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             entry = None
-            for pat, name in _INSTANCES:
+            for pat, name in patterns:
                 m = pat.search(line)
                 if m is not None:
                     entry = name(m)
@@ -1392,8 +1399,21 @@ def ptxas_usage(log: str) -> list:
     return [f"ptxas {name}: {u}" for name, u in sorted(usage.items())]
 
 
+def generated_usage(log: str) -> str:
+    """A generated merge's instances in one phrase: registers by instance
+    and the spill stores of all of them, from its ``-Xptxas -v`` log."""
+    name = {"Lb1": "vec", "Lb0": "scalar", "s": "i16", "i": "i32"}
+    rows = ptxas_usage(log, ((_GENERATED, lambda m: (
+        f"{m[1]} {_TYPES[m[2]]} {name[m[3]]}")),))
+    regs = [f"{r.split(': ')[0][6:]} {r.split(': ')[1].split(' ')[0]}"
+            for r in rows]
+    spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores",
+                                            log))
+    return f"registers {'; '.join(regs)}; spill stores {spills} B"
+
+
 # ---------------------------------------------------------------------------
-# The merges phase: general merges through the program instances of
+# The merges phase: general merges through their generated instances of
 # merge_join and coo_expand, and the float64 masked_matmul.
 # ---------------------------------------------------------------------------
 
@@ -1403,21 +1423,54 @@ def _gated(x, y):
     return torch.where(x < 10, x + y, 0.0)
 
 
+def _long(x, y):
+    """Forty ops in a chain."""
+    r = x
+    for _ in range(20):
+        r = r * y + x
+    return r
+
+
+def _wide(x, y):
+    """Ten values live at once."""
+    t = [x * x + float(k) for k in range(8)]
+    return sum(t[1:], t[0]) + y
+
+
 def general_merges():
-    """name: (merge, exact) for the merges phase; the exact ones hold IEEE
-    ops alone and are held bit for bit, the others within MERGE_ULPS."""
+    """name: (merge, exact, library) for the merges phase: the exact ones
+    hold IEEE ops alone and are held bit for bit, the others within
+    MERGE_ULPS; ``library`` is the one PyTorch call that computes the same
+    result over Q3's operands (each at its own mode), or None where no
+    single call does. Nine merges of the JAX package's kinds, one merge of
+    each further op group, and clamp and pow by a tensor, one call each."""
     import torch
     return {
-        "gated": (_gated, True),
-        "maximum": (torch.maximum, True),
-        "square": (lambda x, y: x * x, True),
-        "quotient": (lambda x, y: x / y, True),
-        "abs": (lambda x, y: torch.abs(x) - y, True),
-        "clamp": (lambda x, y: torch.clamp(x * y, -0.5, 0.5), True),
-        "flipped_gated": (lambda x, y: _gated(y, x), True),
+        "gated": (_gated, True, None),
+        "maximum": (torch.maximum, True, torch.maximum),
+        "square": (lambda x, y: x * x, True, lambda a, b: torch.square(a)),
+        "quotient": (lambda x, y: x / y, True, None),
+        "abs": (lambda x, y: torch.abs(x) - y, True, None),
+        "clamp": (lambda x, y: torch.clamp(x * y, -0.5, 0.5), True, None),
+        "flipped_gated": (lambda x, y: _gated(y, x), True, None),
         "exp_log1p": (lambda x, y: torch.exp(-torch.abs(x))
-                      * torch.log1p(torch.abs(y)), False),
-        "pow": (lambda x, y: torch.abs(x) ** 1.5 * y, False),
+                      * torch.log1p(torch.abs(y)), False, None),
+        "pow": (lambda x, y: torch.abs(x) ** 1.5 * y, False, None),
+        "erf": (lambda x, y: torch.erf(x) * y, False, None),
+        "trig": (lambda x, y: torch.sin(x) * torch.cos(y), False, None),
+        "rounding": (lambda x, y: torch.floor(x) + torch.round(y * 4), True,
+                     None),
+        "remainder": (lambda x, y: x % y + x // y, True, None),
+        "atan2": (torch.atan2, False, torch.atan2),
+        "fmax": (torch.fmax, True, torch.fmax),
+        "int_bool": (lambda x, y: (torch.where(x > 0, 7, -3)
+                                   * torch.where(y > 1, 2, -5)
+                                   + ((x > 0) + (y > 0))) * y, True, None),
+        "long": (_long, True, None),
+        "wide": (_wide, True, None),
+        "clamp_by_y": (lambda x, y: torch.clamp(x, min=y), True,
+                       lambda a, b: torch.clamp(a, min=b)),
+        "pow_xy": (lambda x, y: torch.pow(x, y), False, torch.pow),
     }
 
 
@@ -1463,21 +1516,53 @@ def _special_operands(seed, shape, dtype, device):
     return out
 
 
+def _build_merges(merges) -> tuple:
+    """Every merge's library built together (one nvcc a core), then each
+    loaded again from the disk cache: (cold wall of the batch, {name:
+    (nvcc s or the name of the merge whose library it shares, warm s,
+    ptxas phrase)})."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.merge_codes import merge_code
+    codes = {name: merge_code(fn) for name, (fn, _, _) in merges.items()}
+    t0 = time.perf_counter()
+    build.merge_libraries(codes.values())
+    wall = time.perf_counter() - t0
+    cold = {k: dict(v) for k, v in build.BUILD_INFO["merges"].items()}
+    first = {}
+    out = {}
+    for name, code in codes.items():
+        owner = first.setdefault(code.key, name)
+        # drop the loaded launchers: the next lookup hashes the unit and
+        # loads the library from build/repro_torch/merges/
+        build._MERGE_FNS.pop(code.key, None)
+        t0 = time.perf_counter()
+        build.merge_libraries([code])
+        warm = time.perf_counter() - t0
+        info = cold[code.key]
+        out[name] = (info.get("seconds", 0.0) if owner == name else owner,
+                     warm, generated_usage(info.get("log") or ""))
+    return wall, out
+
+
 def merges_phase(calls, env, n, card, on_card):
     """General merges on the main path's kernel inputs: ``merge_join`` on
     Q3's operands and ``coo_expand`` on Q4's (D2D) and Q5's (V2V), each
-    merge in the program instance against its plain version on the card
-    (the mode of a merge_join is its own sparsity profile's), with the
-    program's CUDA-event and device ms beside the bilinear (x*y) instance's
-    on the same inputs; a small case with NaN, ±inf, ±0 and subnormals in
-    float32 and float64. Then the gated merge made sparsity-inducing
-    (gated where x*y != 0) in an overlay and a D2D join through
-    ``Session(device="cuda")``, each equal to the port's CPU result, and
-    the float64 ``masked_matmul``. Each program's bound is the kernel
-    phase's (bytes of the live tiles, or of the inputs and slots). Returns
-    the lines, the program launches of each kernel over the phase and the
-    programs' device ms by kernel (and query). On the CPU (the rehearsal)
-    the kernels are the plain versions and only the Session part runs."""
+    merge in its generated instance against its plain version on the card
+    (the mode of a merge_join is its own sparsity profile's), with its
+    device ms beside its byte bound, the bilinear (x*y) instance's on the
+    same inputs and, where one PyTorch call computes the same result over
+    Q3, that call's (CUDA events and torch.profiler); each merge's cold
+    (nvcc, all built together) and warm (the disk cache) build seconds,
+    and the bilinear instance timed before and after the libraries load;
+    a small case with NaN, ±inf, ±0 and
+    subnormals in float32 and float64. Then the gated merge made
+    sparsity-inducing (gated where x*y != 0) in an overlay and a D2D join,
+    and an erf overlay, through ``Session(device="cuda")``, each equal to
+    the port's CPU result, and the float64 ``masked_matmul``. Returns the
+    lines, the generated launches of each kernel over the phase and the
+    generated instances' device ms by kernel (and query). On the CPU (the
+    rehearsal) the kernels are the plain versions and only the Session
+    part runs."""
     import torch
     from repro_torch.core import Session
     from repro_torch.core.expr import MergeFn
@@ -1489,70 +1574,73 @@ def merges_phase(calls, env, n, card, on_card):
     )
     lines, device_ms = [], {"merge_join": {}, "coo_expand": {}}
     t_phase = time.perf_counter()
-    before = dict(build.PROGRAM_LAUNCHES)
+    before = dict(build.GENERATED_LAUNCHES)
     merges = general_merges()
     if on_card:
-        # merge_join on Q3's operands
         (a, b, ma, mb), kw = calls["merge_join"][0]
         bs = kw["block_size"]
-        base = {"x*y": (cuda_time_ms(lambda: merge_join_cuda(a, b, ma, mb,
-                                                             **kw)),
-                        device_time_ms(lambda: merge_join_cuda(a, b, ma, mb,
-                                                               **kw)))}
-        rows = []
-        for name, (fn, exact) in merges.items():
+        xy = lambda: merge_join_cuda(a, b, ma, mb, **kw)  # noqa: E731
+        pre = (cuda_time_ms(xy), device_time_ms(xy))
+        wall, builds = _build_merges(merges)
+        base = (cuda_time_ms(xy), device_time_ms(xy))
+        libs = sum(not isinstance(c, str) for c, _, _ in builds.values())
+        lines.append(f"merges build: {len(merges)} merges, {libs} generated"
+                     f" libraries compiled together in {wall:.2f} s;"
+                     f" Q3 x*y {pre[0]:.4f}/{pre[1]:.4f} ms before, "
+                     f"{base[0]:.4f}/{base[1]:.4f} after (events/device) "
+                     f"[{card}]")
+        expand = {}
+        for q, (args, ckw) in zip(("Q4", "Q5"), calls["coo_expand"]):
+            kern = functools.partial(coo_expand_cuda, *args, **ckw)
+            ik, vk = kern()
+            bms, _ = bound(sum(t.nbytes for t in args) + ik.nbytes
+                           + vk.nbytes, 0)
+            expand[q] = (args, ckw, (cuda_time_ms(kern),
+                                     device_time_ms(kern)), bms)
+        for name, (fn, exact, library) in merges.items():
             # merge profiles are cached by name: one name a merge
             prof = analyze_merge(MergeFn(f"merges_kernel_{name}", fn))
             mkw = dict(merge=fn, mode=mode_for(prof.inducing_x,
                                                prof.inducing_y),
                        block_size=bs)
             kern = lambda mkw=mkw: merge_join_cuda(a, b, ma, mb, **mkw)  # noqa
-            bad = merge_mismatches(kern(), merge_join_plain(a, b, ma, mb,
-                                                            **mkw), exact)
+            got = kern()
+            bad = merge_mismatches(got, merge_join_plain(a, b, ma, mb,
+                                                         **mkw), exact)
             assert bad == 0, f"merge_join {name}: {bad} elements differ"
             live = int(live_tiles(ma, mb, mkw["mode"]).sum()) * bs * bs
             bms, _ = bound(2 * live * a.element_size() + ma.nbytes
                            + mb.nbytes + a.nbytes, live)
-            dev = device_time_ms(kern)
+            ev, dev = cuda_time_ms(kern), device_time_ms(kern)
             device_ms["merge_join"][name] = dev
-            rows.append(f"{name} {cuda_time_ms(kern):.4f}/{dev:.4f} (mode "
-                        f"{mkw['mode']}, bound {bms:.4f})")
-        lines.append(
-            f"merges merge_join [Q3 {tuple(a.shape)}, block {bs}]: x*y "
-            f"(bilinear, mode {kw['mode']}) {base['x*y'][0]:.4f}/"
-            f"{base['x*y'][1]:.4f} ms (events/device); programs: "
-            + ", ".join(rows) + f" ms; every one equal to its plain version "
-            f"(bits, or {MERGE_ULPS} ulp for exp/log1p and pow); bounds by "
-            f"bytes [{card}]")
-        # coo_expand on Q4's and Q5's inputs
-        for q, (args, kw) in zip(("Q4 D2D", "Q5 V2V"), calls["coo_expand"]):
-            times = {}
-            for name, (fn, exact) in [("x*y", (kw["merge"], None))] + list(
-                    merges.items()):
-                ckw = dict(kw, merge=fn)
-                kern = lambda ckw=ckw: coo_expand_cuda(*args, **ckw)  # noqa
-                (ik, vk), (ip, vp) = kern(), coo_expand_plain(*args, **ckw)
+            lib = "none"
+            if library is not None:
+                bad = merge_mismatches(got, library(a, b), exact)
+                assert bad == 0, f"{name}: the library call differs ({bad})"
+                call = lambda: library(a, b)  # noqa: E731
+                lib = f"{cuda_time_ms(call):.4f}/{device_time_ms(call):.4f}"
+            del got
+            parts = [f"merges {name}: merge_join Q3 {ev:.4f}/{dev:.4f} ms "
+                     f"(mode {mkw['mode']}, bound {bms:.4f}, x*y "
+                     f"{base[0]:.4f}/{base[1]:.4f}, library {lib})"]
+            for q, (args, ckw, xy, cbms) in expand.items():
+                ekw = dict(ckw, merge=fn)
+                ek = functools.partial(coo_expand_cuda, *args, **ekw)
+                (ik, vk), (ip, vp) = ek(), coo_expand_plain(*args, **ekw)
                 assert torch.equal(ik, ip), f"coo_expand {q} {name} idx"
-                if exact is None:
-                    # the bilinear instance, held as in the kernel phase
-                    # (it computes 0 + x*y: a -0 product reads +0)
-                    torch.testing.assert_close(vk, vp.to(vk.dtype),
-                                               atol=ATOL, rtol=RTOL)
-                else:
-                    bad = merge_mismatches(vk, vp.to(vk.dtype), exact)
-                    assert bad == 0, \
-                        f"coo_expand {q} {name}: {bad} values differ"
-                times[name] = (cuda_time_ms(kern), device_time_ms(kern))
-            device_ms["coo_expand"][q] = {k: d for k, (_, d) in
-                                          times.items() if k != "x*y"}
-            bms, _ = bound(sum(t.nbytes for t in args) + ik.nbytes
-                           + vk.nbytes, 0)
-            lines.append(
-                f"merges coo_expand [{q} cap={kw['cap']}]: " + ", ".join(
-                    f"{k} {e:.4f}/{d:.4f}" for k, (e, d) in times.items())
-                + f" ms (events/device; x*y is the bilinear instance, the "
-                f"others programs; bound {bms:.4f} ms by bytes); every slot "
-                f"equal to the plain version [{card}]")
+                bad = merge_mismatches(vk, vp.to(vk.dtype), exact)
+                assert bad == 0, f"coo_expand {q} {name}: {bad} values differ"
+                cev, cdev = cuda_time_ms(ek), device_time_ms(ek)
+                device_ms["coo_expand"].setdefault(q, {})[name] = cdev
+                parts.append(f"coo_expand {q} {cev:.4f}/{cdev:.4f} ms (bound "
+                             f"{cbms:.4f}, x*y {xy[0]:.4f}/{xy[1]:.4f})")
+            cold, warm, usage = builds[name]
+            parts.append(f"shares {cold}'s library" if isinstance(cold, str)
+                         else f"build cold {cold:.2f} s, warm {warm:.4f} s, "
+                         f"{usage}")
+            lines.append("; ".join(parts) + f"; equal to the plain versions "
+                         f"({'bits' if exact else f'{MERGE_ULPS} ulp'}); ms "
+                         f"by CUDA events/torch.profiler [{card}]")
         # the special values, float32 and float64
         for dtype in (torch.float32, torch.float64):
             x, y = _special_operands(5, (384, 320), dtype, a.device)
@@ -1564,7 +1652,7 @@ def merges_phase(calls, env, n, card, on_card):
             coords = torch.zeros((2000, 2), dtype=torch.int16,
                                  device=a.device)
             xv, yv = x.reshape(-1)[:2000], y.reshape(-1)[:2000]
-            for name, (fn, exact) in merges.items():
+            for name, (fn, exact, _) in merges.items():
                 mkw = dict(merge=fn, mode=3, block_size=128)
                 bad = merge_mismatches(merge_join_cuda(x, y, mk, mk, **mkw),
                                        merge_join_plain(x, y, mk, mk, **mkw),
@@ -1580,10 +1668,11 @@ def merges_phase(calls, env, n, card, on_card):
                      f"3e38) float32 and float64: {len(merges)} merges "
                      "through merge_join and coo_expand equal to the plain "
                      "versions")
-    # the Session: the gated merge made inducing, overlay and D2D on the
-    # top-left quarter of Q3's and Q4's operands
+    # the Session: the gated merge made inducing, overlay and D2D, and an
+    # erf overlay on the top-left quarter of Q3's and Q4's operands
     gated = MergeFn("merges_session_gated", lambda x, y: torch.where(
         x * y != 0, _gated(x, y), 0.0))
+    erf = MergeFn("merges_session_erf", lambda x, y: torch.erf(x) * y)
     half = n // 2
     ops = {k: env[k].value[:half, :half].contiguous()
            for k in ("Ao", "Bo", "A", "B")}
@@ -1591,32 +1680,36 @@ def merges_phase(calls, env, n, card, on_card):
     for dev in (("cpu", "cuda") if on_card else ("cpu",)):
         s = Session(block_size=256, device=dev)
         m = {k: s.load(v.to(dev), k) for k, v in ops.items()}
-        p0 = dict(build.PROGRAM_LAUNCHES)
+        p0 = dict(build.GENERATED_LAUNCHES)
         t0 = time.perf_counter()
         results[dev] = (
             m["Ao"].join(m["Bo"], "RID=RID AND CID=CID", gated).collect(),
-            m["A"].join(m["B"], "RID=RID", gated).collect())
-        sess_launch[dev] = ({k: build.PROGRAM_LAUNCHES[k] - p0[k]
+            m["A"].join(m["B"], "RID=RID", gated).collect(),
+            m["Ao"].join(m["Bo"], "RID=RID AND CID=CID", erf).collect())
+        sess_launch[dev] = ({k: build.GENERATED_LAUNCHES[k] - p0[k]
                              for k in p0}, time.perf_counter() - t0)
-    (oc, dc) = results["cpu"]
+    (oc, dc, ec) = results["cpu"]
     if on_card:
-        og, dg = results["cuda"]
+        og, dg, eg = results["cuda"]
         assert torch.equal(og.value.cpu(), oc.value), "gated overlay"
         assert np.array_equal(dg.idx, dc.idx), "gated D2D coordinates"
         assert np.array_equal(dg.val, dc.val), "gated D2D values"
+        bad = merge_mismatches(eg.value.cpu(), ec.value, False)
+        assert bad == 0, f"erf overlay: {bad} elements differ from the CPU"
         assert all(v > 0 for v in sess_launch["cuda"][0].values()), \
-            f"program instances not launched: {sess_launch['cuda'][0]}"
-    progs, wall = sess_launch["cuda" if on_card else "cpu"]
+            f"generated instances not launched: {sess_launch['cuda'][0]}"
+    gens, wall = sess_launch["cuda" if on_card else "cpu"]
     lines.append(
         f"merges Session: gated where x*y != 0, overlay {half}x{half} "
         f"({int(torch.count_nonzero(oc.value))} entries) and D2D ({dc.nnz} "
-        f"entries) on the {'card' if on_card else 'CPU'} in {wall:.2f} s"
-        + (", equal to the CPU's; program launches " + " ".join(
-            f"{k}={v}" for k, v in progs.items()) if on_card else "")
-        + f" [{card}]")
-    launches = {k: build.PROGRAM_LAUNCHES[k] - before[k] for k in before}
+        f"entries), erf overlay, on the {'card' if on_card else 'CPU'} in "
+        f"{wall:.2f} s"
+        + (f", equal to the CPU's (erf within {MERGE_ULPS} ulp); generated "
+           "launches " + " ".join(f"{k}={v}" for k, v in gens.items())
+           if on_card else "") + f" [{card}]")
+    launches = {k: build.GENERATED_LAUNCHES[k] - before[k] for k in before}
     lines.append(f"merges phase: {time.perf_counter() - t_phase:.2f} s; "
-                 "program launches over the phase: " + " ".join(
+                 "generated launches over the phase: " + " ".join(
                      f"{k}={v}" for k, v in launches.items()))
     return lines, launches, device_ms
 
@@ -3057,15 +3150,15 @@ def main(argv=None) -> int:
         rows[-1].update((k, row[k]) for k in ("device_ms", "host_us",
                                               "dispatch_us") if k in row)
     print(bloom_build_phase(s.env["Bq"].value, records, calls["bloom_probe"]))
-    lines, program_launches, program_ms = merges_phase(calls, s.env, n, card,
-                                                       on_card)
+    lines, generated_launches, generated_ms = merges_phase(
+        calls, s.env, n, card, on_card)
     print("\n".join(lines))
     line, f64 = masked_matmul_f64_line(pnmf_call, card)
     print(line)
     for row in rows:
-        if row["name"] in program_launches:
-            row["program_launches"] = program_launches[row["name"]]
-            row["program_device_ms"] = program_ms[row["name"]]
+        if row["name"] in generated_launches:
+            row["generated_launches"] = generated_launches[row["name"]]
+            row["generated_device_ms"] = generated_ms[row["name"]]
         if row["name"] == "masked_matmul":
             row.update(f64)
     walls, busy_s, top = warm_profile(records)

@@ -12,7 +12,8 @@
 * ``merge_join``   — block-skip overlay join (§4.3/§4.7).
 * ``masked_matmul`` — block-masked W×H under live blocks of A (§6, PNMF).
 * ``sddmm_agg``    — fused SUM of ``sp ∘ (W×H)`` (§6, PNMF).
-* ``merge_codes``  — merge callables → op codes a CUDA kernel evaluates.
+* ``merge_codes``  — merge callables → codes, or C++ emitted per merge,
+                     that the CUDA kernels evaluate.
 * ``build``        — ``nvcc`` build + ``ctypes`` load of ``csrc/*.cu``,
                      and the launch counts.
 

@@ -21,11 +21,11 @@ hold clamped values the caller masks with its ``valid`` vector.
 
 ``coo_expand_plain`` is the plain PyTorch version (any device);
 ``coo_expand_cuda`` launches the kernel of ``csrc/coo_expand.cu`` on a
-CUDA tensor and raises on anything else; a general merge runs as a
-program (``merge_codes``), as in ``merge_join``. Its launch parameter is
-``vt``, the merge items a thread (``GRID``, the autotuner's candidates;
-the default 8): it sets each CTA's share of the work, never the result,
-so every member of the grid writes the same bits.
+CUDA tensor and raises on anything else; a general merge runs in its own
+generated instance (``merge_codes``), as in ``merge_join``. Its launch
+parameter is ``vt``, the merge items a thread (``GRID``, the autotuner's
+candidates; the default 8): it sets each CTA's share of the work, never
+the result, so every member of the grid writes the same bits.
 """
 from __future__ import annotations
 
@@ -34,7 +34,7 @@ from typing import Callable, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.merge_codes import PROGRAM, merge_code
+from repro_torch.kernels.merge_codes import GENERATED, merge_code
 from repro_torch.kernels.registry import Tiles, checked_tiles
 
 _VALUE_CODES = {torch.float32: 0, torch.float64: 1}
@@ -70,9 +70,9 @@ def coo_expand_cuda(ends: torch.Tensor, delta: torch.Tensor,
     ``tiles`` is a member of ``GRID`` (None: ``DEFAULT_TILES``); with
     float64 values and a ``BILINEAR``/``SAFE_DIV`` merge only the default
     has an instance of the joins' widths, and another ``vt`` raises
-    ``ValueError``. A general merge (a ``PROGRAM``) runs in the program
-    instance, which takes every width and every ``vt`` of the grid in
-    float32 and float64."""
+    ``ValueError``. A generated merge (``GENERATED``) runs in its
+    run-time-width instance, which takes every width and every ``vt`` of
+    the grid in float32 and float64."""
     vt = checked_tiles("coo_expand", tiles, GRID, DEFAULT_TILES)["vt"]
     ins = (ends, delta, a_vals, a_coords, b_vals, b_coords)
     dev = ends.get_device()
@@ -104,7 +104,7 @@ def coo_expand_cuda(ends: torch.Tensor, delta: torch.Tensor,
     code = merge_code(merge)
     ca, cb = a_coords.shape[1], b_coords.shape[1]
     if vt != DEFAULT_TILES["vt"] and a_vals.dtype == torch.float64 \
-            and (ca, cb) in ((2, 1), (2, 2)) and code.op != PROGRAM:
+            and (ca, cb) in ((2, 1), (2, 2)) and code.op != GENERATED:
         raise ValueError(f"coo_expand_cuda: vt {vt} has no float64 "
                          f"instance of widths {ca} + {cb} (only "
                          f"{DEFAULT_TILES['vt']})")
@@ -112,13 +112,18 @@ def coo_expand_cuda(ends: torch.Tensor, delta: torch.Tensor,
     val = a_vals.new_empty((cap,))
     if cap == 0:
         return idx, val
-    rc = build.function("coo_expand_launch")(
-        _VALUE_CODES[a_vals.dtype], _COORD_CODES[a_coords.dtype],
-        ends.data_ptr(), delta.data_ptr(), a_vals.data_ptr(),
-        a_coords.data_ptr(), b_vals.data_ptr(), b_coords.data_ptr(),
-        ns, nb, ca, cb, cap, vt, code.op, *code.coeffs, code.program_ptr(),
-        idx.data_ptr(), val.data_ptr(), build.stream_ptr(ends))
+    args = (_VALUE_CODES[a_vals.dtype], _COORD_CODES[a_coords.dtype],
+            ends.data_ptr(), delta.data_ptr(), a_vals.data_ptr(),
+            a_coords.data_ptr(), b_vals.data_ptr(), b_coords.data_ptr(),
+            ns, nb, ca, cb, cap, vt)
+    outs = (idx.data_ptr(), val.data_ptr(), build.stream_ptr(ends))
+    generated = code.op == GENERATED
+    if generated:
+        rc = build.merge_function(code, "coo_expand")(*args, *outs)
+    else:
+        rc = build.function("coo_expand_launch")(*args, code.op,
+                                                 *code.coeffs, *outs)
     build.check(rc, "coo_expand")
-    build.count_launch("coo_expand", program=code.op == PROGRAM)
+    build.count_launch("coo_expand", generated=generated)
     return idx, val
 

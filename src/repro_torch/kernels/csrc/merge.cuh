@@ -1,31 +1,64 @@
-// Merge op codes shared by the coo_expand and merge_join kernels.
+// Merges as the coo_expand and merge_join kernels evaluate them.
 //
-// A merge f(x, y) reaches a kernel as a code built on the host by
-// repro_torch/kernels/merge_codes.py:
-//   MERGE_BILINEAR: c0 + cx*x + cy*y + cxy*(x*y); a zero coefficient drops
-//                   its term, so x*y is one multiply and x+y one add, as in
-//                   the plain PyTorch versions;
-//   MERGE_SAFE_DIV: x == 0 ? 0 : x / (y == 0 ? 1 : y);
-//   MERGE_PROGRAM:  any other merge of the compiler's op set, as a register
-//                   program (struct MergeProgram) that the kernels' program
-//                   instances run with the interpreter below.
-// The first two are a MergeCode; a program is a MergeProgram. Either is a
-// kernel parameter passed by value, so launches on two streams with two
-// programs never share state.
+// A merge f(x, y) reaches a kernel in one of two forms, both built on the
+// host by repro_torch/kernels/merge_codes.py:
+//   a code (struct MergeCode), evaluated by the main library's instances:
+//     MERGE_BILINEAR: c0 + cx*x + cy*y + cxy*(x*y); a zero coefficient
+//                     drops its term, so x*y is one multiply and x+y one
+//                     add, as in the plain PyTorch versions;
+//     MERGE_SAFE_DIV: x == 0 ? 0 : x / (y == 0 ? 1 : y);
+//   any other merge as C++ emitted from its trace: a functor
+//   Merge<T>{}(x, y) that calls the op helpers below, compiled at first use
+//   into its own instances of both kernels (kernels/build.py), so nvcc
+//   inlines the merge into the kernel body.
+//
+// The op helpers follow what torch computes, op by op; each is
+// __host__ __device__ so that the CPU tests compile the same emitted
+// function with g++ (-ffp-contract=off) and hold it to torch on the CPU.
+// On the device:
+//   + - * / and sqrt are correctly rounded (the __*_rn intrinsics): nvcc
+//   would otherwise contract a product and a sum of two torch ops into one
+//   FMA, which torch, one kernel an op, never does; add/sub with alpha is
+//   the FMA that torch's own kernel computes;
+//   maximum/minimum propagate NaN and otherwise take fmax/fmin; clamp by a
+//   constant keeps NaN in x and takes fmax/fmin of the bound (by a tensor
+//   it is maximum/minimum, chosen on the host);
+//   sign is (0 < a) - (a < 0): 0 for NaN, +0 for -0;
+//   sigmoid is 1 / (1 + exp(-a)); remainder, floor division and integer
+//   pow are c10's / ATen's formulas (remainder from fmod, floor division
+//   per c10::div_floor_floating / div_floor_integer, powi);
+//   round is half to even (nearbyint);
+//   the transcendentals are CUDA's math library (expf, erff, sinf, powf,
+//   ... and their double forms), as torch's CUDA kernels call them.
+// On the host the same formulas in plain C++, except where torch's CPU
+// kernels decide a tie of zeros otherwise: maximum/minimum and clamp
+// return x86 maxps/minps's operand, fmax/fmin the first.
+// Integer ops wrap (two's complement) and never trap: a division by zero
+// gives 0 (torch on the CPU raises there; the card's kernels give
+// garbage), INT64_MIN / -1 gives INT64_MIN.
 #pragma once
 
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#define MERGE_HD __host__ __device__ __forceinline__
+#else
+#define MERGE_HD inline
+#endif
 
 #define MERGE_BILINEAR 0
 #define MERGE_SAFE_DIV 1
-#define MERGE_PROGRAM 2
 
 struct MergeCode {
   int op;
   double c0, cx, cy, cxy;
 };
 
-// The merge with its coefficients converted to T once, for a loop of
+#ifdef __CUDACC__
+// The code with its coefficients converted to T once, for a loop of
 // merges.
 template <typename T>
 struct TypedMerge {
@@ -47,209 +80,276 @@ struct TypedMerge {
   }
 };
 
+// The functor a kernel calls for its merge parameter: a code's TypedMerge,
+// a generated merge as it is.
 template <typename T>
-__device__ __forceinline__ T apply_merge(const MergeCode& m, T x, T y) {
-  return TypedMerge<T>(m)(x, y);
+__device__ __forceinline__ TypedMerge<T> device_merge(const MergeCode& m) {
+  return TypedMerge<T>(m);
 }
+template <typename T, typename F>
+__device__ __forceinline__ const F& device_merge(const F& f) {
+  return f;
+}
+#endif
 
 // ---------------------------------------------------------------------------
-// Merge programs (MERGE_PROGRAM)
-//
-// A program is n <= kProgCode instructions over kProgRegs registers of the
-// value type T, x in r0 and y in r1 at the start, the result in r0 at the
-// end. An instruction is one 32-bit word:
-//   bits 0-5 the op (PROG_*), 6-8 the destination register, then three
-//   5-bit operand slots at 9, 14 and 19: slot s < kProgRegs is register s,
-//   slot kProgRegs + k the constant k (kept in double on the host,
-//   converted to T once a CTA).
-// Booleans are 0/1 in T. The ops follow what torch computes on the card:
-// + - * / and sqrt correctly rounded (the __*_rn intrinsics, never
-// contracted into an FMA); maximum/minimum propagate NaN and otherwise
-// take fmax/fmin; clamp by a constant keeps NaN in x and takes fmax/fmin
-// of the bound; sign is (0 < a) - (a < 0), 0 for NaN and +0 for -0;
-// sigmoid is 1 / (1 + exp(-a)); the transcendentals are CUDA's math
-// library (expf, logf, log1pf, expm1f, tanhf, powf, rsqrtf and their
-// double forms), as torch's CUDA kernels call them.
+// Bits, constants and predicates
 // ---------------------------------------------------------------------------
 
-constexpr int kProgCode = 32;
-constexpr int kProgRegs = 8;
-constexpr int kProgConsts = 16;
+MERGE_HD float f32_bits(uint32_t u) {
+#ifdef __CUDA_ARCH__
+  return __uint_as_float(u);
+#else
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+#endif
+}
+MERGE_HD double f64_bits(uint64_t u) {
+#ifdef __CUDA_ARCH__
+  return __longlong_as_double((long long)u);
+#else
+  double f;
+  std::memcpy(&f, &u, 8);
+  return f;
+#endif
+}
+MERGE_HD bool m_signbit(float a) {
+#ifdef __CUDA_ARCH__
+  return __float_as_uint(a) >> 31;
+#else
+  uint32_t u;
+  std::memcpy(&u, &a, 4);
+  return u >> 31;
+#endif
+}
+MERGE_HD bool m_signbit(double a) {
+#ifdef __CUDA_ARCH__
+  return (unsigned long long)__double_as_longlong(a) >> 63;
+#else
+  uint64_t u;
+  std::memcpy(&u, &a, 8);
+  return u >> 63;
+#endif
+}
+MERGE_HD float inf_of(float) { return f32_bits(0x7f800000u); }
+MERGE_HD double inf_of(double) { return f64_bits(0x7ff0000000000000ull); }
 
-struct MergeProgram {
-  int n;
-  unsigned code[kProgCode];
-  double consts[kProgConsts];
-};
+// ---------------------------------------------------------------------------
+// Correctly rounded arithmetic, never contracted
+// ---------------------------------------------------------------------------
 
-enum ProgOp {
-  PROG_MOV, PROG_ADD, PROG_SUB, PROG_MUL, PROG_DIV, PROG_NEG, PROG_ABS,
-  PROG_LT, PROG_LE, PROG_GT, PROG_GE, PROG_EQ, PROG_NE, PROG_AND, PROG_OR,
-  PROG_NOT, PROG_WHERE, PROG_MAX, PROG_MIN, PROG_CLAMP_MIN, PROG_CLAMP_MAX,
-  PROG_SIGN, PROG_EXP, PROG_LOG, PROG_LOG1P, PROG_EXPM1, PROG_SQRT,
-  PROG_RSQRT, PROG_TANH, PROG_SIGMOID, PROG_POW
-};
+#ifdef __CUDA_ARCH__
+#define MERGE_RN(name, f32, f64, op)                                      \
+  MERGE_HD float name(float a, float b) { return f32(a, b); }             \
+  MERGE_HD double name(double a, double b) { return f64(a, b); }
+#else
+#define MERGE_RN(name, f32, f64, op)                                      \
+  MERGE_HD float name(float a, float b) { return a op b; }                \
+  MERGE_HD double name(double a, double b) { return a op b; }
+#endif
+MERGE_RN(add_rn, __fadd_rn, __dadd_rn, +)
+MERGE_RN(sub_rn, __fsub_rn, __dsub_rn, -)
+MERGE_RN(mul_rn, __fmul_rn, __dmul_rn, *)
+MERGE_RN(div_rn, __fdiv_rn, __ddiv_rn, /)
+#undef MERGE_RN
 
-__device__ __forceinline__ float add_rn(float a, float b) {
-  return __fadd_rn(a, b);
+MERGE_HD float sqrt_rn(float a) {
+#ifdef __CUDA_ARCH__
+  return __fsqrt_rn(a);
+#else
+  return std::sqrt(a);
+#endif
 }
-__device__ __forceinline__ double add_rn(double a, double b) {
-  return __dadd_rn(a, b);
+MERGE_HD double sqrt_rn(double a) {
+#ifdef __CUDA_ARCH__
+  return __dsqrt_rn(a);
+#else
+  return std::sqrt(a);
+#endif
 }
-__device__ __forceinline__ float sub_rn(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ double sub_rn(double a, double b) {
-  return __dsub_rn(a, b);
-}
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float div_rn(float a, float b) {
-  return __fdiv_rn(a, b);
-}
-__device__ __forceinline__ double div_rn(double a, double b) {
-  return __ddiv_rn(a, b);
-}
-__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
-__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+// a + alpha * b rounded once, as torch's add with alpha computes it
+MERGE_HD float fma_rn(float a, float b, float c) { return fmaf(a, b, c); }
+MERGE_HD double fma_rn(double a, double b, double c) { return fma(a, b, c); }
 
-// CUDA's math library by value type, named apart from the C overloads
-#define PROG_MATH(name, f32, f64)                                         \
-  __device__ __forceinline__ float name(float a) { return f32(a); }       \
-  __device__ __forceinline__ double name(double a) { return f64(a); }
-PROG_MATH(m_abs, fabsf, fabs)
-PROG_MATH(m_exp, expf, exp)
-PROG_MATH(m_log, logf, log)
-PROG_MATH(m_log1p, log1pf, log1p)
-PROG_MATH(m_expm1, expm1f, expm1)
-PROG_MATH(m_rsqrt, rsqrtf, rsqrt)
-PROG_MATH(m_tanh, tanhf, tanh)
-#undef PROG_MATH
-__device__ __forceinline__ float m_max(float a, float b) {
-  return fmaxf(a, b);
+// ---------------------------------------------------------------------------
+// The math library by value type, named apart from the C overloads
+// ---------------------------------------------------------------------------
+
+#define MERGE_MATH1(name, f32, f64)                                       \
+  MERGE_HD float name(float a) { return f32(a); }                         \
+  MERGE_HD double name(double a) { return f64(a); }
+MERGE_MATH1(m_fabs, fabsf, fabs)
+MERGE_MATH1(m_exp, expf, exp)
+MERGE_MATH1(m_exp2, exp2f, exp2)
+MERGE_MATH1(m_expm1, expm1f, expm1)
+MERGE_MATH1(m_log, logf, log)
+MERGE_MATH1(m_log2, log2f, log2)
+MERGE_MATH1(m_log10, log10f, log10)
+MERGE_MATH1(m_log1p, log1pf, log1p)
+MERGE_MATH1(m_erf, erff, erf)
+MERGE_MATH1(m_erfc, erfcf, erfc)
+MERGE_MATH1(m_sin, sinf, sin)
+MERGE_MATH1(m_cos, cosf, cos)
+MERGE_MATH1(m_tan, tanf, tan)
+MERGE_MATH1(m_asin, asinf, asin)
+MERGE_MATH1(m_acos, acosf, acos)
+MERGE_MATH1(m_atan, atanf, atan)
+MERGE_MATH1(m_sinh, sinhf, sinh)
+MERGE_MATH1(m_cosh, coshf, cosh)
+MERGE_MATH1(m_tanh, tanhf, tanh)
+MERGE_MATH1(m_asinh, asinhf, asinh)
+MERGE_MATH1(m_acosh, acoshf, acosh)
+MERGE_MATH1(m_atanh, atanhf, atanh)
+MERGE_MATH1(m_floor, floorf, floor)
+MERGE_MATH1(m_ceil, ceilf, ceil)
+MERGE_MATH1(m_trunc, truncf, trunc)
+MERGE_MATH1(m_round, nearbyintf, nearbyint)   // half to even
+#undef MERGE_MATH1
+#define MERGE_MATH2(name, f32, f64)                                       \
+  MERGE_HD float name(float a, float b) { return f32(a, b); }             \
+  MERGE_HD double name(double a, double b) { return f64(a, b); }
+MERGE_MATH2(m_pow, powf, pow)
+MERGE_MATH2(m_fmod, fmodf, fmod)
+MERGE_MATH2(m_atan2, atan2f, atan2)
+MERGE_MATH2(m_hypot, hypotf, hypot)
+MERGE_MATH2(m_copysign, copysignf, copysign)
+#ifdef __CUDA_ARCH__
+MERGE_MATH2(m_fmax, fmaxf, fmax)
+MERGE_MATH2(m_fmin, fminf, fmin)
+#else
+// torch.fmax / fmin on the CPU: a NaN operand is ignored, a tie of zeros
+// gives the first operand
+template <typename T> MERGE_HD T m_fmax(T a, T b) {
+  return (b != b || a >= b) ? a : b;
 }
-__device__ __forceinline__ double m_max(double a, double b) {
-  return fmax(a, b);
+template <typename T> MERGE_HD T m_fmin(T a, T b) {
+  return (b != b || a <= b) ? a : b;
 }
-__device__ __forceinline__ float m_min(float a, float b) {
-  return fminf(a, b);
+#endif
+#undef MERGE_MATH2
+
+template <typename T> MERGE_HD bool m_isinf(T a) {
+  return m_fabs(a) == inf_of(a);
 }
-__device__ __forceinline__ double m_min(double a, double b) {
-  return fmin(a, b);
-}
-__device__ __forceinline__ float m_pow(float a, float b) { return powf(a, b); }
-__device__ __forceinline__ double m_pow(double a, double b) {
-  return pow(a, b);
+template <typename T> MERGE_HD bool m_isfinite(T a) {
+  return m_fabs(a) < inf_of(a);     // false for NaN
 }
 
-// One instruction's op on its operands (a warp-uniform switch).
-template <typename T>
-__device__ __forceinline__ T prog_op(unsigned op, T a, T b, T c) {
-  const T one = T(1), zero = T(0);
-  switch (op) {
-    case PROG_MOV: return a;
-    case PROG_ADD: return add_rn(a, b);
-    case PROG_SUB: return sub_rn(a, b);
-    case PROG_MUL: return mul_rn(a, b);
-    case PROG_DIV: return div_rn(a, b);
-    case PROG_NEG: return -a;
-    case PROG_ABS: return m_abs(a);
-    case PROG_LT: return a < b ? one : zero;
-    case PROG_LE: return a <= b ? one : zero;
-    case PROG_GT: return a > b ? one : zero;
-    case PROG_GE: return a >= b ? one : zero;
-    case PROG_EQ: return a == b ? one : zero;
-    case PROG_NE: return a != b ? one : zero;
-    case PROG_AND: return (a != zero && b != zero) ? one : zero;
-    case PROG_OR: return (a != zero || b != zero) ? one : zero;
-    case PROG_NOT: return a == zero ? one : zero;
-    case PROG_WHERE: return a != zero ? b : c;
-    // a != a: NaN
-    case PROG_MAX: return a != a ? a : (b != b ? b : m_max(a, b));
-    case PROG_MIN: return a != a ? a : (b != b ? b : m_min(a, b));
-    case PROG_CLAMP_MIN: return a != a ? a : m_max(a, b);
-    case PROG_CLAMP_MAX: return a != a ? a : m_min(a, b);
-    case PROG_SIGN: return T(zero < a) - T(a < zero);
-    case PROG_EXP: return m_exp(a);
-    case PROG_LOG: return m_log(a);
-    case PROG_LOG1P: return m_log1p(a);
-    case PROG_EXPM1: return m_expm1(a);
-    case PROG_SQRT: return sqrt_rn(a);
-    case PROG_RSQRT: return m_rsqrt(a);
-    case PROG_TANH: return m_tanh(a);
-    case PROG_SIGMOID: return div_rn(one, add_rn(one, m_exp(-a)));
-    case PROG_POW: return m_pow(a, b);
-    default: return zero;  // the host emits no other op
+#ifdef __CUDA_ARCH__
+MERGE_HD float m_rsqrt(float a) { return rsqrtf(a); }
+MERGE_HD double m_rsqrt(double a) { return rsqrt(a); }
+#else
+MERGE_HD float m_rsqrt(float a) { return 1.0f / std::sqrt(a); }
+MERGE_HD double m_rsqrt(double a) { return 1.0 / std::sqrt(a); }
+#endif
+
+// ---------------------------------------------------------------------------
+// Ops whose torch rule needs more than an operator
+// ---------------------------------------------------------------------------
+
+// torch.maximum / minimum: NaN propagates
+template <typename T> MERGE_HD T nan_max(T a, T b) {
+#ifdef __CUDA_ARCH__
+  return a != a ? a : (b != b ? b : m_fmax(a, b));
+#else
+  return a != a ? a : (b != b ? b : (a > b ? a : b));
+#endif
+}
+template <typename T> MERGE_HD T nan_min(T a, T b) {
+#ifdef __CUDA_ARCH__
+  return a != a ? a : (b != b ? b : m_fmin(a, b));
+#else
+  return a != a ? a : (b != b ? b : (a < b ? a : b));
+#endif
+}
+// torch.clamp by a constant bound: NaN in a stays, a NaN bound is ignored
+template <typename T> MERGE_HD T clamp_min(T a, T lo) {
+#ifdef __CUDA_ARCH__
+  return a != a ? a : m_fmax(a, lo);
+#else
+  return lo > a ? lo : a;
+#endif
+}
+template <typename T> MERGE_HD T clamp_max(T a, T hi) {
+#ifdef __CUDA_ARCH__
+  return a != a ? a : m_fmin(a, hi);
+#else
+  return hi < a ? hi : a;
+#endif
+}
+template <typename T> MERGE_HD T sign_of(T a) {
+  return T(T(0) < a) - T(a < T(0));
+}
+template <typename T> MERGE_HD T sigmoid(T a) {
+  return div_rn(T(1), add_rn(T(1), m_exp(-a)));
+}
+// torch.remainder: the result takes the divisor's sign (named apart from
+// C's IEEE remainder)
+template <typename T> MERGE_HD T m_remainder(T a, T b) {
+  T mod = m_fmod(a, b);
+  if (mod != T(0) && (b < T(0)) != (mod < T(0))) mod = add_rn(mod, b);
+  return mod;
+}
+// torch.floor_divide, div(rounding_mode="floor"): c10::div_floor_floating
+template <typename T> MERGE_HD T floor_div(T a, T b) {
+  if (b == T(0)) return div_rn(a, b);
+  const T mod = m_fmod(a, b);
+  T div = div_rn(sub_rn(a, mod), b);
+  if (mod != T(0) && (b < T(0)) != (mod < T(0))) div = sub_rn(div, T(1));
+  if (div == T(0)) return m_copysign(T(0), div_rn(a, b));
+  T fl = m_floor(div);
+  if (sub_rn(div, fl) > T(0.5)) fl = add_rn(fl, T(1));
+  return fl;
+}
+
+// int64: wrapping, never trapping
+typedef long long i64;
+MERGE_HD i64 i_add(i64 a, i64 b) {
+  return (i64)((unsigned long long)a + (unsigned long long)b);
+}
+MERGE_HD i64 i_sub(i64 a, i64 b) {
+  return (i64)((unsigned long long)a - (unsigned long long)b);
+}
+MERGE_HD i64 i_mul(i64 a, i64 b) {
+  return (i64)((unsigned long long)a * (unsigned long long)b);
+}
+MERGE_HD i64 i_neg(i64 a) { return (i64)(0ull - (unsigned long long)a); }
+MERGE_HD i64 i_abs(i64 a) { return a < 0 ? i_neg(a) : a; }
+MERGE_HD i64 i_max(i64 a, i64 b) { return a > b ? a : b; }
+MERGE_HD i64 i_min(i64 a, i64 b) { return a < b ? a : b; }
+MERGE_HD bool i_bad_div(i64 a, i64 b) {
+  return b == 0 || (b == -1 && a == (i64)(1ull << 63));
+}
+MERGE_HD i64 trunc_div(i64 a, i64 b) {
+  return b == 0 ? 0 : (i_bad_div(a, b) ? a : a / b);
+}
+MERGE_HD i64 i_fmod(i64 a, i64 b) { return i_bad_div(a, b) ? 0 : a % b; }
+// c10::div_floor_integer
+MERGE_HD i64 floor_div(i64 a, i64 b) {
+  if (b == 0) return 0;
+  if (i_bad_div(a, b)) return a;
+  const i64 q = a / b, r = a % b;
+  return (r != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+MERGE_HD i64 m_remainder(i64 a, i64 b) {
+  i64 mod = i_fmod(a, b);
+  if (mod != 0 && (b < 0) != (mod < 0)) mod = i_add(mod, b);
+  return mod;
+}
+MERGE_HD i64 sign_of(i64 a) { return (i64)(a > 0) - (i64)(a < 0); }
+// ATen's powi
+MERGE_HD i64 i_pow(i64 a, i64 b) {
+  if (b < 0) {
+    if (a == 1) return 1;
+    if (a == -1) return (b & 1) ? -1 : 1;
+    return 0;
   }
-}
-
-// A program in shared memory, loaded once a CTA from the kernel parameter.
-// Every thread runs the same instruction stream, so the op switch never
-// diverges. The registers are a fixed array indexed only by compile-time
-// constants (each operand and the destination go through an unrolled
-// select), so they stay in registers and never reach local memory.
-template <typename T>
-struct SharedProgram {
-  int n;
-  unsigned code[kProgCode];
-  T k[kProgConsts];
-
-  // Called by one thread; the caller synchronises before the first use.
-  __device__ __forceinline__ void load(const MergeProgram& p) {
-    n = p.n;
-#pragma unroll
-    for (int i = 0; i < kProgCode; ++i) code[i] = p.code[i];
-#pragma unroll
-    for (int i = 0; i < kProgConsts; ++i) k[i] = T(p.consts[i]);
+  i64 r = 1;
+  while (b) {
+    if (b & 1) r = i_mul(r, a);
+    b /= 2;
+    a = i_mul(a, a);
   }
-
-  __device__ __forceinline__ T operand(const T (&r)[kProgRegs],
-                                       unsigned s) const {
-    if (s >= kProgRegs) return k[s - kProgRegs];
-    T v = r[0];
-#pragma unroll
-    for (int q = 1; q < kProgRegs; ++q)
-      if (s == (unsigned)q) v = r[q];
-    return v;
-  }
-
-  __device__ __forceinline__ T operator()(T x, T y) const {
-    T r[kProgRegs];
-    r[0] = x;
-    r[1] = y;
-#pragma unroll
-    for (int q = 2; q < kProgRegs; ++q) r[q] = T(0);
-    for (int pc = 0; pc < n; ++pc) {
-      const unsigned w = code[pc];
-      const T v = prog_op<T>(w & 63u, operand(r, (w >> 9) & 31u),
-                             operand(r, (w >> 14) & 31u),
-                             operand(r, (w >> 19) & 31u));
-      const unsigned d = (w >> 6) & 7u;
-#pragma unroll
-      for (int q = 0; q < kProgRegs; ++q)
-        if (d == (unsigned)q) r[q] = v;
-    }
-    return r[0];
-  }
-};
-
-// W values in a vector held in registers, read and written at a run-time
-// index k < W through an unrolled select (no local memory).
-template <int W, typename T>
-__device__ __forceinline__ T lane_get(const T* v, int k) {
-  T out = v[0];
-#pragma unroll
-  for (int q = 1; q < W; ++q)
-    if (k == q) out = v[q];
-  return out;
-}
-template <int W, typename T>
-__device__ __forceinline__ void lane_set(T* v, int k, T x) {
-#pragma unroll
-  for (int q = 0; q < W; ++q)
-    if (k == q) v[q] = x;
+  return r;
 }

@@ -10,9 +10,10 @@ its inputs are never read.
 ``merge_join_cuda`` launches the kernel of ``csrc/merge_join.cu`` on a
 CUDA tensor and raises on anything else. The merge reaches the kernel as
 ``merge_codes.merge_code``'s code: a bilinear merge or the safe division
-runs in the code instances, any other merge in the op set as a program in
-the program instances, and a merge the compiler refuses raises
-``NotImplementedError``.
+runs in the main library's code instances, any other merge in the op set
+in its own generated instances (``build.merge_function``, built at the
+merge's first launch), and a merge the compiler refuses raises
+``NotImplementedError`` before anything is built or launched.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.merge_codes import PROGRAM, merge_code
+from repro_torch.kernels.merge_codes import GENERATED, merge_code
 from repro_torch.kernels.registry import Tiles, checked_tiles
 
 # compute-gating modes derived from the sparsity profile of the merge fn
@@ -107,11 +108,16 @@ def merge_join_cuda(a: torch.Tensor, b: torch.Tensor, mask_a: torch.Tensor,
     width = 16 // a.element_size()
     vec = int(n % width == 0 and bs % width == 0
               and all(x.data_ptr() % 16 == 0 for x in (a, b, out)))
-    rc = build.function("merge_join_launch")(
-        _VALUE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
-        mask_a.data_ptr(), mask_b.data_ptr(), out.data_ptr(),
-        ctypes.c_longlong(m), ctypes.c_longlong(n), bs, mode, vec,
-        code.op, *code.coeffs, code.program_ptr(), build.stream_ptr(a))
+    args = (_VALUE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
+            mask_a.data_ptr(), mask_b.data_ptr(), out.data_ptr(),
+            ctypes.c_longlong(m), ctypes.c_longlong(n), bs, mode, vec)
+    generated = code.op == GENERATED
+    if generated:
+        rc = build.merge_function(code, "merge_join")(
+            *args, build.stream_ptr(a))
+    else:
+        rc = build.function("merge_join_launch")(
+            *args, code.op, *code.coeffs, build.stream_ptr(a))
     build.check(rc, "merge_join")
-    build.count_launch("merge_join", program=code.op == PROGRAM)
+    build.count_launch("merge_join", generated=generated)
     return out

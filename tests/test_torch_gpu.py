@@ -858,9 +858,9 @@ def test_faulted_cuda_dispatch_raises_then_quarantines(cuda, monkeypatch):
 
 def test_unsupported_merges_leave_the_card_serving(cuda, monkeypatch):
     """Three tickets whose overlay ``merge_join_cuda`` refuses (a merge
-    outside the merge compiler's set) fail alone: no launch, no retry,
-    the breaker stays closed, and another tenant's supported overlay then
-    launches the kernel."""
+    the compiler refuses: a Python branch on a value) fail alone: no
+    launch, no retry, the breaker stays closed, and another tenant's
+    supported overlay then launches the kernel."""
     from repro_torch.core import Session
     from repro_torch.core.sparsity import product_merge
     from repro_torch.kernels import registry
@@ -873,8 +873,8 @@ def test_unsupported_merges_leave_the_card_serving(cuda, monkeypatch):
     a[:64, :] = 0.0
     b[:, :64] = 0.0                          # 9 of 16 blocks live
 
-    def erf(x, y):                 # outside the merge compiler's set
-        return torch.erf(x) * y
+    def branch(x, y):   # a Python branch on a value: refused (inducing
+        return x * y if x > 0 else -x * y   # on both sides, as x*y is)
 
     s = Session(block_size=64, device="cuda")
     A, B = s.load(a, "A"), s.load(b, "B")
@@ -882,7 +882,7 @@ def test_unsupported_merges_leave_the_card_serving(cuda, monkeypatch):
     with ServeEngine(s, cse=False, n_threads=1, retry_backoff_s=0.0) as eng:
         for _ in range(3):
             with pytest.raises(NotImplementedError):
-                eng.run(A.join(B, "RID=RID AND CID=CID", erf),
+                eng.run(A.join(B, "RID=RID AND CID=CID", branch),
                         tenant="t0", timeout=120.0)
         assert build.LAUNCHES["merge_join"] == before
         got = eng.run(A.join(B, "RID=RID AND CID=CID", product_merge()),
@@ -1420,7 +1420,7 @@ def test_dryrun_trace_matches_the_train_step_on_the_card(cuda):
 
 
 # ---------------------------------------------------------------------------
-# general merges: the program instances of merge_join and coo_expand
+# general merges: the generated instances of merge_join and coo_expand
 # ---------------------------------------------------------------------------
 
 def _merge_case(name):
@@ -1438,11 +1438,24 @@ def _general_names():
     return sorted(GENERAL)
 
 
+@pytest.fixture(scope="module")
+def generated():
+    """Every merge of the compiler's tests built into its own library,
+    all nvcc runs together (one a core), before the tests launch them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels run only there)")
+    from repro_torch.kernels import merge_codes
+    from torch_merge_cases import GENERAL
+    build.merge_libraries(merge_codes.merge_code(fn)
+                          for fn, _ in GENERAL.values())
+
+
 @pytest.mark.parametrize("shape,bs", [((80, 72), 16), ((67, 70), 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("name", _general_names())
-def test_merge_join_program_matches_plain(cuda, name, dtype, shape, bs):
-    """Every merge of the compiler's tests through the program instance
+def test_merge_join_program_matches_plain(cuda, generated, name, dtype,
+                                          shape, bs):
+    """Every merge of the compiler's tests through its generated instance
     (16-byte lanes and element by element), on random values and every
     pair of special values: bit for bit for the exact ops, within
     TRANSCENDENTAL_ULPS for the others."""
@@ -1457,10 +1470,10 @@ def test_merge_join_program_matches_plain(cuda, name, dtype, shape, bs):
                                                      cuda)
     for mode in (MODE_ALL, MODE_BOTH):
         kw = dict(merge=fn, mode=mode, block_size=bs)
-        before = dict(build.PROGRAM_LAUNCHES)
+        before = dict(build.GENERATED_LAUNCHES)
         got = merge_join_cuda(a, b, ma, mb, **kw)
         torch.cuda.synchronize()
-        assert build.PROGRAM_LAUNCHES["merge_join"] == \
+        assert build.GENERATED_LAUNCHES["merge_join"] == \
             before["merge_join"] + 1
         want = merge_join_plain(*(t.to(plain_on) for t in (a, b, ma, mb)),
                                 **kw)
@@ -1473,12 +1486,13 @@ def test_merge_join_program_matches_plain(cuda, name, dtype, shape, bs):
     (torch.float64, torch.int16, 2, 2), (torch.float64, torch.int32, 1, 3)])
 @pytest.mark.parametrize("name", ["gated", "maximum", "square", "quotient",
                                   "every_register", "logic", "exp_log1p",
-                                  "pow", "clamp", "flipped_gated"])
-def test_coo_expand_program_matches_plain(cuda, name, dtype, cdt, ca, cb,
-                                          vt):
-    """The program instance takes every width and every vt of the grid, in
-    float32 and float64 (a tuned vt never refuses a general merge), with
-    special values among the operands."""
+                                  "pow", "clamp", "flipped_gated", "erf",
+                                  "remainder", "int_arith", "long", "wide"])
+def test_coo_expand_program_matches_plain(cuda, generated, name, dtype, cdt,
+                                          ca, cb, vt):
+    """The generated run-time-width instance takes every width and every
+    vt of the grid, in float32 and float64 (a tuned vt never refuses a
+    general merge), with special values among the operands."""
     from torch_merge_cases import SPECIALS, check
     fn, exact, plain_on = _merge_case(name)
     rng = np.random.default_rng(8)
@@ -1492,31 +1506,36 @@ def test_coo_expand_program_matches_plain(cuda, name, dtype, cdt, ca, cb,
     bv[::5] = sp[torch.arange(0, bv.numel(), 5) % sp.numel()]
     ac = torch.as_tensor(rng.integers(0, 1000, (ac.shape[0], ca)), dtype=cdt)
     ins = [x.to(cuda) for x in (ends, delta, av, ac, bv, bc)]
-    before = dict(build.PROGRAM_LAUNCHES)
+    before = dict(build.GENERATED_LAUNCHES)
     idx_k, val_k = coo_expand_cuda(*ins, merge=fn, cap=cap,
                                    tiles={"vt": vt})
     torch.cuda.synchronize()
-    assert build.PROGRAM_LAUNCHES["coo_expand"] == before["coo_expand"] + 1
+    assert build.GENERATED_LAUNCHES["coo_expand"] == \
+        before["coo_expand"] + 1
     idx_p, val_p = coo_expand_plain(*(t.to(plain_on) for t in ins), merge=fn,
                                     cap=cap)
     assert torch.equal(idx_k.cpu(), idx_p.cpu())
     check(val_k.cpu(), val_p.to(dtype).cpu(), exact, name)
 
 
-def test_general_merges_through_the_session_on_the_card(cuda):
-    """The gated merge in an overlay and a D2D join through
-    ``Session(device="cuda")``: the program instances launch, and the
-    results equal the same queries on the CPU."""
-    from repro_torch.core import Session
-    from repro_torch.core.expr import MergeFn
-    rng = np.random.default_rng(9)
-    n, bs = 512, 64
+def _sparse_pair(seed, n, bs):
+    rng = np.random.default_rng(seed)
     a = np.round(np.where(rng.uniform(size=(n, n)) < 0.02,
                           rng.normal(size=(n, n)) * 8, 0), 1)
     b = np.round(np.where(rng.uniform(size=(n, n)) < 0.02,
                           rng.normal(size=(n, n)) * 8, 0), 1)
     a[:bs] = 0.0
-    a, b = a.astype(np.float32), b.astype(np.float32)
+    return a.astype(np.float32), b.astype(np.float32)
+
+
+def test_general_merges_through_the_session_on_the_card(cuda):
+    """The gated merge in an overlay and a D2D join through
+    ``Session(device="cuda")``: the generated instances launch, and the
+    results equal the same queries on the CPU."""
+    from repro_torch.core import Session
+    from repro_torch.core.expr import MergeFn
+    n, bs = 512, 64
+    a, b = _sparse_pair(9, n, bs)
     gated = MergeFn("gated_card", lambda x, y: torch.where(
         x > 0, torch.where(x < 10, x + y, 0.0), 0.0))
     out = {}
@@ -1526,8 +1545,54 @@ def test_general_merges_through_the_session_on_the_card(cuda):
         build.reset_launches()
         out[dev] = (A.join(B, "RID=RID AND CID=CID", gated).collect(),
                     A.join(B, "RID=RID", gated).collect())
-    assert build.PROGRAM_LAUNCHES == {"merge_join": 1, "coo_expand": 1}
+    assert build.GENERATED_LAUNCHES == {"merge_join": 1, "coo_expand": 1}
     (oc, dc), (og, dg) = out["cpu"], out["cuda"]
     assert torch.equal(og.value.cpu(), oc.value)
     assert np.array_equal(dg.idx, dc.idx)
     np.testing.assert_array_equal(dg.val, dc.val)
+
+
+def test_erf_join_through_the_session_equals_the_cpu(cuda):
+    """``A.join(B, "RID=RID AND CID=CID", lambda x, y: torch.erf(x) * y)``
+    on the card, which the register programs refused: the generated
+    ``merge_join`` instance launches, and the result equals the CPU's
+    within TRANSCENDENTAL_ULPS (torch's erf on the CPU is SLEEF's)."""
+    from repro_torch.core import Session
+    from torch_merge_cases import check
+    n, bs = 512, 64
+    a, b = _sparse_pair(10, n, bs)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = Session(block_size=bs, device=dev)
+        A, B = s.load(a, "A"), s.load(b, "B")
+        build.reset_launches()
+        out[dev] = A.join(B, "RID=RID AND CID=CID",
+                          lambda x, y: torch.erf(x) * y).collect()
+    assert build.GENERATED_LAUNCHES["merge_join"] == 1
+    check(out["cuda"].value.cpu(), out["cpu"].value, False, "erf join")
+
+
+def test_a_merge_that_does_not_compile_launches_nothing(cuda, monkeypatch):
+    """A generated unit that nvcc rejects raises ``RuntimeError`` with
+    nvcc's log, from both kernels' wrappers, and nothing launches."""
+    from repro_torch.kernels import coo_join, merge_codes
+    from repro_torch.kernels import merge_join as mj
+    bad = merge_codes.MergeCode(merge_codes.GENERATED,
+                                source="this is not C++;\n")
+    for mod in (mj, coo_join):
+        monkeypatch.setattr(mod, "merge_code", lambda merge: bad)
+    rng = np.random.default_rng(12)
+    a = torch.as_tensor(rng.normal(size=(64, 64)), dtype=torch.float32,
+                        device=cuda)
+    mask = torch.ones((4, 4), dtype=torch.bool, device=cuda)
+    ins, cap, _ = _expand_inputs(rng, 300, 200, 1, 0.5, torch.float32,
+                                 torch.int16)
+    ins = [x.to(cuda) for x in ins]
+    before = dict(build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        merge_join_cuda(a, a, mask, mask, merge=MERGES["mul"],
+                        block_size=16)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        coo_expand_cuda(*ins, merge=MERGES["mul"], cap=cap)
+    assert dict(build.LAUNCHES) == before
+    assert bad.key not in build.BUILD_INFO.get("merges", {})

@@ -1,7 +1,7 @@
 """Merges for the tests of the merge compiler (``kernels.merge_codes``)
-and of the program instances of ``merge_join`` and ``coo_expand``: names,
-torch callables, and whether every op in them is IEEE-exact (else they
-hold a transcendental of the op set and are compared within
+and of the generated instances of ``merge_join`` and ``coo_expand``:
+names, torch callables, and whether every op in them is IEEE-exact (else
+they hold a transcendental of the op set and are compared within
 ``TRANSCENDENTAL_ULPS``)."""
 import numpy as np
 import torch
@@ -25,6 +25,33 @@ def _every_register(x, y):
     t1, t2, t3 = x + 1.0, y + 2.0, x * x
     t4, t5, t6 = x - y, x * 3.0, y * 5.0
     return ((((t1 + t2) + (t3 + t4)) + (t5 + t6)) + x) + y
+
+
+def _long(x, y):
+    r = x
+    for _ in range(20):
+        r = r * y + x
+    return r
+
+
+def _wide(x, y):
+    t = [x * x + float(k) for k in range(8)]   # ten values live
+    return sum(t[1:], t[0]) + y
+
+
+def _ints(x, y):
+    """Two int64 values: where() of Python ints is int64."""
+    return torch.where(x > 0, 7, -3), torch.where(y > 1, 2, -5)
+
+
+def _int_arith(x, y):
+    k, j = _ints(x, y)
+    return (k * j + k - j) * y + (k // j + k % j - (-k) // j)
+
+
+def _int_bitwise(x, y):
+    k, j = _ints(x, y)
+    return ((k & 6) | (j ^ 3)) * x - (~k) * y
 
 
 # name: (merge, exact)
@@ -75,38 +102,83 @@ GENERAL = {
     "log_expm1": (lambda x, y: torch.log(torch.abs(x)) + torch.expm1(y),
                   False),
     "tanh_sigmoid": (lambda x, y: torch.tanh(x) - y.sigmoid(), False),
+    # the ops the register programs refused
+    "erf": (lambda x, y: torch.erf(x) * y, False),
+    "erfc": (lambda x, y: torch.erfc(x) - y.erf(), False),
+    "trig": (lambda x, y: torch.sin(x) * torch.cos(y) + torch.tan(x * 0.5),
+             False),
+    "inverse_trig": (lambda x, y: torch.asin(x * 0.05)
+                     + torch.acos(y * 0.05) - torch.atan(x), False),
+    "hyperbolic": (lambda x, y: torch.sinh(x * 0.1) - torch.cosh(y * 0.1)
+                   + torch.asinh(x) + torch.acosh(2 + torch.abs(y))
+                   + torch.atanh(x * 0.05), False),
+    "exp2_log2_log10": (lambda x, y: torch.exp2(x * 0.5)
+                        + torch.log2(torch.abs(y))
+                        - torch.log10(torch.abs(x)), False),
+    "rounding": (lambda x, y: torch.floor(x) + torch.ceil(y) * 2
+                 - torch.round(x * 4) + torch.trunc(y * 3) + torch.frac(x)
+                 + y.round() - x.fix(), True),
+    "remainder": (lambda x, y: x % y - torch.remainder(y, 1.5)
+                  + torch.fmod(x, -2.0), True),
+    "fmod": (lambda x, y: torch.fmod(x, y) - y.fmod(x), True),
+    "floor_divide": (lambda x, y: x // y + torch.div(
+        y, x, rounding_mode="floor"), True),
+    "div_trunc": (lambda x, y: torch.div(x, y, rounding_mode="trunc"), True),
+    "floordiv_const": (lambda x, y: x // 0.75 + y, True),
+    "atan2_hypot": (lambda x, y: torch.atan2(x, y) + torch.hypot(x, y),
+                    False),
+    "fmax_fmin": (lambda x, y: torch.fmax(x, y) - torch.fmin(x, y * 2.0),
+                  True),
+    "copysign": (lambda x, y: torch.copysign(x, y) * 2
+                 + torch.copysign(y, -1.0), True),
+    "relu": (lambda x, y: torch.relu(x) - torch.nn.functional.relu(y),
+             True),
+    "predicates": (lambda x, y: torch.where(torch.isnan(x) | torch.isinf(y),
+                                            1.0, 0.0)
+                   + torch.isfinite(x) * 2 - torch.signbit(y) * 4, True),
+    "logical_xor": (lambda x, y: torch.logical_xor(x > 0, y) * x
+                    + ((x > 0) ^ (y < 0)) * y, True),
+    "alpha": (lambda x, y: torch.add(x, y, alpha=3.1)
+              - torch.sub(y, x, alpha=0.7) + torch.rsub(x, y, alpha=2), True),
+    # torch's typing: bool + bool is bool (or), bool * bool and, int64
+    # arithmetic, int64 / int64 float32, float32 against T, a 0-d float64
+    # constant over a bool promotes to float64
+    "bool_plus_bool": (lambda x, y: ((x > 0) + (y > 0)) * x
+                       + ((x > 0) * (y < 0)) * y, True),
+    "int_arith": (_int_arith, True),
+    "int_bitwise": (_int_bitwise, True),
+    "int_truediv": (lambda x, y: _ints(x, y)[0] / _ints(x, y)[1] + x, True),
+    "int_pow": (lambda x, y: (_ints(x, y)[0] ** 2
+                              + _ints(x, y)[0] ** _ints(x, y)[1].abs()) * y,
+                True),
+    "f32_vs_value": (lambda x, y: torch.where(
+        torch.where(x > 0, 0.1, 0.2) < y, x, y), True),
+    "bool_float": (lambda x, y: ((x > 0) + 1.5) * y
+                   + torch.where(x > 0, 3, 4) * 0.1, True),
+    "zero_d_f64": (lambda x, y: (x > 0) * torch.tensor(
+        0.1, dtype=torch.float64) + y, True),
+    # no limit on the length or the live values
+    "long": (_long, True),
+    "wide": (_wide, True),
 }
 
 # merges that divide by a constant: torch on the card multiplies by the
 # reciprocal of a CPU-scalar divisor (one rounding more), while the kernels
 # divide, as torch on the CPU and the JAX package do; on the card they are
 # held to the plain version on the CPU
-CARD_RECIPROCAL = frozenset({"div_by_3", "neg_sub"})
+CARD_RECIPROCAL = frozenset({"div_by_3", "neg_sub", "floordiv_const"})
 
 # merges the compiler refuses, each naming its cause
 REFUSED = {
-    "unknown_op": (lambda x, y: torch.erf(x) * y, "erf"),
     "python_branch": (lambda x, y: x if x > 0 else y, "Python branch"),
     "tensor_constant": (lambda x, y: x * torch.ones(3), "tensor constant"),
-    "too_many_instructions": (None, "instructions"),
-    "too_many_registers": (None, "registers"),
+    "reduction": (lambda x, y: torch.sum(x) * y, "non-elementwise op"),
+    "method_reduction": (lambda x, y: x.cumsum(0) + y, "non-elementwise op"),
+    "indexing": (lambda x, y: x[0] * y, "indexing"),
+    "random": (lambda x, y: torch.rand_like(x) * y, "random op"),
+    "outside_the_set": (lambda x, y: torch.lgamma(x) * y, "outside the op"),
+    "torch_refuses": (lambda x, y: (x > 0) - (y > 0), "Subtraction"),
 }
-
-
-def _long(x, y):
-    r = x
-    for _ in range(20):
-        r = r * y + x
-    return r
-
-
-def _wide(x, y):
-    t = [x * x + float(k) for k in range(8)]   # ten values live
-    return sum(t[1:], t[0]) + y
-
-
-REFUSED["too_many_instructions"] = (_long, "instructions")
-REFUSED["too_many_registers"] = (_wide, "registers")
 
 # the values of the special grid: signed zeros, infinities, NaN,
 # subnormals (of float32 and float64), large and small
@@ -163,4 +235,60 @@ def check(got: torch.Tensor, want: torch.Tensor, exact: bool, name=""):
         bad = ulps(got, want) > limit
     assert not bool(bad.any()), (
         f"{name}: {int(bad.sum())} elements beyond {limit} ulp, e.g. got "
+        f"{got[bad][:4].tolist()} want {want[bad][:4].tolist()}")
+
+
+# merges IEEE-exact on the card whose ops torch's CPU build takes from a
+# vector library (MKL's sqrt is not correctly rounded): on the CPU they
+# are held as the transcendental ones
+CPU_VECTOR_MATH = frozenset({"sqrt"})
+
+
+def _near(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Within TRANSCENDENTAL_ULPS ulps, at the scale of max(|want|, 1);
+    equal values and NaN against NaN pass."""
+    scale = torch.clamp(want.abs().nan_to_num(posinf=1.0), min=1.0)
+    ulp = torch.nextafter(scale, torch.full_like(scale, np.inf)) - scale
+    close = (got - want).abs() <= TRANSCENDENTAL_ULPS * ulp
+    return close | (got == want) | (torch.isnan(got) & torch.isnan(want)) \
+        | (ulps(got, want) <= TRANSCENDENTAL_ULPS)
+
+
+def _same_bits(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    ints = torch.int64 if got.dtype == torch.float64 else torch.int32
+    return (got.view(ints) == want.view(ints)) \
+        | (torch.isnan(got) & torch.isnan(want))
+
+
+def check_host(got: torch.Tensor, fn, x: torch.Tensor, y: torch.Tensor,
+               exact: bool, name=""):
+    """The emitted function compiled for the host (``got``) against the
+    merge ``fn`` on the CPU tensors ``x``, ``y``. Exact merges bit for
+    bit. The others within TRANSCENDENTAL_ULPS ulps at the scale of
+    max(|want|, 1): torch's CPU build takes its transcendentals from
+    vector libraries (MKL, SLEEF), the host from libm, and one op's
+    last-bit difference survives a cancelling sum at the scale of its
+    terms. An element that fails is held again to the merge on that
+    element alone, which torch computes in its scalar loop, and a float32
+    element of a transcendental merge to the merge on float64 operands,
+    rounded: the vector loops are not faithful on subnormals (fmod(1e-45,
+    1) and remainder(3e38, 0.5) are NaN there, and log1p(1e-45) is 0 even
+    alone, so exp(inf) * log1p(1e-45) is NaN)."""
+    want = fn(x, y)
+    want = (want if isinstance(want, torch.Tensor)
+            else torch.tensor(want)).to(x.dtype).expand_as(x)
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    same = _same_bits if exact else _near
+    bad = ~same(got, want)
+    idx = bad.nonzero().flatten()
+    if idx.numel():
+        alone = torch.cat([fn(x[i:i + 1], y[i:i + 1]).to(x.dtype)
+                           .reshape(1) for i in idx.tolist()])
+        bad[idx] = ~same(got[idx], alone)
+        if not exact and x.dtype == torch.float32:
+            wide = fn(x[idx].double(), y[idx].double()).to(x.dtype)
+            bad[idx] &= ~same(got[idx], wide)
+    assert not bool(bad.any()), (
+        f"{name}: {int(bad.sum())} elements beyond "
+        f"{0 if exact else TRANSCENDENTAL_ULPS} ulp, e.g. got "
         f"{got[bad][:4].tolist()} want {want[bad][:4].tolist()}")
