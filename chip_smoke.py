@@ -57,7 +57,16 @@ shared memory, and the global path), each held to the plain version.
 version on every slot, past the join's total too. Q5's Bloom filter,
 which the main path builds over B's compacted entries, is held bit for
 bit to the plain ``bloom.build`` over all of B's cells (x*y skips
-zeros), with both builds' device times.
+zeros), with both builds' device times. The ``merge_join Bt`` line hands
+``merge_join`` Q3's B as
+the view ``Bo.T`` (the operand of a transpose overlay): bit for bit
+against the plain version and the direct call, the kernel on the view
+beside the direct call, ``.contiguous()`` then the kernel, and
+``torch.mul(a, Bo.T)``, in turns, with the bytes the call allocates (the
+output only). Before the kernel phases, the line ``transposed overlay``
+runs Ao ⋈[RID=CID ∧ CID=RID] Bo through the ``Session`` (B reaches
+``merge_join`` as that view), held exactly to float32 numpy, off the ten
+queries.
 
 The merges phase (``kernels.merge_codes``: a general merge traced, emitted
 as C++ and compiled by nvcc into its own instances of both kernels) builds
@@ -174,7 +183,8 @@ torch.profiler's kernels.
 
 Output: the card's name and power limit (``nvidia-smi``), the build time,
 after a fresh build the ptxas registers and spills of every instance of
-the three kernels with a launch parameter and of the float64 instance
+the three kernels with a launch parameter, of the float64 instance and of
+``merge_join``'s code instances
 (each generated merge's on its merges line), one line per query and
 kernel, the merges, serving,
 autotune, CF, demo, LM, training and dry-run lines (each with the card's
@@ -1331,6 +1341,104 @@ def kernel_phase(name, calls):
     return row, details
 
 
+def merge_join_transposed_line(call, card):
+    """``merge_join`` on Q3's A and B handed over as ``Bo.T``, the view a
+    transpose overlay passes (Bo is B transposed and made contiguous, so
+    the view holds B's values): bit for bit against the plain version and
+    the direct call; in turns, the CUDA-event ms of the kernel on the view
+    and on B direct, then the parent's way (``.contiguous()`` of the view,
+    then the kernel) and the library call (the merge over the view,
+    ``torch.mul(a, Bo.T)`` for x*y); the bound is the direct call's bytes;
+    and the memory the view's call allocates above what was allocated
+    before it (the output only: no copy of B). Returns the line and its
+    numbers."""
+    import torch
+    from repro_torch.kernels.merge_join import (
+        live_tiles, merge_join_cuda, merge_join_plain,
+    )
+    (a, b, ma, mb), kw = call
+    bt = b.T.contiguous().T
+    assert bt.stride() == (1, b.shape[0]) and torch.equal(bt, b)
+    fns = {
+        "view": lambda: merge_join_cuda(a, bt, ma, mb, **kw),
+        "direct": lambda: merge_join_cuda(a, b, ma, mb, **kw),
+        "copy": lambda: merge_join_cuda(a, bt.contiguous(), ma, mb, **kw),
+        "library": lambda: kw["merge"](a, bt),
+    }
+    got = fns["view"]()
+    assert torch.equal(got, merge_join_plain(a, bt, ma, mb, **kw)), \
+        "merge_join Bt: the view against the plain version"
+    assert torch.equal(got, fns["direct"]()), "merge_join Bt against direct"
+    assert torch.equal(fns["library"](), got), "merge_join Bt: library call"
+    del got
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = fns["view"]()
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert grown <= out.nbytes + (1 << 20), \
+        f"merge_join Bt allocated {grown} B for a {out.nbytes} B output"
+    del out
+    order = ("view", "direct", "direct", "view", "copy", "library",
+             "library", "copy")
+    turns = [(k, cuda_time_ms(fns[k])) for k in order]
+    ms = {k: sum(t for j, t in turns if j == k) / 2 for k in fns}
+    bs = kw["block_size"]
+    live = int(live_tiles(ma, mb, kw["mode"]).sum()) * bs * bs
+    bms, by = bound(2 * live * a.element_size() + ma.nbytes + mb.nbytes
+                    + a.nbytes, live)
+    nums = dict(ms=ms["view"], direct_ms=ms["direct"], copy_ms=ms["copy"],
+                library_ms=ms["library"], bound_ms=bms, grown_bytes=grown)
+    line = (f"  merge_join Bt [{tuple(a.shape)}, B as Bo.T, mode "
+            f"{kw['mode']}]: {ms['view']:.4f} ms on the view ("
+            f"{ms['view'] / ms['direct']:.3f} of direct {ms['direct']:.4f} "
+            f"ms; .contiguous() then the kernel {ms['copy']:.4f} ms; library "
+            f"{ms['library']:.4f} ms; bound {bms:.4f} ms by {by}; CUDA "
+            f"events, two turns each), bits equal to the plain version and "
+            f"to direct; the call allocated {grown / 2**20:.1f} MiB (the "
+            f"output {a.nbytes / 2**20:.1f} MiB) [{card}]")
+    return line, nums
+
+
+def transposed_overlay_line(m, data, card, on_card) -> str:
+    """Ao ⋈[RID=CID ∧ CID=RID] Bo through the Session, off the main
+    path's ten queries: B reaches ``merge_join`` as the view Boᵀ (0.5 <
+    live share < 1, the kernel route). Held exactly to the float32
+    products of the entry lists, as Q3 is."""
+    import torch
+    from repro_torch.core.sparsity import product_merge
+    from repro_torch.kernels import build
+    ao, bo = data["Ao"], data["Bo"]
+    q = m["Ao"].join(m["Bo"], "RID=CID AND CID=RID", product_merge())
+    before = build.LAUNCHES["merge_join"]
+    t0 = time.perf_counter()
+    r = q.collect()
+    wall = time.perf_counter() - t0
+    launched = build.LAUNCHES["merge_join"] - before
+    # out[i, j] = Ao[i, j] * Bo[j, i]: Bo's entry (j, i) under key i*n + j
+    bt_keys = bo.cols * bo.n + bo.rows
+    order = np.argsort(bt_keys)
+    common, ia, ib = np.intersect1d(ao.keys, bt_keys[order],
+                                    return_indices=True)
+    want = ao.vals[ia] * bo.vals[order][ib]              # float32 products
+    flat = r.value.reshape(-1)
+    nz = torch.nonzero(flat).reshape(-1)
+    assert torch.equal(nz.cpu(), torch.as_tensor(common)), \
+        "transposed overlay positions"
+    assert np.array_equal(flat[nz].cpu().numpy(), want), \
+        "transposed overlay values"
+    share = float(q.physical_plan().node(q.physical_plan().root)
+                  .meta["mask"].mean())
+    assert 0.5 < share < 1.0, f"transposed overlay live share {share}"
+    if on_card:
+        assert launched == 1, f"merge_join launches {launched}"
+    return (f"transposed overlay Ao x Bo^T (RID=CID AND CID=RID): "
+            f"{common.size} entries exact, live block share {share:.3f}, "
+            f"merge_join launches {launched}, cold wall {wall:.3f} s "
+            f"[{card}]")
+
+
 def bloom_build_phase(b, records, calls) -> str:
     """Q5's filter as the main path built it (over B's compacted entries)
     against the plain ``bloom.build`` over all of B's cells, bit for bit,
@@ -1372,16 +1480,22 @@ _INSTANCES = (
      lambda m: f"masked_matmul_kernel<{_TYPES[m[1]]}, kc {m[2]}>"),
     (re.compile(r"bloom_probe_sharedILi(\d+)ELi(\d+)E"),
      lambda m: f"bloom_probe_shared<K {m[1]}, threads {m[2]}>"),
+    (re.compile(r"merge_join_kernelI([fd])Lb([01])ELb([01])E9MergeCode"),
+     lambda m: f"merge_join_kernel<{_TYPES[m[1]]}, "
+               f"{'vector' if m[2] == '1' else 'scalar'}"
+               f"{', B transposed' if m[3] == '1' else ''}>"),
 )
-# a generated merge's instances: kernel, value type, merge_join's path or
-# coo_expand's coordinate type
-_GENERATED = re.compile(r"(merge_join|coo_expand)_kernelI([fd])(Lb1|Lb0|[si])")
+# a generated merge's instances: kernel (merge_join_slow_kernel for a
+# slow-path merge's B-direct instances), value type, merge_join's path and
+# B's layout or coo_expand's coordinate type
+_GENERATED = re.compile(
+    r"(merge_join|coo_expand)(?:_slow)?_kernelI([fd])(Lb[01]ELb[01]|[si])")
 
 
 def ptxas_usage(log: str, patterns=_INSTANCES) -> list:
     """One line per instance of the three kernels with a launch parameter
-    (or of ``patterns``) from nvcc's ``-Xptxas -v`` log: its registers,
-    stack frame and spills."""
+    and of ``merge_join``'s code instances (or of ``patterns``) from nvcc's
+    ``-Xptxas -v`` log: its registers, stack frame and spills."""
     usage, entry = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
@@ -1401,12 +1515,18 @@ def ptxas_usage(log: str, patterns=_INSTANCES) -> list:
 
 def generated_usage(log: str) -> str:
     """A generated merge's instances in one phrase: registers by instance
-    and the spill stores of all of them, from its ``-Xptxas -v`` log."""
-    name = {"Lb1": "vec", "Lb0": "scalar", "s": "i16", "i": "i32"}
+    (with its spill stores where it has any) and the spill stores of all
+    of them, from its ``-Xptxas -v`` log."""
+    name = {"Lb1ELb0": "vec", "Lb0ELb0": "scalar", "Lb1ELb1": "vec Bt",
+            "Lb0ELb1": "scalar Bt", "s": "i16", "i": "i32"}
     rows = ptxas_usage(log, ((_GENERATED, lambda m: (
         f"{m[1]} {_TYPES[m[2]]} {name[m[3]]}")),))
-    regs = [f"{r.split(': ')[0][6:]} {r.split(': ')[1].split(' ')[0]}"
-            for r in rows]
+    regs = []
+    for row in rows:
+        instance, use = row[len("ptxas "):].split(": ", 1)
+        spill = int(re.search(r"(\d+) bytes spill stores", use)[1])
+        regs.append(f"{instance} {use.split(' ')[0]}"
+                    + (f" (spills {spill} B)" if spill else ""))
     spills = sum(int(v) for v in re.findall(r"(\d+) bytes spill stores",
                                             log))
     return f"registers {'; '.join(regs)}; spill stores {spills} B"
@@ -3108,6 +3228,8 @@ def main(argv=None) -> int:
     print("kernels: " + " ".join(f"{k}={v}" for k, v in launches.items()))
     _, line = pnmf_phase(s.env, ref, on_card)
     print(line)
+    print(transposed_overlay_line(mats, data, card if on_card else
+                                  "CPU rehearsal", on_card))
     # the PNMF phase's masked product: W [n, K] x H [K, n] under Ap's mask
     pnmf_call = ((s.env["W"].value, s.env["H"].value,
                   s.env["Ap"].block_mask), {"block_size": bs})
@@ -3149,6 +3271,9 @@ def main(argv=None) -> int:
                      "library_ms": row["library_ms"]})
         rows[-1].update((k, row[k]) for k in ("device_ms", "host_us",
                                               "dispatch_us") if k in row)
+    line, nums = merge_join_transposed_line(calls["merge_join"][0], card)
+    print(line)
+    rows[[r["name"] for r in rows].index("merge_join")]["transposed"] = nums
     print(bloom_build_phase(s.env["Bq"].value, records, calls["bloom_probe"]))
     lines, generated_launches, generated_ms = merges_phase(
         calls, s.env, n, card, on_card)

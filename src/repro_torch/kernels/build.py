@@ -135,6 +135,16 @@ def _compile(out: Path) -> str:
     return "\n".join(log)
 
 
+# merge_join's launch arguments before the merge, in the order of every
+# merge_join launcher (the main library's and each generated merge's)
+MERGE_JOIN_ARGS = (
+    ctypes.c_int, *[ctypes.c_void_p] * 5,  # value dtype code, a, b, masks, out
+    ctypes.c_longlong, ctypes.c_longlong,  # m, n
+    ctypes.c_longlong,                     # B's leading stride
+    ctypes.c_int, ctypes.c_int,            # block size, mode
+    ctypes.c_int, ctypes.c_int)            # vectorised, B transposed
+
+
 def _bind(lib: ctypes.CDLL) -> None:
     P, I, L, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_double
@@ -149,8 +159,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.bloom_probe_plan.argtypes = [
         P, P, L, I, I, I, ctypes.POINTER(I)]  # ..., threads, info
     lib.merge_join_launch.argtypes = [
-        I, P, P, P, P, P,     # value dtype code, a, b, mask_a, mask_b, out
-        L, L, I, I, I,        # m, n, block size, mode, vectorised
+        *MERGE_JOIN_ARGS,
         I, D, D, D, D, P]     # merge op, c0, cx, cy, cxy, stream
     lib.masked_matmul_launch.argtypes = [
         I, I, P, P, P, P,     # value dtype code, K chunk, a, b, mask, out
@@ -232,9 +241,9 @@ _HOST_FNS: Dict[str, Tuple[ctypes._CFuncPtr, ctypes._CFuncPtr]] = {}
 
 # The unit of a generated merge: its functor in a namespace of its own and
 # the extern "C" launchers of its instances, named by its key. merge_join:
-# f32 and f64, vector and scalar paths; coo_expand: the run-time-width
-# instance of each value and coordinate type, which takes every width and
-# every vt of the grid.
+# f32 and f64, vector and scalar paths (each reads B direct or
+# transposed); coo_expand: the run-time-width instance of each value and
+# coordinate type, which takes every width and every vt of the grid.
 _MERGE_UNIT = """#include "merge_join.cuh"
 #include "coo_expand.cuh"
 
@@ -243,10 +252,12 @@ namespace m_{key} {{
 
 extern "C" int merge_join_{key}(int value_code, const void* a, const void* b,
                                 const void* mask_a, const void* mask_b,
-                                void* out, long long m, long long n, int bs,
-                                int mode, int vec, void* stream) {{
-  return merge_join_dispatch(value_code, a, b, mask_a, mask_b, out, m, n, bs,
-                             mode, vec, m_{key}::Merge<float>{{}},
+                                void* out, long long m, long long n,
+                                long long ldb, int bs, int mode, int vec,
+                                int transposed, void* stream) {{
+  return merge_join_dispatch(value_code, a, b, mask_a, mask_b, out, m, n, ldb,
+                             bs, mode, vec, transposed,
+                             m_{key}::Merge<float>{{}},
                              m_{key}::Merge<double>{{}}, stream);
 }}
 
@@ -297,7 +308,7 @@ def _merge_digest(unit: str, flags) -> str:
 def _bind_merge(lib: ctypes.CDLL, key: str) -> Dict[str, ctypes._CFuncPtr]:
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     mj = getattr(lib, f"merge_join_{key}")
-    mj.argtypes = [I, P, P, P, P, P, L, L, I, I, I, P]
+    mj.argtypes = [*MERGE_JOIN_ARGS, P]
     ce = getattr(lib, f"coo_expand_{key}")
     ce.argtypes = [I, I, P, P, P, P, P, P, I, I, I, I, L, I, P, P, P]
     mj.restype = ce.restype = I

@@ -15,7 +15,9 @@ once, on the host, into one of three codes:
   ``__torch_function__``), once with float32 operands and once with
   float64, equal nodes are merged, and each trace is emitted as C++: a
   functor ``Merge<T>`` whose body declares one typed value a node and
-  calls ``csrc/merge.cuh``'s op helpers. ``kernels/build.py`` compiles it
+  calls ``csrc/merge.cuh``'s op helpers (and says ``kSlowPaths`` when an
+  op of ``SLOW_PATH_OPS`` is among them: ``csrc/merge_join.cuh`` takes
+  such a merge's rows one at a time). ``kernels/build.py`` compiles it
   at first use into its own instances of ``merge_join`` and
   ``coo_expand``; the code's ``key`` (a hash of the source) names them,
   so two merges with the same trace share one library.
@@ -411,6 +413,14 @@ _OPS.update({name: _Op(getattr(torch, name), _f(f"m_{name}({{0}})"))
 _CATEGORY = {torch.bool: "b", torch.int64: "i", torch.float32: "f",
              torch.float64: "f"}
 
+# ops whose CUDA code carries a long slow path, where one row a thread was
+# measured faster on an H100 (PERF.md, merges table): a division or
+# remainder (taken on every zero divisor, and a sparse matrix is mostly
+# zeros), a sine's or cosine's argument reduction (its registers). tan,
+# fmod and trunc division have such paths too but were not measured, so
+# they keep the streaming plan.
+SLOW_PATH_OPS = frozenset({"div", "floor_divide", "remainder", "sin", "cos"})
+
 
 def _dummy(o):
     """What the torch function sees in the plain version, for its dtype."""
@@ -676,8 +686,10 @@ def _functor(g: _Graph, root: int, t: torch.dtype) -> str:
             if g.nodes[n][0] not in ("x", "y", "k"):
                 stack.extend(g.nodes[n][1:])
     ct = _CTYPES[t]
-    lines = [f"template <> struct Merge<{ct}> {{",
-             f"  MERGE_HD {ct} operator()({ct} x, {ct} y) const {{"]
+    lines = [f"template <> struct Merge<{ct}> {{"]
+    if any(g.nodes[n][0] in SLOW_PATH_OPS for n in need):
+        lines.append("  static constexpr bool kSlowPaths = true;")
+    lines.append(f"  MERGE_HD {ct} operator()({ct} x, {ct} y) const {{")
     for n in sorted(need):
         op, *args = g.nodes[n]
         if op in ("x", "y", "k"):

@@ -8,17 +8,19 @@ its inputs are never read.
 
 ``merge_join_plain`` is the plain PyTorch version (any device);
 ``merge_join_cuda`` launches the kernel of ``csrc/merge_join.cu`` on a
-CUDA tensor and raises on anything else. The merge reaches the kernel as
-``merge_codes.merge_code``'s code: a bilinear merge or the safe division
-runs in the main library's code instances, any other merge in the op set
-in its own generated instances (``build.merge_function``, built at the
-merge's first launch), and a merge the compiler refuses raises
-``NotImplementedError`` before anything is built or launched.
+CUDA tensor and raises on anything else. ``b_layout`` is its rule for how
+the kernel reads B: in place when B is contiguous or a transposed view of
+a contiguous matrix (a transpose overlay's ``b.T``), else a copy. The
+merge reaches the kernel as ``merge_codes.merge_code``'s code: a bilinear
+merge or the safe division runs in the main library's code instances, any
+other merge in the op set in its own generated instances
+(``build.merge_function``, built at the merge's first launch), and a merge
+the compiler refuses raises ``NotImplementedError`` before anything is
+built or launched.
 """
 from __future__ import annotations
 
-import ctypes
-from typing import Callable
+from typing import Callable, Sequence, Tuple
 
 import torch
 
@@ -72,13 +74,35 @@ def merge_join_plain(a: torch.Tensor, b: torch.Tensor, mask_a: torch.Tensor,
                                              device=a.device))
 
 
+def b_layout(shape: Sequence[int],
+             strides: Sequence[int]) -> Tuple[str, int]:
+    """How ``merge_join_cuda``'s kernel reads a B of ``shape`` (m, n) and
+    element ``strides``: ``("direct", n)`` for a contiguous B (read at
+    A's offsets), ``("transposed", ldb)`` for a transposed view of a
+    row-major matrix, B[r, c] at c * ldb + r (a contiguous Bo's ``Bo.T``:
+    ldb = m), else ``("copy", n)``: the kernel reads ``b.contiguous()``
+    directly. A dimension of size 1 takes any stride."""
+    m, n = shape
+    s0, s1 = strides
+    if (n <= 1 or s1 == 1) and (m <= 1 or s0 == n):
+        return "direct", n
+    if m <= 1 or s0 == 1:
+        return "transposed", (s1 if n > 1 else m)
+    return "copy", n
+
+
 def merge_join_cuda(a: torch.Tensor, b: torch.Tensor, mask_a: torch.Tensor,
                     mask_b: torch.Tensor, *, merge: Callable,
                     mode: int = MODE_ALL,
                     block_size: int = 256,
                     tiles: Tiles = None) -> torch.Tensor:
-    """Launch the CUDA kernel (one CTA per ``block_size``² tile). It has
-    no launch parameter: ``tiles`` must be None or empty."""
+    """Launch the CUDA kernel: one CTA of 256 threads a unit, a tile's
+    band of rows. A reads row-major (a non-contiguous A is copied first);
+    B as ``b_layout`` says, so a transpose overlay's ``b.T`` is read in
+    place and any other non-contiguous B is copied. The kernel has no
+    launch parameter: ``tiles`` must be None or empty. More than 2**31 - 1
+    units raise ``RuntimeError`` (cudaErrorInvalidValue) before any
+    launch."""
     checked_tiles("merge_join", tiles, (), {})
     dev = a.device
     ins = (a, b, mask_a, mask_b)
@@ -100,17 +124,24 @@ def merge_join_cuda(a: torch.Tensor, b: torch.Tensor, mask_a: torch.Tensor,
     if mode not in (MODE_BOTH, MODE_X, MODE_Y, MODE_ALL):
         raise ValueError(f"unknown mode {mode}")
     code = merge_code(merge)
-    a, b = a.contiguous(), b.contiguous()
+    layout, ldb = b_layout(tuple(b.shape), b.stride())
+    if layout == "copy":
+        b, layout, ldb = b.contiguous(), "direct", n
+    a = a.contiguous()
     mask_a, mask_b = mask_a.contiguous(), mask_b.contiguous()
-    out = torch.empty_like(a)
+    out = torch.empty((m, n), dtype=a.dtype, device=dev)
     if a.numel() == 0:
         return out
     width = 16 // a.element_size()
+    # 16-byte lanes: A's and out's rows (and, read transposed, Bo's rows)
+    # start on a 16-byte boundary and hold whole lanes
     vec = int(n % width == 0 and bs % width == 0
+              and (layout == "direct" or (m % width == 0
+                                          and ldb % width == 0))
               and all(x.data_ptr() % 16 == 0 for x in (a, b, out)))
     args = (_VALUE_CODES[a.dtype], a.data_ptr(), b.data_ptr(),
             mask_a.data_ptr(), mask_b.data_ptr(), out.data_ptr(),
-            ctypes.c_longlong(m), ctypes.c_longlong(n), bs, mode, vec)
+            m, n, ldb, bs, mode, vec, int(layout == "transposed"))
     generated = code.op == GENERATED
     if generated:
         rc = build.merge_function(code, "merge_join")(

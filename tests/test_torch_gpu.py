@@ -26,7 +26,8 @@ from repro_torch.kernels.masked_matmul import (
     masked_matmul_cuda, masked_matmul_plain, pool,
 )
 from repro_torch.kernels.merge_join import (
-    MODE_ALL, MODE_BOTH, MODE_X, MODE_Y, merge_join_cuda, merge_join_plain,
+    MODE_ALL, MODE_BOTH, MODE_X, MODE_Y, live_tiles, merge_join_cuda,
+    merge_join_plain,
 )
 from repro_torch.kernels.sddmm_agg import pool as sddmm_agg_pool
 from repro_torch.kernels.sddmm_agg import sddmm_agg_cuda, sddmm_agg_plain
@@ -360,24 +361,133 @@ def test_coo_expand_refuses_int32_overflow_without_a_launch(cuda):
     assert build.LAUNCHES == before
 
 
+@pytest.mark.parametrize("b_layout", ["contiguous", "transposed"])
+def test_merge_join_refuses_more_units_than_a_grid_without_a_launch(
+        cuda, b_layout):
+    """A CTA a unit: a float32 46341² at block size 1 (one unit a tile)
+    has more than 2**31 - 1 units, and the launcher refuses it."""
+    m = n = 46341
+    a = torch.empty((m, n), device=cuda)
+    b = torch.empty((m, n), device=cuda)
+    if b_layout == "transposed":
+        b = b.T
+    mask = torch.ones((m, n), dtype=torch.bool, device=cuda)
+    before = dict(build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="merge_join kernel launch failed"):
+        merge_join_cuda(a, b, mask, mask, merge=MERGES["mul"],
+                        mode=MODE_BOTH, block_size=1)
+    assert build.LAUNCHES == before
+    del a, b, mask
+    torch.cuda.empty_cache()
+
+
+def _b_operand(rng, shape, dtype, device, b_layout):
+    """B of ``shape`` as a contiguous tensor or as the view ``Bo.T`` of a
+    contiguous Bo (a transpose overlay's operand)."""
+    if b_layout == "contiguous":
+        return torch.as_tensor(rng.normal(size=shape), dtype=dtype,
+                               device=device)
+    bo = torch.as_tensor(rng.normal(size=shape[::-1]), dtype=dtype,
+                         device=device)
+    return bo.T
+
+
+@pytest.mark.parametrize("b_layout", ["contiguous", "transposed"])
 @pytest.mark.parametrize("mode", [MODE_BOTH, MODE_X, MODE_Y, MODE_ALL])
 @pytest.mark.parametrize("shape,bs", [((1024, 768), 256), ((300, 257), 128),
-                                      ((512, 510), 256)])
+                                      ((512, 510), 256), ((260, 196), 64)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_merge_join_kernel_matches_plain(cuda, mode, shape, bs, dtype):
+def test_merge_join_kernel_matches_plain(cuda, mode, shape, bs, dtype,
+                                         b_layout):
+    """Bit for bit: each element is the same bilinear merge of the same two
+    values (2xy is exact, so contraction changes no bit)."""
     rng = np.random.default_rng(2)
     m, n = shape
     grid = (-(-m // bs), -(-n // bs))
     a = torch.as_tensor(rng.normal(size=shape), dtype=dtype, device=cuda)
-    b = torch.as_tensor(rng.normal(size=shape), dtype=dtype, device=cuda)
+    b = _b_operand(rng, shape, dtype, cuda, b_layout)
     ma = torch.as_tensor(rng.uniform(size=grid) < 0.6, device=cuda)
     mb = torch.as_tensor(rng.uniform(size=grid) < 0.6, device=cuda)
-    for fn in MERGES.values():
+    for name, fn in MERGES.items():
         kw = dict(merge=fn, mode=mode, block_size=bs)
+        before = build.LAUNCHES["merge_join"]
         got = merge_join_cuda(a, b, ma, mb, **kw)
+        assert build.LAUNCHES["merge_join"] == before + 1
         want = merge_join_plain(a, b, ma, mb, **kw)
-        tol = TOL[dtype]
-        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("b_layout", ["contiguous", "transposed"])
+def test_merge_join_dead_tiles_are_zeros_whatever_they_hold(cuda, b_layout):
+    """A dead tile is never read: NaN and inf there give exact zeros."""
+    rng = np.random.default_rng(6)
+    shape, bs = (700, 520), 128
+    a = torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                        device=cuda)
+    b = _b_operand(rng, shape, torch.float32, cuda, b_layout)
+    ma, mb = _mask(rng, shape, bs, 0.6, cuda), _mask(rng, shape, bs, 0.6,
+                                                     cuda)
+    for mode in (MODE_BOTH, MODE_X, MODE_Y):
+        dead = ~_expand(live_tiles(ma, mb, mode), shape, bs)
+        x, y = a.clone(), b.clone()
+        x[dead] = float("nan")
+        y[dead] = float("inf")
+        got = merge_join_cuda(x, y, ma, mb, merge=MERGES["affine"],
+                              mode=mode, block_size=bs)
+        assert torch.equal(got[dead], torch.zeros_like(got[dead]))
+        assert torch.equal(got, merge_join_plain(
+            a, b, ma, mb, merge=MERGES["affine"], mode=mode, block_size=bs))
+
+
+@pytest.mark.parametrize("b_layout", ["contiguous", "transposed"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_merge_join_unaligned_operands_take_the_scalar_path(cuda, dtype,
+                                                            b_layout):
+    """Operands one element past a 16-byte boundary (views into a flat
+    buffer) and a row length that no vector divides: the scalar path, the
+    same bits."""
+    rng = np.random.default_rng(7)
+
+    def unaligned(m, n, transposed=False):
+        flat = torch.as_tensor(rng.normal(size=m * n + 1), dtype=dtype,
+                               device=cuda)[1:]
+        return flat.view(n, m).T if transposed else flat.view(m, n)
+    # (260, 196) / 64: rows a vector divides, pointers it does not;
+    # (260, 250) / 50: a row length no 16-byte vector divides
+    for (m, n), bs in (((260, 196), 64), ((260, 250), 50)):
+        a = unaligned(m, n)
+        b = unaligned(m, n, b_layout == "transposed")
+        assert a.data_ptr() % 16 != 0 and b.data_ptr() % 16 != 0
+        ma, mb = _mask(rng, (m, n), bs, 0.6, cuda), _mask(rng, (m, n), bs,
+                                                          0.6, cuda)
+        for mode in (MODE_BOTH, MODE_ALL):
+            kw = dict(merge=MERGES["affine"], mode=mode, block_size=bs)
+            assert torch.equal(merge_join_cuda(a, b, ma, mb, **kw),
+                               merge_join_plain(a, b, ma, mb, **kw))
+
+
+def test_merge_join_transposed_view_allocates_only_the_output(cuda):
+    """B = Bo.T is read in place: the call's peak above what was allocated
+    before it is the output (and the masks' copies), not a copy of B."""
+    rng = np.random.default_rng(8)
+    n, bs = 4096, 256
+    a = torch.as_tensor(rng.normal(size=(n, n)), dtype=torch.float32,
+                        device=cuda)
+    bo = torch.as_tensor(rng.normal(size=(n, n)), dtype=torch.float32,
+                         device=cuda)
+    ma, mb = _mask(rng, (n, n), bs, 0.7, cuda), _mask(rng, (n, n), bs, 0.7,
+                                                      cuda)
+    mbt = mb.T
+    kw = dict(merge=MERGES["mul"], mode=MODE_BOTH, block_size=bs)
+    want = merge_join_plain(a, bo.T, ma, mbt, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = merge_join_cuda(a, bo.T, ma, mbt, **kw)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert grown <= a.nbytes + (1 << 20), grown     # 64 MiB out; B 64 MiB
+    assert torch.equal(got, want)
 
 
 
@@ -1476,6 +1586,35 @@ def test_merge_join_program_matches_plain(cuda, generated, name, dtype,
         assert build.GENERATED_LAUNCHES["merge_join"] == \
             before["merge_join"] + 1
         want = merge_join_plain(*(t.to(plain_on) for t in (a, b, ma, mb)),
+                                **kw)
+        check(got.cpu(), want.cpu(), exact, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["gated", "maximum", "exp_log1p", "pow",
+                                  "every_register", "erf", "quotient"])
+def test_merge_join_program_on_a_transposed_view_matches_plain(
+        cuda, generated, name, dtype):
+    """A handful of generated merges with B the view ``Bo.T``: the
+    transposed path of the generated instance, the same bits (or ulps) as
+    the plain version and as the contiguous B."""
+    from torch_merge_cases import check, operands
+    fn, exact, plain_on = _merge_case(name)
+    shape, bs = (67, 70), 32
+    xs, ys = operands(21, {torch.float32: "float32",
+                           torch.float64: "float64"}[dtype])
+    a = torch.as_tensor(np.resize(xs, shape), device=cuda)
+    bo = torch.as_tensor(np.resize(ys, shape[::-1]), device=cuda)
+    rng = np.random.default_rng(5)
+    ma, mb = _mask(rng, shape, bs, 0.6, cuda), _mask(rng, shape, bs, 0.6,
+                                                     cuda)
+    for mode in (MODE_ALL, MODE_BOTH):
+        kw = dict(merge=fn, mode=mode, block_size=bs)
+        got = merge_join_cuda(a, bo.T, ma, mb, **kw)
+        # the same bits as on a contiguous B (NaN against NaN)
+        check(got.cpu(), merge_join_cuda(a, bo.T.contiguous(), ma, mb,
+                                         **kw).cpu(), True, name)
+        want = merge_join_plain(*(t.to(plain_on) for t in (a, bo.T, ma, mb)),
                                 **kw)
         check(got.cpu(), want.cpu(), exact, name)
 
