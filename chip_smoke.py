@@ -70,23 +70,31 @@ queries.
 
 The merges phase (``kernels.merge_codes``: a general merge traced, emitted
 as C++ and compiled by nvcc into its own instances of both kernels) builds
-twenty merges' libraries together (the JAX package's gated merge,
+twenty-nine merges' libraries together (the JAX package's gated merge,
 NaN-propagating ``maximum``, a square, a quotient, ``abs``, ``clamp``,
 ``exp``/``log1p``, ``pow``, a flipped gated merge; then ``erf``,
 trigonometry, rounding, remainder and floor division, ``atan2``,
 ``fmax``, int64 and bool arithmetic, a forty-op chain, ten live values;
-``clamp`` and ``pow`` by a tensor), runs each through its generated
+``clamp`` and ``pow`` by a tensor; casts through float16, bfloat16 and
+int32, ``zeros_like``/``full_like``, ``lgamma`` + ``digamma``, ``ndtr``,
+``erfinv``, ``ndtri``, the Bessel ``i0e`` and ``i1``, ``xlogy``,
+``logaddexp``, ``gelu``/``silu``/``softplus``, ``zeta`` + ``polygamma``),
+with both plans of each looping op, runs each through its generated
 instances of ``merge_join`` on Q3's operands and ``coo_expand`` on Q4's
 and Q5's captured inputs, each held to its plain version on the card (bit
 for bit, the transcendental ones within ``MERGE_ULPS``) and timed beside
 its byte bound, the bilinear instance and, where one PyTorch call
 computes the same result, that call, with its cold and warm build
 seconds; then the same merges on NaN, ±inf, ±0 and subnormals in float32
-and float64, and the gated merge (made sparsity-inducing) in an overlay
-and a D2D join and an ``erf`` overlay through ``Session(device="cuda")``
-against the CPU; the generated launches must rise. Then the float64
-``masked_matmul`` on the PNMF product, within ``MM_F64_ATOL`` of its
-plain version.
+and float64; then each looping op (``plan_merges``) in both plans of
+``merge_join`` (streaming, and one row a thread under ``kSlowPaths``) on
+Q3 and on Q3-sized special values, which settles
+``merge_codes.SLOW_PATH_OPS``; then the gated merge (made
+sparsity-inducing) in an overlay and a D2D join, an ``erf`` overlay, a
+bfloat16 overlay (its mode must be 0: dead tiles skipped) and an
+``lgamma`` D2D join through ``Session(device="cuda")`` against the CPU;
+the generated launches must rise. Then the float64 ``masked_matmul`` on
+the PNMF product, within ``MM_F64_ATOL`` of its plain version.
 
 The serving phase comes last. Q1–Q10 go three times each through one
 ``ServeEngine`` (cross-query CSE, two worker threads, one ticket a batch);
@@ -1563,8 +1571,11 @@ def general_merges():
     MERGE_ULPS; ``library`` is the one PyTorch call that computes the same
     result over Q3's operands (each at its own mode), or None where no
     single call does. Nine merges of the JAX package's kinds, one merge of
-    each further op group, and clamp and pow by a tensor, one call each."""
+    each further op group, clamp and pow by a tensor, one call each; then
+    casts through float16, bfloat16 and int32, typed constants, the
+    special functions, activations."""
     import torch
+    import torch.nn.functional as F
     return {
         "gated": (_gated, True, None),
         "maximum": (torch.maximum, True, torch.maximum),
@@ -1591,6 +1602,26 @@ def general_merges():
         "clamp_by_y": (lambda x, y: torch.clamp(x, min=y), True,
                        lambda a, b: torch.clamp(a, min=b)),
         "pow_xy": (lambda x, y: torch.pow(x, y), False, torch.pow),
+        # casts and reduced dtypes, typed constants, the special functions
+        # of jax.scipy.special, activations
+        "casts": (lambda x, y: x.half().float() * y.bfloat16().to(x.dtype)
+                  + x.to(torch.int32).to(x.dtype), True, None),
+        "like": (lambda x, y: torch.where(x > 0, torch.zeros_like(x),
+                                          torch.full_like(y, 0.5)) + y,
+                 True, None),
+        "gamma": (lambda x, y: torch.lgamma(x) + torch.digamma(y), False,
+                  None),
+        "normal": (lambda x, y: torch.special.ndtr(x)
+                   * torch.erfinv(torch.tanh(y))
+                   + torch.special.ndtri(torch.sigmoid(y)), False, None),
+        "bessel": (lambda x, y: torch.special.i0e(x)
+                   - torch.special.i1(y * 0.1), False, None),
+        "xlogy": (torch.special.xlogy, False, torch.special.xlogy),
+        "logaddexp": (torch.logaddexp, False, torch.logaddexp),
+        "activations": (lambda x, y: F.gelu(x) * F.silu(y) + F.softplus(x),
+                        False, None),
+        "series": (lambda x, y: torch.special.zeta(x.abs() + 1, y.abs() + 1)
+                   + torch.special.polygamma(2, y), False, None),
     }
 
 
@@ -1636,8 +1667,10 @@ def _special_operands(seed, shape, dtype, device):
     return out
 
 
-def _build_merges(merges) -> tuple:
-    """Every merge's library built together (one nvcc a core), then each
+def _build_merges(merges, extra=()) -> tuple:
+    """Every merge's library and the ``extra`` codes' built together (one
+    nvcc a core; the merges in reverse order, so that the special
+    functions', the longest to compile, start first), then each merge's
     loaded again from the disk cache: (cold wall of the batch, {name:
     (nvcc s or the name of the merge whose library it shares, warm s,
     ptxas phrase)})."""
@@ -1645,7 +1678,7 @@ def _build_merges(merges) -> tuple:
     from repro_torch.kernels.merge_codes import merge_code
     codes = {name: merge_code(fn) for name, (fn, _, _) in merges.items()}
     t0 = time.perf_counter()
-    build.merge_libraries(codes.values())
+    build.merge_libraries(list(codes.values())[::-1] + list(extra))
     wall = time.perf_counter() - t0
     cold = {k: dict(v) for k, v in build.BUILD_INFO["merges"].items()}
     first = {}
@@ -1662,6 +1695,86 @@ def _build_merges(merges) -> tuple:
         out[name] = (info.get("seconds", 0.0) if owner == name else owner,
                      warm, generated_usage(info.get("log") or ""))
     return wall, out
+
+
+def plan_merges():
+    """Ops whose code branches to long paths or loops, each as op(x) * y,
+    timed in both plans of merge_join's B-direct instance (streaming, four
+    rows a thread; one row a thread under kSlowPaths) to settle
+    ``merge_codes.SLOW_PATH_OPS``."""
+    import torch
+    return {
+        "tan": lambda x, y: torch.tan(x) * y,
+        "fmod": lambda x, y: torch.fmod(x, y) * y,
+        "div_trunc": lambda x, y: torch.div(x, y, rounding_mode="trunc") * y,
+        "lgamma": lambda x, y: torch.lgamma(x) * y,
+        "digamma": lambda x, y: torch.digamma(x) * y,
+        "erfinv": lambda x, y: torch.erfinv(x * 0.25) * y,
+        "ndtri": lambda x, y: torch.special.ndtri(x * 0.125 + 0.5) * y,
+        "zeta": lambda x, y: torch.special.zeta(x.abs() + 1, 2.0) * y,
+        "polygamma": lambda x, y: torch.special.polygamma(2, x) * y,
+    }
+
+
+_SLOW_LINE = "  static constexpr bool kSlowPaths = true;\n"
+
+
+def _plan_codes(fn):
+    """(streaming, one-row) codes of ``fn``: its emitted source without
+    and with kSlowPaths in both functors."""
+    from repro_torch.kernels.merge_codes import GENERATED, MergeCode, \
+        merge_code
+    stream = merge_code(fn).source.replace(_SLOW_LINE, "")
+    slow = re.sub(r"(template <> struct Merge<\w+> \{\n)",
+                  lambda m: m[1] + _SLOW_LINE, stream)
+    return MergeCode(GENERATED, source=stream), MergeCode(GENERATED,
+                                                           source=slow)
+
+
+def plan_lines(codes, a, b, ma, mb, bs, card):
+    """Each op of ``plan_merges()`` in both plans (``codes``: op ->
+    (streaming, one-row) codes, built with the merges) on Q3's operands
+    and on operands of Q3's shape with NaN, ±inf, ±0, subnormals and
+    large values among normal ones: CUDA-event ms of merge_join at mode 3
+    (every tile), the two plans' bits equal. A plan runs through
+    merge_join_cuda with its code put in the compiler's cache for a
+    stand-in callable."""
+    import torch
+    from repro_torch.kernels import merge_codes as mc
+    from repro_torch.kernels.merge_join import merge_join_cuda
+    g = torch.Generator(device=a.device).manual_seed(17)
+    specials = torch.tensor([math.nan, math.inf, -math.inf, 0.0, -0.0,
+                             1e-45, -1e-45, 3e38, 10.0, -1.0],
+                            device=a.device)
+
+    def special_like(t):
+        v = torch.randn(t.shape, generator=g, device=t.device) * 4
+        pick = torch.rand(t.shape, generator=g, device=t.device) < 0.3
+        k = torch.randint(0, specials.numel(), t.shape, generator=g,
+                          device=t.device)
+        return torch.where(pick, specials[k], v)
+
+    sa, sb = special_like(a), special_like(b)
+    lines = ["merges plans: Q3 merge_join ms (mode 3, CUDA events), "
+             "streaming / one row a thread"]
+    for op, pair in codes.items():
+        ms = []
+        for x, y in ((a, b), (sa, sb)):
+            outs = []
+            for code in pair:
+                stand_in = (lambda p, q: None)
+                mc._CACHE[stand_in] = code
+                kern = functools.partial(merge_join_cuda, x, y, ma, mb,
+                                         merge=stand_in, mode=3,
+                                         block_size=bs)
+                outs.append(kern())
+                ms.append(cuda_time_ms(kern))
+            bad = merge_mismatches(outs[0], outs[1], True)
+            assert bad == 0, f"plans of {op} differ in {bad} elements"
+            del outs
+        lines.append(f"merges plan {op}: Q3 {ms[0]:.4f} / {ms[1]:.4f} ms, "
+                     f"specials {ms[2]:.4f} / {ms[3]:.4f} ms [{card}]")
+    return lines
 
 
 def merges_phase(calls, env, n, card, on_card):
@@ -1701,11 +1814,14 @@ def merges_phase(calls, env, n, card, on_card):
         bs = kw["block_size"]
         xy = lambda: merge_join_cuda(a, b, ma, mb, **kw)  # noqa: E731
         pre = (cuda_time_ms(xy), device_time_ms(xy))
-        wall, builds = _build_merges(merges)
+        plans = {op: _plan_codes(fn) for op, fn in plan_merges().items()}
+        wall, builds = _build_merges(merges, [c for pair in plans.values()
+                                              for c in pair])
         base = (cuda_time_ms(xy), device_time_ms(xy))
         libs = sum(not isinstance(c, str) for c, _, _ in builds.values())
         lines.append(f"merges build: {len(merges)} merges, {libs} generated"
-                     f" libraries compiled together in {wall:.2f} s;"
+                     f" libraries and {2 * len(plans)} of the plans "
+                     f"compiled together in {wall:.2f} s;"
                      f" Q3 x*y {pre[0]:.4f}/{pre[1]:.4f} ms before, "
                      f"{base[0]:.4f}/{base[1]:.4f} after (events/device) "
                      f"[{card}]")
@@ -1788,15 +1904,24 @@ def merges_phase(calls, env, n, card, on_card):
                      f"3e38) float32 and float64: {len(merges)} merges "
                      "through merge_join and coo_expand equal to the plain "
                      "versions")
-    # the Session: the gated merge made inducing, overlay and D2D, and an
-    # erf overlay on the top-left quarter of Q3's and Q4's operands
+        lines += plan_lines(plans, a, b, ma, mb, bs, card)
+    # the Session: the gated merge made inducing, overlay and D2D, an erf
+    # overlay, a bfloat16 overlay (inducing: its mode and live tiles are
+    # recorded) and an lgamma D2D join, on the top-left quarter of Q3's
+    # and Q4's operands
     gated = MergeFn("merges_session_gated", lambda x, y: torch.where(
         x * y != 0, _gated(x, y), 0.0))
     erf = MergeFn("merges_session_erf", lambda x, y: torch.erf(x) * y)
+    bf16 = MergeFn("merges_session_bf16",
+                   lambda x, y: (x * y).to(torch.bfloat16))
+    lgamma = MergeFn("merges_session_lgamma", lambda x, y: torch.where(
+        x * y != 0, torch.lgamma(x.abs() * y.abs() + 1), 0.0))
     half = n // 2
     ops = {k: env[k].value[:half, :half].contiguous()
            for k in ("Ao", "Bo", "A", "B")}
-    results, sess_launch = {}, {}
+    results, sess_launch, bf16_modes = {}, {}, {}
+    from repro_torch.kernels import registry
+    mj = registry.get("merge_join")
     for dev in (("cpu", "cuda") if on_card else ("cpu",)):
         s = Session(block_size=256, device=dev)
         m = {k: s.load(v.to(dev), k) for k, v in ops.items()}
@@ -1806,26 +1931,52 @@ def merges_phase(calls, env, n, card, on_card):
             m["Ao"].join(m["Bo"], "RID=RID AND CID=CID", gated).collect(),
             m["A"].join(m["B"], "RID=RID", gated).collect(),
             m["Ao"].join(m["Bo"], "RID=RID AND CID=CID", erf).collect())
+        backend = "cuda" if dev == "cuda" else "torch"
+        inner, seen = mj.impls[backend], []
+
+        def recording(*args, _inner=inner, _seen=seen, **kw):
+            _seen.append((kw["mode"], int(live_tiles(
+                args[2], args[3], kw["mode"]).sum()), args[2].numel()))
+            return _inner(*args, **kw)
+
+        mj.impls[backend] = recording
+        try:
+            results[dev] += (m["Ao"].join(m["Bo"], "RID=RID AND CID=CID",
+                                          bf16).collect(),)
+        finally:
+            mj.impls[backend] = inner
+        bf16_modes[dev] = seen
+        results[dev] += (m["A"].join(m["B"], "RID=RID", lgamma).collect(),)
         sess_launch[dev] = ({k: build.GENERATED_LAUNCHES[k] - p0[k]
                              for k in p0}, time.perf_counter() - t0)
-    (oc, dc, ec) = results["cpu"]
+    (oc, dc, ec, bc, lc) = results["cpu"]
     if on_card:
-        og, dg, eg = results["cuda"]
+        og, dg, eg, bg, lg = results["cuda"]
         assert torch.equal(og.value.cpu(), oc.value), "gated overlay"
         assert np.array_equal(dg.idx, dc.idx), "gated D2D coordinates"
         assert np.array_equal(dg.val, dc.val), "gated D2D values"
         bad = merge_mismatches(eg.value.cpu(), ec.value, False)
         assert bad == 0, f"erf overlay: {bad} elements differ from the CPU"
+        assert torch.equal(bg.value.cpu(), bc.value), "bfloat16 overlay"
+        assert [md for md, _, _ in bf16_modes["cuda"]] == [0], \
+            f"bfloat16 overlay modes {bf16_modes}"
+        assert np.array_equal(lg.idx, lc.idx), "lgamma D2D coordinates"
+        bad = merge_mismatches(torch.as_tensor(lg.val),
+                               torch.as_tensor(lc.val), False)
+        assert bad == 0, f"lgamma D2D: {bad} values differ from the CPU"
         assert all(v > 0 for v in sess_launch["cuda"][0].values()), \
             f"generated instances not launched: {sess_launch['cuda'][0]}"
     gens, wall = sess_launch["cuda" if on_card else "cpu"]
+    mode, live, tiles = bf16_modes["cuda" if on_card else "cpu"][0]
     lines.append(
         f"merges Session: gated where x*y != 0, overlay {half}x{half} "
         f"({int(torch.count_nonzero(oc.value))} entries) and D2D ({dc.nnz} "
-        f"entries), erf overlay, on the {'card' if on_card else 'CPU'} in "
-        f"{wall:.2f} s"
-        + (f", equal to the CPU's (erf within {MERGE_ULPS} ulp); generated "
-           "launches " + " ".join(f"{k}={v}" for k, v in gens.items())
+        f"entries), erf overlay, bfloat16 overlay (mode {mode}, {live} of "
+        f"{tiles} tiles live), lgamma D2D ({lc.nnz} entries), on the "
+        f"{'card' if on_card else 'CPU'} in {wall:.2f} s"
+        + (f", equal to the CPU's (erf and lgamma within {MERGE_ULPS} ulp);"
+           " generated launches " + " ".join(f"{k}={v}"
+                                             for k, v in gens.items())
            if on_card else "") + f" [{card}]")
     launches = {k: build.GENERATED_LAUNCHES[k] - before[k] for k in before}
     lines.append(f"merges phase: {time.perf_counter() - t_phase:.2f} s; "

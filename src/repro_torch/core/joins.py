@@ -53,7 +53,10 @@ class COOTensor:
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """``t`` on the host as numpy; numpy has no bfloat16, so a bfloat16
+    merge's values come as the float32 that holds each exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def _coo_of(m: Union[BlockMatrix, torch.Tensor]):
@@ -154,7 +157,8 @@ def _merge_host(fn: Callable, x: np.ndarray, y) -> np.ndarray:
     CPU tensors: the port's merges are torch code (``torch.where`` and
     ``torch.maximum`` refuse numpy arrays, as jnp's take them in the JAX
     package)."""
-    return np.asarray(fn(torch.as_tensor(x), torch.as_tensor(y)))
+    out = fn(torch.as_tensor(x), torch.as_tensor(y))
+    return _host(out) if isinstance(out, torch.Tensor) else np.asarray(out)
 
 
 def cross_sparse(a: BlockMatrix, b: BlockMatrix,

@@ -51,10 +51,10 @@ class DeviceCOO(NamedTuple):
 
 def coo_to_host(coo: DeviceCOO, shape: Tuple[int, ...]):
     """Materialize a ``DeviceCOO`` as the host tier's ``COOTensor``."""
-    from repro_torch.core.joins import COOTensor
+    from repro_torch.core.joins import COOTensor, _host
     keep = coo.valid
     idx = coo.idx[keep].cpu().numpy().astype("int64")
-    val = coo.val[keep].cpu().numpy()
+    val = _host(coo.val[keep])
     return COOTensor(idx, val, shape)
 
 

@@ -233,7 +233,8 @@ def stream_ptr(t) -> int:
 # ---------------------------------------------------------------------------
 
 MERGE_DIR = BUILD_DIR / "merges"
-_MERGE_HEADERS = ("merge.cuh", "merge_join.cuh", "coo_expand.cuh")
+_MERGE_HEADERS = ("merge.cuh", "merge_special.cuh", "merge_join.cuh",
+                  "coo_expand.cuh")
 HOST_FLAGS = ("-std=c++17", "-O2", "-ffp-contract=off", "-fPIC", "-shared")
 _MERGE_LOCK = threading.Lock()
 _MERGE_FNS: Dict[str, Dict[str, ctypes._CFuncPtr]] = {}

@@ -29,18 +29,36 @@
 //   per c10::div_floor_floating / div_floor_integer, powi);
 //   round is half to even (nearbyint);
 //   the transcendentals are CUDA's math library (expf, erff, sinf, powf,
-//   ... and their double forms), as torch's CUDA kernels call them.
+//   lgammaf, erfinvf, ... and their double forms), as torch's CUDA kernels
+//   call them; the special functions torch computes by its own formulas
+//   (digamma, ndtri, log_ndtr, i0, i1, ...) and the activations are
+//   merge_special.cuh's ports of torch's kernels, one body for each op,
+//   FMA-contracted by nvcc as torch's are.
 // On the host the same formulas in plain C++, except where torch's CPU
-// kernels decide a tie of zeros otherwise: maximum/minimum and clamp
-// return x86 maxps/minps's operand, fmax/fmin the first.
-// Integer ops wrap (two's complement) and never trap: a division by zero
-// gives 0 (torch on the CPU raises there; the card's kernels give
-// garbage), INT64_MIN / -1 gives INT64_MIN.
+// kernels decide otherwise: maximum/minimum and clamp return x86
+// maxps/minps's operand on a tie of zeros, fmax/fmin the first; erfinv,
+// digamma and i1 are ATen/native/Math.h's CPU forms.
+// float16 and bfloat16 values are held in float and rounded to their type
+// after each op (r_f16, r_bf16: on the host by bits, round to nearest
+// even with subnormals, overflow to inf, NaN kept; on the device by the
+// PTX conversions), as torch computes them in float32 and stores the
+// rounded result.
+// Integer ops of every width wrap (two's complement) and never trap: a
+// division by zero gives 0 (torch on the CPU raises there; the card's
+// kernels give garbage), the most negative value / -1 gives itself.
+// A float that is NaN, infinite or out of range has no C++ conversion to
+// an integer, and torch gives a different answer on each side (f2i): the
+// device helper compiles the static_cast torch CUDA's kernels compile
+// (the PTX conversion saturates, NaN gives 0), and the card holds it to
+// torch CUDA; the host helper gives what torch gives on an x86 CPU (the
+// type's most negative value for int32/int64, int8/int16 cut from that
+// int32, uint8 from the int64). bool of a float is a != 0 (NaN is true).
 #pragma once
 
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -135,6 +153,13 @@ MERGE_HD bool m_signbit(double a) {
 MERGE_HD float inf_of(float) { return f32_bits(0x7f800000u); }
 MERGE_HD double inf_of(double) { return f64_bits(0x7ff0000000000000ull); }
 
+typedef signed char i8;
+typedef unsigned char u8;
+typedef short i16;
+typedef int i32;
+typedef long long i64;
+typedef unsigned long long u64;
+
 // ---------------------------------------------------------------------------
 // Correctly rounded arithmetic, never contracted
 // ---------------------------------------------------------------------------
@@ -168,6 +193,7 @@ MERGE_HD double sqrt_rn(double a) {
   return std::sqrt(a);
 #endif
 }
+template <typename T> MERGE_HD T m_sqrt(T a) { return sqrt_rn(a); }
 // a + alpha * b rounded once, as torch's add with alpha computes it
 MERGE_HD float fma_rn(float a, float b, float c) { return fmaf(a, b, c); }
 MERGE_HD double fma_rn(double a, double b, double c) { return fma(a, b, c); }
@@ -303,53 +329,160 @@ template <typename T> MERGE_HD T floor_div(T a, T b) {
   return fl;
 }
 
-// int64: wrapping, never trapping
-typedef long long i64;
-MERGE_HD i64 i_add(i64 a, i64 b) {
-  return (i64)((unsigned long long)a + (unsigned long long)b);
+// Integers of every width: wrapping (two's complement, computed in 64
+// bits and cut to the type), never trapping
+template <typename I> MERGE_HD I i_add(I a, I b) { return (I)((u64)a + (u64)b); }
+template <typename I> MERGE_HD I i_sub(I a, I b) { return (I)((u64)a - (u64)b); }
+template <typename I> MERGE_HD I i_mul(I a, I b) { return (I)((u64)a * (u64)b); }
+template <typename I> MERGE_HD I i_neg(I a) { return (I)(0ull - (u64)a); }
+template <typename I> MERGE_HD I i_abs(I a) { return a < I(0) ? i_neg(a) : a; }
+template <typename I> MERGE_HD I i_max(I a, I b) { return a > b ? a : b; }
+template <typename I> MERGE_HD I i_min(I a, I b) { return a < b ? a : b; }
+// the most negative value of I (0 for an unsigned I)
+template <typename I> MERGE_HD I i_lowest() {
+  return std::is_signed<I>::value ? (I)(1ull << (8 * sizeof(I) - 1)) : I(0);
 }
-MERGE_HD i64 i_sub(i64 a, i64 b) {
-  return (i64)((unsigned long long)a - (unsigned long long)b);
+template <typename I> MERGE_HD bool i_bad_div(I a, I b) {
+  return b == I(0) || (std::is_signed<I>::value && b == I(-1)
+                       && a == i_lowest<I>());
 }
-MERGE_HD i64 i_mul(i64 a, i64 b) {
-  return (i64)((unsigned long long)a * (unsigned long long)b);
+template <typename I> MERGE_HD I trunc_div(I a, I b) {
+  return b == I(0) ? I(0) : (i_bad_div(a, b) ? a : (I)(a / b));
 }
-MERGE_HD i64 i_neg(i64 a) { return (i64)(0ull - (unsigned long long)a); }
-MERGE_HD i64 i_abs(i64 a) { return a < 0 ? i_neg(a) : a; }
-MERGE_HD i64 i_max(i64 a, i64 b) { return a > b ? a : b; }
-MERGE_HD i64 i_min(i64 a, i64 b) { return a < b ? a : b; }
-MERGE_HD bool i_bad_div(i64 a, i64 b) {
-  return b == 0 || (b == -1 && a == (i64)(1ull << 63));
+template <typename I> MERGE_HD I i_fmod(I a, I b) {
+  return i_bad_div(a, b) ? I(0) : (I)(a % b);
 }
-MERGE_HD i64 trunc_div(i64 a, i64 b) {
-  return b == 0 ? 0 : (i_bad_div(a, b) ? a : a / b);
-}
-MERGE_HD i64 i_fmod(i64 a, i64 b) { return i_bad_div(a, b) ? 0 : a % b; }
 // c10::div_floor_integer
-MERGE_HD i64 floor_div(i64 a, i64 b) {
-  if (b == 0) return 0;
+template <typename I> MERGE_HD I i_floor_div(I a, I b) {
+  if (b == I(0)) return I(0);
   if (i_bad_div(a, b)) return a;
-  const i64 q = a / b, r = a % b;
-  return (r != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+  const I q = (I)(a / b), r = (I)(a % b);
+  return (r != I(0) && ((a < I(0)) != (b < I(0)))) ? (I)(q - 1) : q;
 }
-MERGE_HD i64 m_remainder(i64 a, i64 b) {
-  i64 mod = i_fmod(a, b);
-  if (mod != 0 && (b < 0) != (mod < 0)) mod = i_add(mod, b);
+template <typename I> MERGE_HD I i_remainder(I a, I b) {
+  I mod = i_fmod(a, b);
+  if (mod != I(0) && (b < I(0)) != (mod < I(0))) mod = i_add(mod, b);
   return mod;
 }
-MERGE_HD i64 sign_of(i64 a) { return (i64)(a > 0) - (i64)(a < 0); }
 // ATen's powi
-MERGE_HD i64 i_pow(i64 a, i64 b) {
-  if (b < 0) {
-    if (a == 1) return 1;
-    if (a == -1) return (b & 1) ? -1 : 1;
-    return 0;
+template <typename I> MERGE_HD I i_pow(I a, I b) {
+  if (b < I(0)) {
+    if (a == I(1)) return I(1);
+    if (a == I(-1)) return (b & I(1)) ? I(-1) : I(1);
+    return I(0);
   }
-  i64 r = 1;
+  I r = 1;
   while (b) {
-    if (b & 1) r = i_mul(r, a);
-    b /= 2;
+    if (b & I(1)) r = i_mul(r, a);
+    b = (I)(b / 2);
     a = i_mul(a, a);
   }
   return r;
 }
+// torch.bitwise_left_shift / right_shift: a shift by a negative count or
+// by the width or more gives 0 (left) or the sign (right)
+template <typename I> MERGE_HD I i_shl(I a, I b) {
+  if (b < I(0) || (u64)b >= 8 * sizeof(I)) return I(0);
+  return (I)((u64)a << (int)b);
+}
+template <typename I> MERGE_HD I i_shr(I a, I b) {
+  const int most = 8 * sizeof(I) - (std::is_signed<I>::value ? 1 : 0);
+  if (b < I(0) || (u64)b >= (u64)most) return (I)(a >> most);
+  return (I)(a >> (int)b);
+}
+// torch.gcd / lcm (ATen's calc_gcd; never trapping)
+template <typename I> MERGE_HD I i_gcd(I a, I b) {
+  a = i_abs(a);
+  b = i_abs(b);
+  while (a != I(0)) {
+    const I c = a;
+    a = i_fmod(b, a);
+    b = c;
+  }
+  return b;
+}
+template <typename I> MERGE_HD I i_lcm(I a, I b) {
+  const I g = i_gcd(a, b);
+  return g == I(0) ? I(0) : i_abs(i_mul(trunc_div(a, g), b));
+}
+
+// ---------------------------------------------------------------------------
+// Casts
+// ---------------------------------------------------------------------------
+
+// float16 and bfloat16 values are held in float, rounded to their type
+// after each op (torch computes them in float32, its "opmath", and stores
+// the rounded result); round to nearest even, subnormals, overflow to inf
+#ifdef __CUDA_ARCH__
+MERGE_HD float r_f16(float a) {
+  unsigned short h;
+  float r;
+  asm("cvt.rn.f16.f32 %0, %1;" : "=h"(h) : "f"(a));
+  asm("cvt.f32.f16 %0, %1;" : "=f"(r) : "h"(h));
+  return r;
+}
+MERGE_HD float r_bf16(float a) {
+  unsigned short h;
+  asm("cvt.rn.bf16.f32 %0, %1;" : "=h"(h) : "f"(a));
+  return __uint_as_float((uint32_t)h << 16);
+}
+#else
+MERGE_HD uint32_t f32_to_bits(float a) {
+  uint32_t u;
+  std::memcpy(&u, &a, 4);
+  return u;
+}
+// the FP16 library's fp16_ieee_from_fp32_value, then back to float
+MERGE_HD float r_f16(float f) {
+  float base = (std::fabs(f) * f32_bits(0x77800000u)) * f32_bits(0x08800000u);
+  const uint32_t w = f32_to_bits(f), shl1_w = w + w, sign = w & 0x80000000u;
+  uint32_t bias = shl1_w & 0xFF000000u;
+  if (bias < 0x71000000u) bias = 0x71000000u;
+  base = f32_bits((bias >> 1) + 0x07800000u) + base;
+  const uint32_t bits = f32_to_bits(base);
+  const uint32_t nonsign = ((bits >> 13) & 0x00007C00u) + (bits & 0x00000FFFu);
+  const uint32_t h = (sign >> 16) | (shl1_w > 0xFF000000u ? 0x7E00u : nonsign);
+  const uint32_t e = (h >> 10) & 0x1fu, m = h & 0x3ffu, s = (h & 0x8000u) << 16;
+  if (e == 0) {
+    const float v = (float)m * f32_bits(0x33800000u);     // m * 2^-24
+    return s ? -v : v;
+  }
+  if (e == 31) return f32_bits(s | 0x7f800000u | (m << 13));
+  return f32_bits(s | ((e + 112) << 23) | (m << 13));
+}
+// c10::BFloat16's round_to_nearest_even
+MERGE_HD float r_bf16(float a) {
+  if (a != a) return a;
+  const uint32_t u = f32_to_bits(a);
+  return f32_bits(((u + ((u >> 16) & 1u) + 0x7FFFu) >> 16) << 16);
+}
+#endif
+
+// a float to an integer type, as torch converts it (c10::convert); out of
+// range or NaN the C++ cast is undefined, and torch gives what each
+// machine's conversion gives: on the card the PTX conversion's (nvcc
+// compiles the same static_cast torch's kernels do: saturating, NaN to
+// 0), on the host x86's (cvttss2si: the type's most negative value for
+// int32 and int64, int8 and int16 cut from int32, uint8 from int64)
+#ifdef __CUDA_ARCH__
+template <typename I, typename F> MERGE_HD I f2i(F a) {
+  return static_cast<I>(a);
+}
+template <> MERGE_HD u8 f2i<u8, float>(float a) { return (u8)(i64)a; }
+template <> MERGE_HD u8 f2i<u8, double>(double a) { return (u8)(i64)a; }
+#else
+MERGE_HD i32 x86_i32(double d) {
+  return (d > -2147483649.0 && d < 2147483648.0) ? (i32)d
+                                                  : (i32)0x80000000u;
+}
+MERGE_HD i64 x86_i64(double d) {
+  return (d >= -9223372036854775808.0 && d < 9223372036854775808.0)
+             ? (i64)d : (i64)(1ull << 63);
+}
+template <typename I, typename F> MERGE_HD I f2i(F a) {
+  return sizeof(I) == 8 || std::is_unsigned<I>::value ? (I)x86_i64(a)
+                                                      : (I)x86_i32(a);
+}
+#endif
+
+#include "merge_special.cuh"

@@ -26,46 +26,72 @@ The first two run in the main library's code instances, which the main
 path uses; no nvcc run lands on its cold wall.
 
 Types are torch's. Every node carries the dtype torch gives the value the
-plain versions see: bool, int64, float32 (the default float, which
-torch gives booleans, integers and Python floats combined), float64, or
-the operands' ``T``. Python numbers are wrapped scalars and do not
-promote; 0-d tensor constants promote by category. Each node's dtype is
-what the torch function itself returns on dummy tensors of its operands'
-dtypes, so the promotion rules, and the refusals (``-`` of booleans, a
-negative integer power, ``hypot`` of integers), are torch's own. Each
-op is emitted in its computation type (comparisons in the operands'
-common type, logical ops in bool, predicates in the operand's own), and
-the result is cast to ``T``, as ``merge_join_plain``'s
+plain versions see: bool, int8, uint8, int16, int32, int64, float16,
+bfloat16, float32 (the default float, which torch gives booleans,
+integers and Python floats combined), float64, or the operands' ``T``.
+Python numbers are wrapped scalars and do not promote; 0-d tensor
+constants promote by category, constants of the operands' shape
+(``zeros_like``, ``ones_like``, ``full_like``) as tensors. Each node's
+dtype is what the torch function itself returns on dummy tensors of its
+operands' dtypes, so the promotion rules, and the refusals (``-`` of
+booleans, a negative integer power, ``hypot`` of integers), are torch's
+own. Each op is emitted in its computation type (comparisons in the
+operands' common type, logical ops in bool, predicates in the operand's
+own), and the result is cast to ``T``, as ``merge_join_plain``'s
 ``merge(a, b).to(a.dtype)`` does. A constant is converted to the type an
 op computes in as torch converts it (a Python float is rounded to
-float32 in a float32 op).
+float32 in a float32 op). Casts convert as c10::convert does
+(``merge.cuh``'s ``f2i`` for a float to an integer). A float16 or
+bfloat16 value is held in a float and rounded to its type after each op,
+as torch computes such ops in float32; a constant in such an op must be
+exact in the reduced type (torch rounds it to that type on the CPU and
+keeps it in float32 on the card), else the merge is refused. Integer ops
+compute in their own width and wrap.
 
-The op set: ``+ - * / // % **``, unary ``-``, ``abs``, ``& | ^ ~``,
-``< <= > >= == !=`` and the torch functions and tensor methods named in
-``_FUNCS``: ``add``/``sub`` (with ``alpha``), ``mul``, ``div`` (with
-``rounding_mode``), ``floor_divide``, ``remainder``, ``fmod``, ``pow``,
-``square``, ``reciprocal``, ``maximum``/``minimum`` (``max``/``min`` of
-two tensors), ``fmax``, ``fmin``, ``clamp``/``clip``/``clamp_min``/
-``clamp_max``, ``relu``, ``atan2``, ``hypot``, ``copysign``, ``sign``,
-``exp``, ``exp2``, ``expm1``, ``log``, ``log2``, ``log10``, ``log1p``,
-``sqrt``, ``rsqrt``, ``sigmoid``, ``erf``, ``erfc``, the trigonometric
-and hyperbolic functions and their inverses, ``floor``, ``ceil``,
-``round`` (half to even), ``trunc``, ``frac``, ``isnan``, ``isinf``,
-``isfinite``, ``signbit``, ``logical_and/or/xor/not``, ``bitwise_*``
-and ``where``. Integer ``+ - * // % **`` and bitwise ops run on int64
-values. Powers are lowered as torch computes them, so that the bits
-match: ``x**2`` is ``x*x``, ``x**3`` ``x*x*x``, ``x**-1`` ``1/x``,
-``x**-2`` ``1/(x*x)``, ``x**0.5`` ``sqrt``, ``x**-0.5`` ``rsqrt``,
-``x**0`` 1 and ``x**1`` ``x``; other exponents run ``pow``. A bound of
-``clamp`` that is a Python number keeps clamp's own rule, one that is a
-tensor is ``maximum``/``minimum`` (as torch computes a tensor bound).
-There is no limit on the merge's length.
+The op set: ``+ - * / // % **``, unary ``-``, ``abs``, ``& | ^ ~ << >>``,
+``< <= > >= == !=``, casts (``.to(dtype)``, ``.to(tensor)``, ``.type``,
+``.type_as``, ``.float()`` ... ``.bool()``), ``zeros_like``,
+``ones_like``, ``full_like``, and the torch functions and tensor methods
+named in ``_FUNCS``: ``add``/``sub`` (with ``alpha``), ``mul``, ``div``
+(with ``rounding_mode``), ``floor_divide``, ``remainder``, ``fmod``,
+``pow``, ``float_power``, ``ldexp``, ``square``, ``reciprocal``,
+``maximum``/``minimum`` (``max``/``min`` of two tensors), ``fmax``,
+``fmin``, ``clamp``/``clip``/``clamp_min``/``clamp_max``, ``relu``,
+``atan2``, ``hypot``, ``copysign``, ``sign``/``sgn``, ``nextafter``,
+``heaviside``, ``logaddexp``, ``logaddexp2``, ``exp``, ``exp2``,
+``expm1``, ``log``, ``log2``, ``log10``, ``log1p``, ``sqrt``, ``rsqrt``,
+``sigmoid``, ``erf``, ``erfc``, ``erfinv``, the trigonometric and
+hyperbolic functions and their inverses, ``sinc``, ``deg2rad``,
+``rad2deg``, ``floor``, ``ceil``, ``round`` (half to even; with
+``decimals``), ``trunc``, ``frac``, ``nan_to_num``, ``isnan``, ``isinf``,
+``isfinite``, ``isposinf``, ``isneginf``, ``isreal``, ``isclose``,
+``signbit``, ``logical_and/or/xor/not``, ``bitwise_*`` (shifts too),
+``gcd``, ``lcm``, ``where``; the ``torch.special`` functions that
+``jax.scipy.special`` has (``gammaln``/``lgamma``, ``psi``/``digamma``,
+``polygamma``, ``zeta``, ``ndtr``, ``ndtri``, ``log_ndtr``, ``i0``,
+``i0e``, ``i1``, ``i1e``, ``entr``, ``xlogy``, ``xlog1py``, ``logit``,
+``expit``, and the aliases of ops above); the activations of
+``torch.nn.functional`` that ``jax.nn`` has (``gelu`` both forms,
+``silu``, ``softplus``, ``elu``, ``selu``, ``celu``, ``leaky_relu``,
+``hardtanh``, ``relu6``, ``hardsigmoid``, ``hardswish``, ``logsigmoid``,
+``softsign``, ``mish``). Powers are lowered as torch computes them, so
+that the bits match: ``x**2`` is ``x*x``, ``x**3`` ``x*x*x``, ``x**-1``
+``1/x``, ``x**-2`` ``1/(x*x)``, ``x**0.5`` ``sqrt``, ``x**-0.5``
+``rsqrt``, ``x**0`` 1 and ``x**1`` ``x``; other exponents run ``pow``.
+A bound of ``clamp`` that is a Python number keeps clamp's own rule, one
+that is a tensor is ``maximum``/``minimum`` (as torch computes a tensor
+bound). Composites of torch (``ndtr``, ``softsign``, ``isclose``,
+``ldexp``, ``float_power``, ``round`` with ``decimals``) are traced as
+torch computes them, op by op. There is no limit on the merge's length.
 
 ``merge_code`` raises ``NotImplementedError``, naming the cause, before
 anything is built or launched, for a Python branch on a value (``bool``
 of a symbol; the JAX package's tracer raises there too), a tensor
-constant that is not 0-d, a non-elementwise or random op, and an op
-outside the set. ``registry.REFUSALS`` counts these as refusals that
+constant that is not 0-d, a non-elementwise or random op, an op outside
+the set (complex values, ``torch.special`` functions without a
+``jax.scipy.special`` counterpart, ``gammainc``), ``empty_like``
+(uninitialised values), a device move inside ``.to()``, an in-place
+activation and ``mvlgamma`` (torch checks its data and raises). ``registry.REFUSALS`` counts these as refusals that
 feed no breaker. The plain PyTorch versions take any callable.
 ``evaluate(code, x, y)`` runs a code on CPU tensors: a bilinear code and
 the safe division with torch ops, a generated code through the same
@@ -187,9 +213,16 @@ class _Refused(Exception):
     """A merge the compiler cannot take; the message names the cause."""
 
 
-# the dtypes a node may take, and their C++ types (csrc/merge.cuh: i64)
-_CTYPES = {torch.bool: "bool", torch.int64: "i64", torch.float32: "float",
-           torch.float64: "double"}
+# the dtypes a node may take, and their C++ types (csrc/merge.cuh: i8 ...
+# i64); float16 and bfloat16 values are held in float, rounded to their
+# type after each op (_REDUCED: merge.cuh's r_f16, r_bf16)
+_CTYPES = {torch.bool: "bool", torch.int8: "i8", torch.uint8: "u8",
+           torch.int16: "i16", torch.int32: "i32", torch.int64: "i64",
+           torch.float16: "float", torch.bfloat16: "float",
+           torch.float32: "float", torch.float64: "double"}
+_REDUCED = {torch.float16: "r_f16", torch.bfloat16: "r_bf16"}
+_INTS = frozenset({torch.int8, torch.uint8, torch.int16, torch.int32,
+                   torch.int64})
 # a Python number's kind, and the dtype torch holds it in before an op
 # converts it
 _SCALARS = {"bool": torch.bool, "int": torch.int64, "float": torch.float64}
@@ -197,9 +230,12 @@ _SCALARS = {"bool": torch.bool, "int": torch.int64, "float": torch.float64}
 
 class _Graph:
     """Hash-consed nodes: ("x",), ("y",), ("k", kind, bits) for a constant
-    (``consts`` holds its value), (op, ids...) for an op. ``dtypes`` holds
-    each node's dtype (a constant's: its own, a Python number's None) and
-    ``compute`` each op node's operands' computation dtypes."""
+    (``consts`` holds its value), ("c", kind, bits) for a constant of the
+    operands' shape (``zeros_like``, ...: it promotes as a tensor, not as
+    a 0-d constant), ("cast:<dtype>", id) for a cast, (op, ids...) for an
+    op. ``dtypes`` holds each node's dtype (a constant's: its own, a
+    Python number's None) and ``compute`` each op node's operands'
+    computation dtypes."""
 
     def __init__(self):
         self.nodes: List[tuple] = []
@@ -216,11 +252,11 @@ class _Graph:
             self.dtypes.append(dtype)
         return nid
 
-    def const(self, kind: str, value) -> int:
+    def const(self, kind: str, value, shaped: bool = False) -> int:
         # keyed by the bits: -0.0 == 0.0 and nan != nan as floats
         bits = float(value).hex() if isinstance(value, float) else value
-        nid = self.node(("k", kind, bits), None if kind in _SCALARS
-                        else getattr(torch, kind))
+        nid = self.node(("c" if shaped else "k", kind, bits),
+                        None if kind in _SCALARS else getattr(torch, kind))
         self.consts[nid] = (kind, value)
         return nid
 
@@ -292,6 +328,10 @@ class _Sym:
     def __xor__(self, o): return _FUNCS["bitwise_xor"](self, o)
     def __rxor__(self, o): return _FUNCS["bitwise_xor"](o, self)
     def __invert__(self): return _FUNCS["bitwise_not"](self)
+    def __lshift__(self, o): return _FUNCS["bitwise_left_shift"](self, o)
+    def __rlshift__(self, o): return _FUNCS["bitwise_left_shift"](o, self)
+    def __rshift__(self, o): return _FUNCS["bitwise_right_shift"](self, o)
+    def __rrshift__(self, o): return _FUNCS["bitwise_right_shift"](o, self)
 
     __hash__ = object.__hash__
 
@@ -350,9 +390,9 @@ _OPS: Dict[str, _Op] = {
     "div_trunc": _Op(functools.partial(torch.div, rounding_mode="trunc"),
                      _f("m_trunc(div_rn({0}, {1}))", "trunc_div({0}, {1})")),
     "floor_divide": _Op(torch.floor_divide, _f("floor_div({0}, {1})",
-                                               "floor_div({0}, {1})")),
+                                               "i_floor_div({0}, {1})")),
     "remainder": _Op(torch.remainder, _f("m_remainder({0}, {1})",
-                                         "m_remainder({0}, {1})")),
+                                         "i_remainder({0}, {1})")),
     "fmod": _Op(torch.fmod, _f("m_fmod({0}, {1})", "i_fmod({0}, {1})")),
     "pow": _Op(torch.pow, _f("m_pow({0}, {1})", "i_pow({0}, {1})")),
     "atan2": _Op(torch.atan2, _f("m_atan2({0}, {1})")),
@@ -409,17 +449,79 @@ _OPS: Dict[str, _Op] = {
 }
 _OPS.update({name: _Op(getattr(torch, name), _f(f"m_{name}({{0}})"))
              for name in _MATH1})
+_F = torch.nn.functional
+_OPS.update({
+    # activations (torch.nn.functional; merge_special.cuh)
+    "gelu": _Op(_F.gelu, _f("m_gelu({0})")),
+    "gelu_tanh": _Op(functools.partial(_F.gelu, approximate="tanh"),
+                     _f("m_gelu_tanh({0})")),
+    "silu": _Op(_F.silu, _f("m_silu({0})")),
+    "softplus": _Op(lambda a, beta, threshold: _F.softplus(a),
+                    _f("m_softplus({0}, {1}, {2})")),
+    "elu": _Op(lambda a, alpha, scale, input_scale: _F.elu(a),
+               _f("m_elu({0}, {1}, {2}, {3})")),
+    "leaky_relu": _Op(lambda a, slope: _F.leaky_relu(a),
+                      _f("m_leaky_relu({0}, {1})")),
+    "hardsigmoid": _Op(_F.hardsigmoid, _f("m_hardsigmoid({0})")),
+    "hardswish": _Op(_F.hardswish, _f("m_hardswish({0})")),
+    "log_sigmoid": _Op(_F.logsigmoid, _f("m_log_sigmoid({0})")),
+    "mish": _Op(_F.mish, _f("m_mish({0})")),
+    # other elementwise functions of jnp
+    "logaddexp": _Op(torch.logaddexp, _f("m_logaddexp({0}, {1})")),
+    "logaddexp2": _Op(torch.logaddexp2, _f("m_logaddexp2({0}, {1})")),
+    "nan_to_num": _Op(lambda a, nan, posinf, neginf: torch.nan_to_num(a),
+                      _f("m_nan_to_num({0}, {1}, {2}, {3})")),
+    "heaviside": _Op(torch.heaviside, _f("m_heaviside({0}, {1})",
+                                         "({0} == 0 ? {1} : ({0} > 0))",
+                                         "({0} ? true : {1})")),
+    "sinc": _Op(torch.sinc, _f("m_sinc({0})")),
+    "nextafter": _Op(torch.nextafter, _f("m_nextafter({0}, {1})")),
+    "gcd": _Op(torch.gcd, {"i": "i_gcd({0}, {1})"}),
+    "lcm": _Op(torch.lcm, {"i": "i_lcm({0}, {1})"}),
+    "bitwise_left_shift": _Op(torch.bitwise_left_shift,
+                              {"i": "i_shl({0}, {1})"}),
+    "bitwise_right_shift": _Op(torch.bitwise_right_shift,
+                               {"i": "i_shr({0}, {1})"}),
+    # the special functions of jax.scipy.special
+    "lgamma": _Op(torch.lgamma, _f("m_lgamma({0})")),
+    "digamma": _Op(torch.digamma, _f("m_digamma({0})")),
+    "erfinv": _Op(torch.erfinv, _f("m_erfinv({0})")),
+    "ndtri": _Op(torch.special.ndtri, _f("m_ndtri({0})")),
+    "log_ndtr": _Op(torch.special.log_ndtr, _f("m_log_ndtr({0})")),
+    "i0": _Op(torch.i0, _f("m_i0({0})")),
+    "i0e": _Op(torch.special.i0e, _f("m_i0e({0})")),
+    "i1": _Op(torch.special.i1, _f("m_i1({0})")),
+    "i1e": _Op(torch.special.i1e, _f("m_i1e({0})")),
+    "entr": _Op(torch.special.entr, _f("m_entr({0})")),
+    "xlogy": _Op(torch.xlogy, _f("m_xlogy({0}, {1})")),
+    "xlog1py": _Op(torch.special.xlog1py, _f("m_xlog1py({0}, {1})")),
+    "logit": _Op(torch.logit, _f("m_logit({0})")),
+    "logit_eps": _Op(lambda a, eps: torch.logit(a, 0.25),
+                     _f("m_logit_eps({0}, {1})")),
+    "zeta": _Op(torch.special.zeta, _f("m_zeta({0}, {1})")),
+    "trigamma": _Op(functools.partial(torch.polygamma, 1),
+                    _f("m_trigamma({0})")),
+})
 
-_CATEGORY = {torch.bool: "b", torch.int64: "i", torch.float32: "f",
-             torch.float64: "f"}
+_CATEGORY = {torch.bool: "b", **dict.fromkeys(_INTS, "i"),
+             **dict.fromkeys((torch.float16, torch.bfloat16, torch.float32,
+                              torch.float64), "f")}
 
-# ops whose CUDA code carries a long slow path, where one row a thread was
-# measured faster on an H100 (PERF.md, merges table): a division or
-# remainder (taken on every zero divisor, and a sparse matrix is mostly
-# zeros), a sine's or cosine's argument reduction (its registers). tan,
-# fmod and trunc division have such paths too but were not measured, so
-# they keep the streaming plan.
-SLOW_PATH_OPS = frozenset({"div", "floor_divide", "remainder", "sin", "cos"})
+# ops whose CUDA code carries a long slow path or a loop, where one row a
+# thread was measured faster on an H100 (PERF.md, merges table and
+# plans): a division, remainder, fmod or truncating division (taken on
+# every zero divisor, and a sparse matrix is mostly zeros), a sine's or
+# cosine's argument reduction (its registers), lgamma's reflection,
+# digamma's recurrence, ndtri's tails, zeta's and polygamma's (of any
+# order n >= 2: "polygamma<n>") series. tan and erfinv were measured
+# faster streaming; an op not measured keeps the streaming plan.
+SLOW_PATH_OPS = frozenset({"div", "floor_divide", "remainder", "sin", "cos",
+                           "fmod", "div_trunc", "lgamma", "digamma", "ndtri",
+                           "zeta", "polygamma"})
+
+
+def _slow(op: str) -> bool:
+    return op.rstrip("0123456789") in SLOW_PATH_OPS
 
 
 def _dummy(o):
@@ -463,11 +565,28 @@ def _node(op: str, *operands) -> _Sym:
         compute = (torch.bool, out.dtype, out.dtype)
     if _CATEGORY[compute[-1]] not in spec.c:
         raise _Refused(f"{op} computed in {compute[-1]}")
+    for o, d in zip(operands, compute):
+        if d in _REDUCED and not isinstance(o, _Sym) \
+                and not _exact_in(*_constant(o), d):
+            # torch rounds such a constant to the storage type on the CPU
+            # and keeps it in float32 on the card
+            raise _Refused(f"the constant {_constant(o)[1]!r} in a {d} op "
+                           f"({op}): not exact in {d}")
+    if op == "nextafter" and compute[0] in _REDUCED:
+        raise _Refused(f"nextafter of {compute[0]} (it steps in the storage "
+                       "type)")
     ids = tuple(o.id if isinstance(o, _Sym) else g.const(*_constant(o))
                 for o in operands)
     nid = g.node((op, *ids), out.dtype)
     g.compute[nid] = compute
     return _Sym(g, nid)
+
+
+def _exact_in(kind: str, value, dtype: torch.dtype) -> bool:
+    """Whether a constant keeps its value in ``dtype``."""
+    a = torch.tensor(value, dtype=_SCALARS.get(kind) or getattr(torch, kind))
+    b = a.to(dtype)
+    return bool(torch.isnan(a)) or bool(a.double() == b.double())
 
 
 def _pow(base, exp) -> _Sym:
@@ -548,6 +667,239 @@ def _relu(x, inplace=False):
     return _node("clamp_min", x, 0)
 
 
+# casts, constructors and composites ------------------------------------
+
+_CAST_METHODS = {"float": torch.float32, "double": torch.float64,
+                 "half": torch.float16, "bfloat16": torch.bfloat16,
+                 "int": torch.int32, "long": torch.int64,
+                 "short": torch.int16, "char": torch.int8,
+                 "byte": torch.uint8, "bool": torch.bool}
+
+
+def _cast(x: _Sym, dtype) -> _Sym:
+    """``x`` converted to ``dtype`` as torch's ``.to`` converts it."""
+    if not isinstance(dtype, torch.dtype):
+        raise _Refused(f"a cast to {dtype!r} (only to a dtype)")
+    if dtype not in _CTYPES:
+        raise _Refused(f"a value of dtype {dtype} (a cast)")
+    if x.dtype == dtype:
+        return x
+    return _Sym(x.g, x.g.node((f"cast:{str(dtype)[6:]}", x.id), dtype))
+
+
+def _to(x, *args, dtype=None, device=None, non_blocking=False, copy=False,
+        memory_format=None):
+    """``Tensor.to(dtype)``, ``.to(other)``, ``.to(dtype=...)``; a device
+    move is refused."""
+    target = list(args) + ([dtype] if dtype is not None else [])
+    if device is not None or len(target) != 1 \
+            or memory_format not in (None, torch.preserve_format):
+        raise _Refused(f".to() with arguments {args!r} (a device move, a "
+                       "memory format, or not one dtype)")
+    t = target[0]
+    if isinstance(t, (_Sym, torch.Tensor)):
+        t = t.dtype
+    if not isinstance(t, torch.dtype):
+        raise _Refused(f"a device move inside .to() ({t!r})")
+    return _cast(x, t)
+
+
+def _type(x, dtype=None, non_blocking=False):
+    if not isinstance(dtype, torch.dtype):
+        raise _Refused(f"Tensor.type({dtype!r}) (only a dtype)")
+    return _cast(x, dtype)
+
+
+def _like(fill):
+    """``zeros_like``, ``ones_like``, ``full_like``: a typed constant of
+    the operands' shape."""
+    def call(x, *args, dtype=None, layout=None, device=None,
+             requires_grad=False, memory_format=None, pin_memory=None):
+        value = args[0] if fill is None and len(args) == 1 else fill
+        if value is None or (fill is not None and args):
+            raise _Refused(f"{'full' if fill is None else 'a'}_like with "
+                           f"arguments {args!r}")
+        if device is not None or requires_grad:
+            raise _Refused("a device or requires_grad in a *_like")
+        if not isinstance(x, _Sym):
+            raise _Refused("a *_like of a constant")
+        cv = None if isinstance(value, (_Sym, torch.Tensor)) \
+            else _constant(value)
+        if cv is None:
+            raise _Refused("a fill value that is not a number")
+        dtype = dtype or x.dtype
+        if dtype not in _CTYPES:
+            raise _Refused(f"a value of dtype {dtype} (a *_like)")
+        v = torch.tensor(cv[1], dtype=_SCALARS[cv[0]]).to(dtype).item()
+        return _Sym(x.g, x.g.const(str(dtype)[6:], v, shaped=True))
+    return call
+
+
+def _empty_like(*args, **kw):
+    raise _Refused("empty_like (uninitialised values)")
+
+
+def _no_inplace(name, inplace):
+    if inplace:
+        raise _Refused(f"an in-place {name}")
+
+
+def _act(name, *params):
+    """An activation of x alone with keyword parameters (their defaults);
+    ``inplace=True`` is refused."""
+    def call(x, *args, inplace=False, **kw):
+        _no_inplace(name, inplace)
+        names = [p for p, _ in params]
+        vals = dict(params)
+        for k, v in zip(names, args):
+            vals[k] = v
+        for k, v in kw.items():
+            if k not in vals:
+                raise TypeError(f"unexpected keyword {k!r}")
+            vals[k] = v
+        return _node(name, x, *(vals[k] for k in names))
+    return call
+
+
+_SELU_ALPHA = 1.6732632423543772848170429916717
+_SELU_SCALE = 1.0507009873554804934193349852946
+
+
+def _gelu(x, approximate="none"):
+    if approximate not in ("none", "tanh"):
+        raise _Refused(f"gelu with approximate={approximate!r}")
+    return _node("gelu" if approximate == "none" else "gelu_tanh", x)
+
+
+def _elu(x, alpha=1.0, inplace=False):
+    _no_inplace("elu", inplace)
+    return _node("elu", x, alpha, 1.0, 1.0)
+
+
+def _selu(x, inplace=False):
+    _no_inplace("selu", inplace)
+    return _node("elu", x, _SELU_ALPHA, _SELU_SCALE, 1.0)
+
+
+def _celu(x, alpha=1.0, inplace=False):
+    _no_inplace("celu", inplace)
+    return _node("elu", x, alpha, 1.0, 1.0 / float(alpha))
+
+
+def _hardtanh(x, min_val=-1.0, max_val=1.0, inplace=False):
+    _no_inplace("hardtanh", inplace)
+    try:                                 # torch refuses integers there
+        _F.hardtanh(_dummy(x), min_val, max_val)
+    except Exception as exc:
+        raise _Refused(f"hardtanh of {x.dtype}: {exc}") from None
+    return _clamp(x, min_val, max_val)
+
+
+def _softsign(x):
+    # torch.nn.functional.softsign: input / (input.abs() + 1)
+    return _node("div", x, _node("add", _node("abs", x), 1))
+
+
+def _round(x, decimals=0):
+    """``torch.round``; with ``decimals`` aten's round_decimals:
+    nearbyint(x * 10^d) / 10^d (nearbyint(x / 10^-d) * 10^-d for d < 0)."""
+    if isinstance(decimals, _Sym) or not isinstance(decimals, int):
+        raise _Refused("round with decimals that is not a Python int")
+    if decimals == 0:
+        return _node("round", x)
+    p = float(10 ** abs(decimals))
+    if decimals > 0:
+        return _node("div", _node("round", _node("mul", x, p)), p)
+    return _node("mul", _node("round", _node("div", x, p)), p)
+
+
+def _ndtr(x):
+    # aten's special_ndtr: (1 + erf(x * M_SQRT1_2)) * 0.5
+    return _node("mul", _node("add", 1, _node(
+        "erf", _node("mul", x, 0.70710678118654752440))), 0.5)
+
+
+def _float_power(a, b):
+    """``torch.float_power``: both in float64 (a Python exponent stays a
+    number, as torch's pow takes it)."""
+    a = _cast(a, torch.float64) if isinstance(a, _Sym) else a
+    if isinstance(b, _Sym):
+        b = _cast(b, torch.float64)
+    elif isinstance(b, torch.Tensor):
+        b = b.to(torch.float64)
+    if not isinstance(a, _Sym):
+        a = float(a) if not isinstance(a, torch.Tensor) \
+            else a.to(torch.float64)
+    return _pow(a, b)
+
+
+def _isclose(a, b, rtol=1e-05, atol=1e-08, equal_nan=False):
+    """aten's isclose: a == b, or (both NaN), or a finite |a - b| within
+    atol + |rtol * b|."""
+    try:
+        torch.isclose(_dummy(a), _dummy(b))
+    except Exception as exc:
+        raise _Refused(f"isclose of these dtypes: {exc}") from None
+    close = _node("eq", a, b)
+    if equal_nan:
+        close = _node("bitwise_or", close, _node(
+            "bitwise_and", _node("isnan", a), _node("isnan", b)))
+    if rtol == 0 and atol == 0:
+        return close
+    cast = (lambda t: _cast(t, torch.float32)
+            if isinstance(t, _Sym) and t.dtype == torch.bool else t)
+    a, b = cast(a), cast(b)
+    allowed = _node("add", atol, _node("abs", _node("mul", rtol, b)))
+    actual = _node("abs", _node("sub", a, b))
+    return _node("bitwise_or", close, _node(
+        "bitwise_and", _node("isfinite", actual), _node("le", actual,
+                                                         allowed)))
+
+
+def _nan_to_num(x, nan=0.0, posinf=None, neginf=None):
+    if not isinstance(x, _Sym):
+        raise _Refused("nan_to_num of a constant")
+    if x.dtype not in _REDUCED and _CATEGORY[x.dtype] != "f":
+        return x                       # integers and booleans: unchanged
+    fi = torch.finfo(x.dtype)
+    return _node("nan_to_num", x, 0.0 if nan is None else nan,
+                 fi.max if posinf is None else posinf,
+                 fi.min if neginf is None else neginf)
+
+
+def _logit(x, eps=None):
+    if eps is None or eps < 0:
+        return _node("logit", x)
+    return _node("logit_eps", x, float(eps))
+
+
+def _polygamma(n, x):
+    """``torch.polygamma(n, x)``: digamma for n = 0, trigamma for 1, else
+    an op of its own n (``(-1)^(n+1) n! zeta(n + 1, x)``)."""
+    if isinstance(n, _Sym) or not isinstance(n, int) or n < 0:
+        raise _Refused(f"polygamma of order {n!r} (a Python int >= 0)")
+    if n < 2:
+        return _node(("digamma", "trigamma")[n], x)
+    op = f"polygamma{n}"
+    if op not in _OPS:
+        _OPS[op] = _Op(functools.partial(torch.polygamma, n),
+                       _f(f"m_polygamma({{0}}, {n})"))
+    return _node(op, x)
+
+
+def _mvlgamma(*args, **kw):
+    raise _Refused("mvlgamma checks its data (every element > (p-1)/2) "
+                   "and raises otherwise, a check no kernel lane can make")
+
+
+def _isreal(x):
+    return _like(True)(x, dtype=torch.bool)
+
+
+_M_PI_180 = float("0.017453292519943295769236907684886127134428718885417")
+_M_180_PI = float("57.295779513082320876798154814105170332405472466564")
+
+
 def _op(name, reflected=False):
     if reflected:
         return lambda a, b: _node(name, b, a)
@@ -556,9 +908,7 @@ def _op(name, reflected=False):
 
 # torch functions and tensor methods by name (reflected dunders take the
 # symbol second)
-_FUNCS: Dict[str, Callable] = {name: _op(name) for name in _OPS
-                               if name not in ("add_alpha", "clamp_min",
-                                               "clamp_max", "div_trunc")}
+_FUNCS: Dict[str, Callable] = {name: _op(name) for name in _OPS}
 _FUNCS.update({
     "add": _add, "__add__": _add, "__radd__": lambda a, b: _add(b, a),
     "sub": functools.partial(_add, sign=-1),
@@ -596,13 +946,63 @@ _FUNCS.update({
     "clamp_min": lambda x, min: _clamp(x, lo=min),   # noqa: A002
     "clamp_max": lambda x, max: _clamp(x, hi=max),   # noqa: A002
     "relu": _relu, "fix": _op("trunc"), "arctan2": _op("atan2"),
+    "__lshift__": _op("bitwise_left_shift"),
+    "__rlshift__": _op("bitwise_left_shift", True),
+    "__rshift__": _op("bitwise_right_shift"),
+    "__rrshift__": _op("bitwise_right_shift", True),
+    # aliases of ops in the set
+    "special_erf": _op("erf"), "special_erfc": _op("erfc"),
+    "special_exp2": _op("exp2"), "special_expm1": _op("expm1"),
+    "special_log1p": _op("log1p"), "special_expit": _op("sigmoid"),
+    "round": _round, "special_round": _round, "sgn": _op("sign"),
+    # casts and constructors
+    "zeros_like": _like(0), "ones_like": _like(1), "full_like": _like(None),
+    "empty_like": _empty_like,
+    # activations
+    "gelu": _gelu, "silu": _act("silu"),
+    "softplus": _act("softplus", ("beta", 1.0), ("threshold", 20.0)),
+    "elu": _elu, "selu": _selu, "celu": _celu,
+    "leaky_relu": _act("leaky_relu", ("negative_slope", 0.01)),
+    "hardtanh": _hardtanh,
+    "relu6": lambda x, inplace=False: _hardtanh(x, 0.0, 6.0, inplace),
+    "hardsigmoid": _act("hardsigmoid"), "hardswish": _act("hardswish"),
+    "log_sigmoid": _op("log_sigmoid"),
+    "softsign": _softsign, "mish": _act("mish"),
+    # other elementwise functions of jnp
+    "nan_to_num": _nan_to_num, "float_power": _float_power,
+    "ldexp": lambda a, b: _node("mul", a, _pow(2.0, b)),
+    "deg2rad": lambda x: _node("mul", x, _M_PI_180),
+    "rad2deg": lambda x: _node("mul", x, _M_180_PI),
+    "special_sinc": _op("sinc"), "isclose": _isclose,
+    "isposinf": lambda x: _node("eq", x, math.inf),
+    "isneginf": lambda x: _node("eq", x, -math.inf),
+    "isreal": _isreal,
+    # the special functions of jax.scipy.special
+    "special_gammaln": _op("lgamma"), "special_psi": _op("digamma"),
+    "special_digamma": _op("digamma"), "special_erfinv": _op("erfinv"),
+    "special_ndtr": _ndtr, "special_ndtri": _op("ndtri"),
+    "special_log_ndtr": _op("log_ndtr"), "special_i0": _op("i0"),
+    "special_i0e": _op("i0e"), "special_i1": _op("i1"),
+    "special_i1e": _op("i1e"), "special_entr": _op("entr"),
+    "special_xlogy": _op("xlogy"), "special_xlog1py": _op("xlog1py"),
+    "logit": _logit, "special_logit": _logit,
+    "special_zeta": _op("zeta"), "polygamma": _polygamma,
+    "special_polygamma": _polygamma, "mvlgamma": _mvlgamma,
+    "special_multigammaln": _mvlgamma,
 })
-# tensor methods of the symbol (``x.exp()``, ``x.clamp(min=0)``, ...);
-# ``x.where(cond, other)`` is ``torch.where(cond, x, other)``
+# tensor methods of the symbol (``x.exp()``, ``x.clamp(min=0)``, ...: the
+# names of _FUNCS that torch.Tensor has); ``x.where(cond, other)`` is
+# ``torch.where(cond, x, other)``
 _METHODS: Dict[str, Callable] = {
-    name: fn for name, fn in _FUNCS.items() if not name.startswith("__")}
+    name: fn for name, fn in _FUNCS.items()
+    if not name.startswith("__") and hasattr(torch.Tensor, name)}
 _METHODS["where"] = lambda x, condition, other: _node(
     "where", condition, x, other)
+_METHODS.update({name: functools.partial(_cast, dtype=dt)
+                 for name, dt in _CAST_METHODS.items()})
+_METHODS.update({"to": _to, "type": _type,
+                 "type_as": lambda x, other: _to(x, other),
+                 "polygamma": lambda x, n: _polygamma(n, x)})
 
 _RANDOM = frozenset({"bernoulli", "normal", "multinomial", "poisson",
                      "dropout", "uniform_", "normal_", "exponential_",
@@ -646,7 +1046,8 @@ def _torch_call(func, args, kwargs):
 
 def _literal(kind: str, value, dtype: torch.dtype) -> str:
     """A constant as a C++ literal of ``dtype``, converted as torch
-    converts it for an op computing in ``dtype``."""
+    converts it for an op computing in ``dtype`` (a float16/bfloat16
+    value as the float that holds it)."""
     src = _SCALARS.get(kind) or getattr(torch, kind)
     try:
         v = torch.tensor(value, dtype=src).to(dtype)
@@ -654,10 +1055,14 @@ def _literal(kind: str, value, dtype: torch.dtype) -> str:
         raise _Refused(f"the constant {value!r}: {exc}") from None
     if dtype == torch.bool:
         return "true" if v.item() else "false"
-    if dtype == torch.int64:
+    if dtype in _INTS:
         i = v.item()
+        if dtype != torch.int64:
+            return f"(({_CTYPES[dtype]})({i}))"
         return "(-9223372036854775807LL - 1)" if i == -2 ** 63 \
             else f"({i}LL)"
+    if dtype in _REDUCED:
+        v, dtype = v.float(), torch.float32
     f = v.item()
     if not math.isfinite(f):
         if dtype == torch.float32:
@@ -666,15 +1071,34 @@ def _literal(kind: str, value, dtype: torch.dtype) -> str:
     return f"({f.hex()}{'f' if dtype == torch.float32 else ''})"
 
 
+def _convert(expr: str, src: torch.dtype, dst: torch.dtype) -> str:
+    """A C++ value of torch dtype ``src`` converted to ``dst`` as torch
+    converts it (c10::convert)."""
+    if src == dst:
+        return expr
+    if dst == torch.bool:
+        return f"({expr} != 0)"
+    if dst in _REDUCED:
+        if src not in (torch.float32,) + tuple(_REDUCED):
+            expr = f"((float){expr})"
+        return f"{_REDUCED[dst]}({expr})"
+    if dst in _INTS and _CATEGORY[src] == "f":
+        return f"f2i<{_CTYPES[dst]}>({expr})"
+    if _CTYPES[dst] == _CTYPES[src]:                 # float16 to float32
+        return expr
+    return f"(({_CTYPES[dst]}){expr})"
+
+
 def _value(g: _Graph, nid: int, dtype: torch.dtype) -> str:
     """Node ``nid`` as an expression of ``dtype``."""
     key = g.nodes[nid]
-    if key[0] == "k":
+    if key[0] in ("k", "c"):
         return _literal(*g.consts[nid], dtype)
     name = key[0] if key[0] in ("x", "y") else f"v{nid}"
-    if g.dtypes[nid] == dtype:
-        return name
-    return f"(({_CTYPES[dtype]}){name})"
+    return _convert(name, g.dtypes[nid], dtype)
+
+
+_LEAVES = ("x", "y", "k", "c")
 
 
 def _functor(g: _Graph, root: int, t: torch.dtype) -> str:
@@ -683,20 +1107,25 @@ def _functor(g: _Graph, root: int, t: torch.dtype) -> str:
         n = stack.pop()
         if n not in need:
             need.add(n)
-            if g.nodes[n][0] not in ("x", "y", "k"):
+            if g.nodes[n][0] not in _LEAVES:
                 stack.extend(g.nodes[n][1:])
     ct = _CTYPES[t]
     lines = [f"template <> struct Merge<{ct}> {{"]
-    if any(g.nodes[n][0] in SLOW_PATH_OPS for n in need):
+    if any(_slow(g.nodes[n][0]) for n in need):
         lines.append("  static constexpr bool kSlowPaths = true;")
     lines.append(f"  MERGE_HD {ct} operator()({ct} x, {ct} y) const {{")
     for n in sorted(need):
         op, *args = g.nodes[n]
-        if op in ("x", "y", "k"):
+        if op in _LEAVES:
             continue
-        compute = g.compute[n]
-        expr = _OPS[op].c[_CATEGORY[compute[-1]]].format(
-            *(_value(g, a, d) for a, d in zip(args, compute)))
+        if op.startswith("cast:"):
+            expr = _value(g, args[0], g.dtypes[n])
+        else:
+            compute = g.compute[n]
+            expr = _OPS[op].c[_CATEGORY[compute[-1]]].format(
+                *(_value(g, a, d) for a, d in zip(args, compute)))
+            if g.dtypes[n] in _REDUCED:
+                expr = f"{_REDUCED[g.dtypes[n]]}({expr})"
         lines.append(f"    const {_CTYPES[g.dtypes[n]]} v{n} = {expr};")
     lines.append(f"    return {_value(g, root, t)};")
     lines += ["  }", "};"]

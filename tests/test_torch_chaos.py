@@ -416,8 +416,8 @@ def test_faulted_dispatch_raises_then_quarantines(rng, monkeypatch):
     assert kreg.BREAKER.state(kreg.CUDA) == "closed"
 
 
-def _lgamma(x, y):              # lgamma is outside the merge compiler's set
-    return torch.lgamma(x) * y
+def _hardshrink(x, y):          # outside the merge compiler's set
+    return torch.nn.functional.hardshrink(x) * y
 
 
 def _prod(x, y):
@@ -476,7 +476,7 @@ def test_refused_dispatch_feeds_no_breaker(monkeypatch):
     f0 = REGISTRY.counter("kernel_dispatch_failures", **labels).value
     for _ in range(4):                       # past the threshold
         with pytest.raises(NotImplementedError):
-            kreg.dispatch("merge_join", a, b, ma, mb, merge=_lgamma,
+            kreg.dispatch("merge_join", a, b, ma, mb, merge=_hardshrink,
                           block_size=4)
     with pytest.raises(ValueError):          # masks of the wrong grid
         kreg.dispatch("merge_join", a, b, ma[:2], mb, merge=_prod,
@@ -489,7 +489,7 @@ def test_refused_dispatch_feeds_no_breaker(monkeypatch):
         kreg.BREAKER.record_failure(kreg.CUDA)
     clock.t = 31.0
     with pytest.raises(NotImplementedError):  # the probe is refused ...
-        kreg.dispatch("merge_join", a, b, ma, mb, merge=_lgamma,
+        kreg.dispatch("merge_join", a, b, ma, mb, merge=_hardshrink,
                       block_size=4)
     assert kreg.BREAKER.state(kreg.CUDA) == "half-open"
     got = kreg.dispatch("merge_join", a, b, ma, mb, merge=_prod,
@@ -511,7 +511,7 @@ def test_unsupported_merges_do_not_quarantine_the_card(monkeypatch):
     with ServeEngine(s, cse=False, n_threads=1, retry_backoff_s=0.0) as eng:
         for _ in range(3):
             with pytest.raises(NotImplementedError):
-                eng.run(A.join(B, "RID=RID AND CID=CID", _lgamma),
+                eng.run(A.join(B, "RID=RID AND CID=CID", _hardshrink),
                         tenant="t0", timeout=60.0)
         got = eng.run(A.join(B, "RID=RID AND CID=CID", _prod),
                       tenant="t1", timeout=60.0)

@@ -1626,7 +1626,16 @@ def test_merge_join_program_on_a_transposed_view_matches_plain(
 @pytest.mark.parametrize("name", ["gated", "maximum", "square", "quotient",
                                   "every_register", "logic", "exp_log1p",
                                   "pow", "clamp", "flipped_gated", "erf",
-                                  "remainder", "int_arith", "long", "wide"])
+                                  "remainder", "int_arith", "long", "wide",
+                                  "special_aliases", "round_decimals",
+                                  "casts", "narrow_ints", "reduced", "like",
+                                  "like_typed", "type_as", "activations",
+                                  "activations_elu", "activations_exact",
+                                  "activations_log", "logaddexp",
+                                  "nan_to_num", "float_power", "deg_sinc",
+                                  "nextafter_isclose", "shifts_gcd", "gamma",
+                                  "gamma_aliases", "normal", "bessel",
+                                  "xlogy", "logit"])
 def test_coo_expand_program_matches_plain(cuda, generated, name, dtype, cdt,
                                           ca, cb, vt):
     """The generated run-time-width instance takes every width and every
@@ -1709,6 +1718,43 @@ def test_erf_join_through_the_session_equals_the_cpu(cuda):
                           lambda x, y: torch.erf(x) * y).collect()
     assert build.GENERATED_LAUNCHES["merge_join"] == 1
     check(out["cuda"].value.cpu(), out["cpu"].value, False, "erf join")
+
+
+def test_bfloat16_overlay_through_the_session_skips_dead_tiles(
+        cuda, monkeypatch):
+    """``(x * y).to(torch.bfloat16)`` through ``Session(device="cuda")``:
+    the sparsity probe reads the bfloat16 product through torch and finds
+    it inducing on both sides, so the overlay runs its generated
+    ``merge_join`` instance at mode 0 (both masks: dead tiles skipped), and
+    the result equals the CPU's bit for bit."""
+    from repro_torch.core import Session
+    from repro_torch.core.expr import MergeFn
+    from repro_torch.core.sparsity import analyze_merge
+    from repro_torch.kernels import registry
+    n, bs = 512, 64
+    a, b = _sparse_pair(13, n, bs)
+    merge = MergeFn("bf16_overlay_card",
+                    lambda x, y: (x * y).to(torch.bfloat16))
+    prof = analyze_merge(merge)
+    assert prof.inducing_x and prof.inducing_y
+    spec = registry.get("merge_join")
+    modes = []
+
+    def recording(*args, _impl=spec.impls[registry.CUDA], **kw):
+        modes.append(kw["mode"])
+        return _impl(*args, **kw)
+
+    monkeypatch.setitem(spec.impls, registry.CUDA, recording)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = Session(block_size=bs, device=dev)
+        A, B = s.load(a, "A"), s.load(b, "B")
+        build.reset_launches()
+        out[dev] = A.join(B, "RID=RID AND CID=CID", merge).collect()
+    assert modes == [MODE_BOTH]
+    assert build.GENERATED_LAUNCHES["merge_join"] == 1
+    assert torch.equal(out["cuda"].value.cpu(), out["cpu"].value)
+    assert not bool(out["cpu"].value[:bs].any())        # A's dead band
 
 
 def test_a_merge_that_does_not_compile_launches_nothing(cuda, monkeypatch):

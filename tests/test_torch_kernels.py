@@ -265,10 +265,11 @@ def test_merge_code_compiles_general_merges(rng, fn):
 
 
 @pytest.mark.parametrize("fn", [
-    lambda x, y: torch.lgamma(x) * y, lambda x, y: x if x > 0 else y,
+    lambda x, y: torch.nn.functional.hardshrink(x) * y,
+    lambda x, y: x if x > 0 else y,
     lambda x, y: x * torch.ones(2), lambda x, y: x.sum() * y,
     lambda x, y: torch.rand_like(x) + y,
-], ids=["lgamma", "branch", "tensor_constant", "reduction", "random"])
+], ids=["hardshrink", "branch", "tensor_constant", "reduction", "random"])
 def test_merge_code_rejects_other_merges(fn):
     with pytest.raises(NotImplementedError, match="general merge"):
         merge_codes.merge_code(fn)

@@ -150,19 +150,26 @@ def test_b_layout_of_cpu_tensors():
     (lambda x, y: x / y, True),
     (lambda x, y: x % y + x // y, True),
     (lambda x, y: torch.sin(x) * torch.cos(y), True),
-    # slow paths too, but their one-row plan was never timed on the card
-    (lambda x, y: torch.fmod(x, y), False),
-    (lambda x, y: torch.div(x, y, rounding_mode="trunc"), False),
+    (lambda x, y: torch.fmod(x, y), True),
+    (lambda x, y: torch.div(x, y, rounding_mode="trunc"), True),
+    (lambda x, y: torch.lgamma(x) + torch.digamma(y), True),
+    (lambda x, y: torch.special.ndtri(x * 0.1 + 0.5) * y, True),
+    (lambda x, y: torch.special.zeta(x.abs() + 1, 2.0) * y, True),
+    (lambda x, y: torch.special.polygamma(2, x) * y, True),
+    # slow paths or loops too, but measured faster streaming on the card
     (lambda x, y: torch.tan(x) + y, False),
+    (lambda x, y: torch.erfinv(x * 0.1) * y, False),
     (torch.maximum, False),
     (lambda x, y: torch.where(x < 10, x + y, 0.0), False),
     (lambda x, y: torch.exp(x) * torch.log1p(torch.abs(y)), False),
     (torch.atan2, False),
 ])
 def test_generated_merges_say_whether_they_take_slow_paths(fn, slow):
-    """A merge with a division, a remainder, a sine or a cosine says
-    kSlowPaths in both functors (``merge_join`` then takes its rows one at a time);
-    the host build of the same source still compiles and evaluates it."""
+    """A merge with a division, a remainder, a sine or a cosine, or with
+    an op whose one-row plan was measured faster (fmod, truncating
+    division, lgamma, digamma, ndtri, zeta, polygamma) says kSlowPaths in
+    both functors (``merge_join`` then takes its rows one at a time); the
+    host build of the same source still compiles and evaluates it."""
     from repro_torch.kernels import merge_codes as mc
     code = mc.merge_code(fn)
     assert code.op == mc.GENERATED

@@ -115,12 +115,32 @@ template <> struct Merge<double> {
      ["bool", "float", "double"]),
     ("bool_float", ["bool", "float", "float", "i64", "float", "float"],
      ["bool", "float", "double", "i64", "float", "double"]),
+    ("casts", ["float", "float", "float", "float", "float", "i32", "float",
+               "float"],
+     ["float", "float", "float", "double", "double", "i32", "double",
+      "double"]),
+    ("narrow_ints", ["i8", "i16", "u8", "i16", "i16", "u8", "i16", "i8", "i16",
+                     "float", "i32", "i32", "u8", "i16", "i32", "double",
+                     "double", "i64", "bool", "i64", "double"],
+     ["i8", "i16", "u8", "i16", "i16", "u8", "i16", "i8", "i16", "float",
+      "i32", "i32", "u8", "i16", "i32", "double", "double", "i64", "bool",
+      "i64", "double"]),
+    ("like_typed", ["double", "float", "double", "double"],
+     ["double", "double", "double", "double"]),
+    ("type_as", ["float", "float", "float", "float", "float", "bool",
+                 "float", "double", "float", "float", "float"],
+     ["float", "double", "float", "double", "double", "bool", "double",
+      "float", "double", "double"]),
 ], ids=lambda v: v if isinstance(v, str) else "")
 def test_values_take_the_dtypes_torch_gives_them(name, f32, f64):
     """Each value is declared in the dtype torch gives it: bool + bool is
     bool, int64 / int64 float32, a float32 value against T compares in T,
     a 0-d float64 constant over a bool promotes to float64 (in the
-    float32 trace too); the result is cast to T."""
+    float32 trace too); the result is cast to T. Casts take their dtype
+    (float16 and bfloat16 held in float), int8 + int16 * 3 is int16,
+    uint8 // 2 uint8, int32 % 7 int32, and a constant of the operands'
+    shape promotes as a tensor (ones_like(dtype=float64) * x is
+    float64)."""
     src = mc.merge_code(GENERAL[name][0]).source
     assert _declared(src, "float") == f32
     assert _declared(src, "double") == f64
@@ -203,7 +223,8 @@ def test_a_cached_code_dies_with_its_callable():
     gc.collect()
     n0 = len(mc._CACHE)
     f = eval("lambda x, y: torch.maximum(x, y) * 2.0", {"torch": torch})
-    g = eval("lambda x, y: torch.lgamma(x)", {"torch": torch})
+    g = eval("lambda x, y: torch.nn.functional.hardshrink(x)",
+             {"torch": torch})
     assert mc.merge_code(f).op == mc.GENERATED
     with pytest.raises(NotImplementedError):
         mc.merge_code(g)
@@ -233,6 +254,11 @@ PROBED = {
     "sub": (lambda x, y: x - y,) * 2,
     "left": (lambda x, y: x,) * 2,
     "quotient": (lambda x, y: x / y,) * 2,
+    # numpy has no bfloat16: the probe reads the value through torch
+    "bf16_product": (lambda x, y: jnp.multiply(x, y).astype(jnp.bfloat16),
+                     lambda x, y: torch.mul(x, y).to(torch.bfloat16)),
+    "f16_product": (lambda x, y: jnp.multiply(x, y).astype(jnp.float16),
+                    lambda x, y: torch.mul(x, y).half()),
 }
 
 
@@ -256,6 +282,20 @@ def test_probe_matches_reference(fresh_merge_profiles, name):
     got = t_sparsity.analyze_merge(MergeFn(f"probe_{name}", tf))
     assert (got.inducing_x, got.inducing_y) == (want.inducing_x,
                                                 want.inducing_y)
+
+
+@pytest.mark.parametrize("name", ["bf16_product", "f16_product"])
+def test_probe_reads_reduced_dtypes_through_torch(fresh_merge_profiles,
+                                                  name):
+    """A product cast to bfloat16 or float16 induces sparsity on both
+    sides, as the reference says (the probe once read the value with
+    ``np.asarray``, which raises on bfloat16, and took the raise for
+    "not inducing")."""
+    jf, tf = PROBED[name]
+    want = j_sparsity.analyze_merge(JMergeFn(f"reduced_{name}", jf))
+    got = t_sparsity.analyze_merge(MergeFn(f"reduced_{name}", tf))
+    assert (want.inducing_x, want.inducing_y) == (True, True)
+    assert (got.inducing_x, got.inducing_y) == (True, True)
 
 
 def _strip_backends(text: str) -> str:
@@ -327,6 +367,47 @@ JOIN_MERGES = {
                  lambda x, y: (torch.where(x > 0, 7, -3)
                                * torch.where(y > 1, 2, -5)
                                + ((x > 0) + (y > 0))) * y, True),
+    # casts, reduced dtypes and typed constants
+    "bfloat16": (lambda x, y: (x * y).astype(jnp.bfloat16),
+                 lambda x, y: (x * y).to(torch.bfloat16), True),
+    "like": (lambda x, y: jnp.where(x > 0, jnp.zeros_like(x),
+                                    jnp.full_like(y, 0.5)) + y,
+             lambda x, y: torch.where(x > 0, torch.zeros_like(x),
+                                      torch.full_like(y, 0.5)) + y, True),
+    # the special functions; digamma's argument kept from 0 and the
+    # negative integers, where the frameworks differ (jax NaN at ±0,
+    # torch ∓inf)
+    "gamma": (lambda x, y: jax.scipy.special.gammaln(x)
+              + jax.scipy.special.digamma(jnp.abs(y) + 0.5),
+              lambda x, y: torch.lgamma(x) + torch.digamma(y.abs() + 0.5),
+              False),
+    "normal": (lambda x, y: jax.scipy.special.erfinv(y * 0.125)
+               + jax.scipy.special.ndtri(x * 0.0625 + 0.5)
+               - jax.scipy.special.ndtr(x),
+               lambda x, y: torch.erfinv(y * 0.125)
+               + torch.special.ndtri(x * 0.0625 + 0.5)
+               - torch.special.ndtr(x), False),
+    "bessel": (lambda x, y: jax.scipy.special.i0e(x)
+               - jax.scipy.special.i1(y * 0.1),
+               lambda x, y: torch.special.i0e(x) - torch.special.i1(y * 0.1),
+               False),
+    "xlogy": (lambda x, y: jax.scipy.special.xlogy(x, y)
+              + jax.scipy.special.xlog1py(x, y),
+              lambda x, y: torch.special.xlogy(x, y)
+              + torch.special.xlog1py(x, y), False),
+    "logaddexp": (jnp.logaddexp, torch.logaddexp, False),
+    # off zeta's pole at 1 and polygamma's at 0 and the negative integers
+    "zeta": (lambda x, y: jax.scipy.special.zeta(jnp.abs(x) + 2,
+                                                 jnp.abs(y) + 1)
+             + jax.scipy.special.polygamma(2, jnp.abs(y) + 1),
+             lambda x, y: torch.special.zeta(x.abs() + 2, y.abs() + 1)
+             + torch.special.polygamma(2, y.abs() + 1), False),
+    # jax.nn.gelu's default is the tanh form: both take the erf form here
+    "activations": (lambda x, y: jax.nn.gelu(x, approximate=False)
+                    * jax.nn.silu(y) + jax.nn.softplus(x),
+                    lambda x, y: torch.nn.functional.gelu(x)
+                    * torch.nn.functional.silu(y)
+                    + torch.nn.functional.softplus(x), False),
 }
 PREDS = {"overlay": "RID=RID AND CID=CID", "d2d": "RID=RID",
          "v2v": "VAL=VAL"}

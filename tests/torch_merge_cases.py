@@ -5,6 +5,7 @@ they hold a transcendental of the op set and are compared within
 ``TRANSCENDENTAL_ULPS``)."""
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # the kernels' transcendentals are CUDA's math library, the plain
 # versions' torch's (the same library on the card, libm/SLEEF on the CPU)
@@ -52,6 +53,41 @@ def _int_arith(x, y):
 def _int_bitwise(x, y):
     k, j = _ints(x, y)
     return ((k & 6) | (j ^ 3)) * x - (~k) * y
+
+
+def _casts(x, y):
+    """Through float16, bfloat16 and int32 and back."""
+    return x.half().float() * y.bfloat16().to(x.dtype) \
+        + x.to(torch.int32).to(x.dtype)
+
+
+def _like(x, y):
+    return torch.where(x > 0, torch.zeros_like(x), torch.full_like(y, 0.5)) \
+        + y
+
+
+def _narrow_ints(x, y):
+    """int8, int16, uint8, int32 and int64 arithmetic, each in its width
+    (wrapping), promoted as torch promotes them."""
+    a, b, c = x.char(), y.short(), x.byte()
+    return (a + b * 3 - c // 2 + (a & 5)).float() \
+        + (y.int() % 7 - (c >> 1) * a).double() + x.long() * y.bool()
+
+
+def _reduced(x, y):
+    """float16 and bfloat16 ops computed in float32, rounded after each."""
+    h, g = x.half(), y.half()
+    b, c = x.bfloat16(), y.bfloat16()
+    return (h * g + 1.5 - h / g).float() + (b * c - b + 0.25).to(x.dtype) \
+        + torch.maximum(h, g).double() - torch.floor(c * 3).float()
+
+
+def _shifts(x, y):
+    k, j = _ints(x, y)
+    return (torch.gcd(k * 6, j * 4) + torch.lcm(k, j) + (k << 2) - (j >> 1)
+            + torch.bitwise_left_shift(k, 70)
+            + torch.bitwise_right_shift(j, -1) + (3 << j.abs())
+            + (x.char() << 3) - (y.char() >> 2)) * y
 
 
 # name: (merge, exact)
@@ -160,6 +196,80 @@ GENERAL = {
     # no limit on the length or the live values
     "long": (_long, True),
     "wide": (_wide, True),
+    # aliases of ops in the set
+    "special_aliases": (lambda x, y: torch.special.erf(x)
+                        + torch.special.erfc(y)
+                        + torch.special.exp2(x * 0.5)
+                        - torch.special.expm1(y * 0.1)
+                        + torch.special.log1p(x.abs())
+                        * torch.special.expit(y), False),
+    "round_decimals": (lambda x, y: torch.round(x, decimals=2)
+                       + torch.special.round(y) - x.round(decimals=-1)
+                       + torch.sgn(x) * y, True),
+    # casts, reduced dtypes and narrow integers, constructors
+    "casts": (_casts, True),
+    "narrow_ints": (_narrow_ints, True),
+    "reduced": (_reduced, True),
+    "like": (_like, True),
+    "like_typed": (lambda x, y: torch.ones_like(x, dtype=torch.float64) * x
+                   + torch.full_like(x, 3, dtype=torch.int32) * y
+                   + torch.zeros_like(y, dtype=torch.bool), True),
+    "type_as": (lambda x, y: x.type(torch.float16).type_as(y)
+                + y.to(dtype=torch.bfloat16).to(x) + x.to(torch.bool)
+                - y.double().float() + x.bool(), True),
+    # activations
+    "activations": (lambda x, y: F.gelu(x) * F.silu(y) + F.softplus(x),
+                    False),
+    "activations_elu": (lambda x, y: F.gelu(x, approximate="tanh")
+                        + F.elu(y) - F.selu(x) + F.celu(y, alpha=0.5)
+                        + F.mish(x * 0.1), False),
+    "activations_exact": (lambda x, y: F.leaky_relu(x, 0.2)
+                          + F.hardtanh(y) * F.relu6(x) + F.hardsigmoid(y)
+                          - F.hardswish(x), True),
+    "activations_log": (lambda x, y: F.logsigmoid(x) + F.softsign(y)
+                        + F.softplus(x, beta=2, threshold=5), False),
+    # other elementwise functions of jnp
+    "logaddexp": (lambda x, y: torch.logaddexp(x, y)
+                  - torch.logaddexp2(x * 0.5, y), False),
+    "nan_to_num": (lambda x, y: torch.nan_to_num(x)
+                   + torch.nan_to_num(y, nan=1.5, posinf=2.0, neginf=-2.0)
+                   + torch.heaviside(x, y), True),
+    "float_power": (lambda x, y: torch.float_power(x.abs(), y)
+                    + torch.float_power(x, 2) + torch.ldexp(x, torch.round(
+                        y.clamp(-20, 20))), False),
+    "deg_sinc": (lambda x, y: torch.deg2rad(x) + torch.rad2deg(y)
+                 + torch.sinc(x) + torch.special.sinc(y * 0.5), False),
+    "nextafter_isclose": (lambda x, y: torch.nextafter(x, y)
+                          + torch.isclose(x, y) + 2 * torch.isclose(
+                              x, y * 1.01, rtol=0.02, atol=0.1,
+                              equal_nan=True)
+                          + torch.isposinf(x) * 4 + torch.isneginf(y) * 8
+                          + torch.isreal(x), True),
+    "shifts_gcd": (_shifts, True),
+    # the special functions of jax.scipy.special
+    # a product: libm's lgamma and torch's differ in the last bit, which a
+    # cancelling sum (lgamma(x) + digamma(y), chip_smoke.py's) magnifies
+    # beyond the scale of the result on the host (the card's are one)
+    "gamma": (lambda x, y: torch.lgamma(x) * torch.digamma(y), False),
+    "gamma_aliases": (lambda x, y: torch.special.gammaln(x)
+                      * torch.special.psi(y * 0.5), False),
+    # erfinv and ndtri take IEEE-exact arguments: near ±1 and 0 or 1 they
+    # magnify a last-bit difference of tanh or sigmoid between libm and
+    # torch's vector math (on the card both are CUDA's: chip_smoke.py's
+    # merge composes them)
+    "normal": (lambda x, y: torch.special.ndtr(x) * torch.erfinv(y * 0.125)
+               + torch.special.ndtri(y * 0.0625 + 0.5)
+               - torch.special.log_ndtr(x), False),
+    "bessel": (lambda x, y: torch.special.i0e(x) - torch.special.i1(y * 0.1)
+               + torch.i0(x * 0.1) + torch.special.i1e(y), False),
+    "xlogy": (lambda x, y: torch.special.xlogy(x, y)
+              + torch.special.xlog1py(y, x) + torch.special.entr(x), False),
+    "logit": (lambda x, y: torch.logit(torch.sigmoid(x))
+              + torch.special.logit(y, eps=1e-3), False),
+    "zeta": (lambda x, y: torch.special.zeta(x.abs() + 1, y.abs() + 1)
+             * torch.special.zeta(x, 2.0), False),
+    "polygamma": (lambda x, y: torch.polygamma(1, x) * torch.special.polygamma(
+        2, y) + x.polygamma(3) * torch.polygamma(0, y), False),
 }
 
 # merges that divide by a constant: torch on the card multiplies by the
@@ -176,7 +286,16 @@ REFUSED = {
     "method_reduction": (lambda x, y: x.cumsum(0) + y, "non-elementwise op"),
     "indexing": (lambda x, y: x[0] * y, "indexing"),
     "random": (lambda x, y: torch.rand_like(x) * y, "random op"),
-    "outside_the_set": (lambda x, y: torch.lgamma(x) * y, "outside the op"),
+    "outside_the_set": (lambda x, y: F.hardshrink(x) * y, "outside the op"),
+    "complex": (lambda x, y: torch.polar(x, y).real, "outside the op"),
+    "empty_like": (lambda x, y: torch.empty_like(x) + y,
+                   "uninitialised values"),
+    "special_outside_the_rule": (lambda x, y: torch.special.erfcx(x) * y,
+                                 "outside the op"),
+    "inplace_activation": (lambda x, y: F.silu(x, inplace=True) + y,
+                           "in-place silu"),
+    "device_move": (lambda x, y: x.to("cuda") + y, "device move"),
+    "mvlgamma": (lambda x, y: torch.mvlgamma(x, 2) * y, "checks its data"),
     "torch_refuses": (lambda x, y: (x > 0) - (y > 0), "Subtraction"),
 }
 
