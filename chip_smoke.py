@@ -5,6 +5,7 @@ training on one NVIDIA card.
 
     python3 chip_smoke.py                      # on the card: full size
     python3 chip_smoke.py --device cpu --small # CPU rehearsal, plain versions
+    python3 chip_smoke.py --mesh-only          # the data and the mesh phase
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs ten
 queries through ``Session(device="cuda")`` and ``Matrix.collect()`` over
@@ -95,6 +96,21 @@ bfloat16 overlay (its mode must be 0: dead tiles skipped) and an
 ``lgamma`` D2D join through ``Session(device="cuda")`` against the CPU;
 the generated launches must rise. Then the float64 ``masked_matmul`` on
 the PNMF product, within ``MM_F64_ATOL`` of its plain version.
+
+The multi-worker phase runs ``Session(n_workers=MESH_WORKERS)`` over the
+cards the machine shows (``worker_mesh``: one worker a card while there
+are cards enough, the four workers on one card on a machine with one):
+``benchmarks/bench_dist_comm.py``'s dense pipeline at X n × n/2 held to
+float64 numpy and to the one-worker session, its counted collective
+bytes to the scheme pass's prediction, and its two collectives alone on
+the mesh (X's all-gather, Y's all-to-all) timed to a copy rate; then Q3,
+Q5, Q7–Q10 on the main path's catalog, each held to its check and to the
+one-worker session's result. Each line names the cards its workers ran
+on and the cards each kernel launched on; a gated kernel launches once a
+worker, on that worker's card. Every other session of the script has one
+worker (``n_workers=1``), so the script measures the same thing on any
+number of cards. ``--mesh-only`` makes the data and runs this phase
+alone (no kernel phases, no last line): a run across four cards.
 
 The serving phase comes last. Q1–Q10 go three times each through one
 ``ServeEngine`` (cross-query CSE, two worker threads, one ticket a batch);
@@ -206,6 +222,7 @@ and as the last line ``{"ok": true, "device": {"platform": "gpu",
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
@@ -245,7 +262,8 @@ SERVE_SAMPLE = 32              # rows / columns held to float64 per template
 # the serving templates' sums of products, of Σ|terms|: FP32 reads a few
 # 1e-7 at n = 8192 and TF32 products about 1e-5, so a TF32 switch fails
 SERVE_RTOL = 2e-6
-# the multi-worker phase: Session(n_workers=MESH_WORKERS) on the one card,
+# the multi-worker phase: Session(n_workers=MESH_WORKERS) over the visible
+# cards (one worker a card, or all four on one card),
 # benchmarks/bench_dist_comm.py's pipeline at the main path's width (X n x
 # n/2, Y (n/2)², its 2:1 ratio) and the main path's sparse kernel queries
 MESH_WORKERS = 4
@@ -774,7 +792,7 @@ def serving_workload_phase(device, seed, n, card):
     from repro_torch.serve import workload as wl
     from repro_torch.serve.engine import ServeEngine
     t0 = time.perf_counter()
-    s = Session(block_size=256, device=device)
+    s = Session(block_size=256, device=device, n_workers=1)
     rng = np.random.default_rng(seed)
     templates = wl.query_templates(wl.synthetic_catalog(s, rng, n=n))
     stream = wl.client_stream(rng, templates, n_clients=SERVE_CLIENTS,
@@ -833,7 +851,7 @@ def serving_workload_phase(device, seed, n, card):
 
 
 # ---------------------------------------------------------------------------
-# The multi-worker phase: N logical workers on the one card.
+# The multi-worker phase: a worker a card, or N logical workers on one.
 # ---------------------------------------------------------------------------
 
 def dist_pipeline(m):
@@ -876,22 +894,92 @@ def predicted_bytes(matrix) -> float:
     return matrix.physical_plan().total_comm_est * ENTRY_BYTES
 
 
+def sync_all():
+    """Wait for the work on every visible card."""
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+@contextlib.contextmanager
+def launch_cards():
+    """The card of every kernel launch made inside the block, as a list:
+    each wrapper takes its stream (``build.stream_ptr``) inside its
+    device guard, just before its launch, and the card current there
+    must be the operands' card."""
+    import torch
+    from repro_torch.kernels import build
+    seen = []
+    stream_ptr = build.stream_ptr
+
+    def spy(t):
+        if t.is_cuda:
+            assert torch.cuda.current_device() == t.get_device(), \
+                (torch.cuda.current_device(), t.device)
+            seen.append(t.get_device())
+        return stream_ptr(t)
+    build.stream_ptr = spy
+    try:
+        yield seen
+    finally:
+        build.stream_ptr = stream_ptr
+
+
+def _cards(devices) -> str:
+    """``cuda:0,cuda:1,...`` of a mesh's workers, or ``cuda:0 x4``."""
+    names = [str(d) for d in devices]
+    if len(set(names)) == 1:
+        return f"{names[0]} x{len(names)}"
+    return ",".join(names)
+
+
+def collective_rates(mesh, x, y, sync):
+    """The dense pipeline's two collectives alone on ``mesh``: X placed by
+    columns and all-gathered (its matmul operand), Y placed by rows and
+    moved to columns (the transposed overlay's all-to-all). Each runs
+    twice; the second is timed on the host clock between two
+    synchronizes of every card. Returns ``{family: (counted bytes,
+    seconds)}``."""
+    import torch
+    from repro_torch.core import cost as C
+    from repro_torch.core import spmd
+    out = {}
+    for family, t, src, dim in (("all-gather", x, C.COL, None),
+                                ("all-to-all", y, C.ROW, 1)):
+        placed = spmd.place(torch.as_tensor(t, device=mesh.device), src,
+                            mesh.devices)
+        for _ in range(2):
+            sync()
+            with spmd.recording() as rec:
+                t0 = time.perf_counter()
+                moved = spmd.redistribute(placed, dim)
+                sync()
+                dt = time.perf_counter() - t0
+            del moved
+        out[family] = (rec.by_family[family], dt)
+        del placed
+    return out
+
+
 def multi_worker_phase(one, data, ref, n, bs, device, seed, card):
-    """``Session(n_workers=MESH_WORKERS)`` on the session's device: the
-    dense pipeline (held to float64 numpy on sampled columns within
-    ``DIST_RTOL`` of Σ|terms|, to the one-worker run within ``SUM_RTOL``
-    of Σ|terms|, and its counted bytes to the scheme pass's prediction),
-    then Q3, Q5, Q7–Q10 on the main path's catalog (each held to its
-    float64 check and to the one-worker session's result: the overlay
-    and the joins exactly, products and sums within ``SUM_RTOL``). The
-    kernel counts are zeroed before the phase and read after it; every
-    kernel must launch, the gated ones once a worker a node. Prints a
-    line a query as it goes; returns the phase's launch counts."""
+    """``Session(n_workers=MESH_WORKERS)`` over the visible cards (one
+    worker a card where there are cards enough, else logical workers
+    sharing a card): the dense pipeline (held to float64 numpy on sampled
+    columns within ``DIST_RTOL`` of Σ|terms|, to the one-worker run within
+    ``SUM_RTOL`` of Σ|terms|, and its counted bytes to the scheme pass's
+    prediction), its two collectives' copy rates, then Q3, Q5, Q7–Q10 on
+    the main path's catalog (each held to its float64 check and to the
+    one-worker session's result: the overlay and the joins exactly,
+    products and sums within ``SUM_RTOL``). The kernel counts are zeroed
+    before the phase and read after it; every kernel must launch, the
+    gated ones once a worker a node, each on its worker's card, and the
+    COO join's on worker 0's. Prints a line a query as it goes; returns
+    the phase's launch counts."""
     import torch
     from repro_torch.core import Session
     from repro_torch.kernels import build
     on_card = device == "cuda"
-    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    sync = sync_all if on_card else (lambda: None)
     w = MESH_WORKERS
     build.reset_launches()
     t_phase = time.perf_counter()
@@ -903,6 +991,8 @@ def multi_worker_phase(one, data, ref, n, bs, device, seed, card):
     y = rng.normal(size=(k, k)).astype(np.float32)
     sessions = [Session(block_size=bs, mode="dense", device=device,
                         n_workers=nw) for nw in (1, w)]
+    mesh = sessions[1].mesh
+    cards = _cards(mesh.devices)
     outs, walls, queries = [], [], []
     for s in sessions:
         m = {"X": s.load(torch.as_tensor(x, device=s.device), "X"),
@@ -954,7 +1044,7 @@ def multi_worker_phase(one, data, ref, n, bs, device, seed, card):
     assert diff <= SUM_RTOL, f"dist pipeline: {w} workers vs one: {diff}"
     print(
         f"mesh dense pipeline ((sel(XtX) join Y) join Y) join Y, X {n}x{k}, "
-        f"Y {k}x{k}, {w} workers: cold {walls[1][0]:.3f} s, warm "
+        f"Y {k}x{k}, {w} workers on {cards}: cold {walls[1][0]:.3f} s, warm "
         f"{walls[1][1]:.4f} s (one worker: cold {walls[0][0]:.3f} s, warm "
         f"{walls[0][1]:.4f} s); collective bytes counted {counted}, "
         f"predicted {predicted:.0f} (scheme pass x 4); float64 max scaled "
@@ -963,6 +1053,14 @@ def multi_worker_phase(one, data, ref, n, bs, device, seed, card):
         f"sum|terms| [{card}]", flush=True)
     del sessions, outs, m, q, queries, xa, ya, full_scale
     gc.collect()
+    rates = collective_rates(mesh, x, y, sync)
+    print(f"mesh collectives of the pipeline alone, {w} workers on {cards} "
+          "(warm, host clock between synchronizes of every card): "
+          + "; ".join(f"{fam} {b} B in {dt * 1e3:.3f} ms = "
+                      f"{b / dt / 1e9:.1f} GB/s"
+                      for fam, (b, dt) in rates.items())
+          + f" [{card}]", flush=True)
+    gc.collect()
 
     # -- sparse: the main path's kernel queries on the same catalog -------
     s4 = Session(block_size=bs, device=device, n_workers=w)
@@ -970,12 +1068,15 @@ def multi_worker_phase(one, data, ref, n, bs, device, seed, card):
     singles = {name.split()[0]: matrix for name, matrix, _ in
                main_queries({nm: _one_matrix(one, nm) for nm in one.env},
                             data, ref, n)}
+    worker_cards = sorted(d.index for d in s4.mesh.devices) if on_card \
+        else []
     for name, matrix, check in main_queries(mats, data, ref, n):
         qn = name.split()[0]
         if qn not in MESH_QUERIES:
             continue
         before = dict(build.LAUNCHES)
-        out, cold = timed_collect(matrix, sync)
+        with launch_cards() as seen:
+            out, cold = timed_collect(matrix, sync)
         what = check(out)
         again, warm = timed_collect(matrix, sync)
         launches = {kk: build.LAUNCHES[kk] - before[kk] for kk in before}
@@ -984,26 +1085,36 @@ def multi_worker_phase(one, data, ref, n, bs, device, seed, card):
         same = _same_result(qn, out, want)
         kernel = MESH_GATED.get(qn)
         if on_card and kernel is not None:
-            # cold and warm runs: one launch a worker each
+            # cold and warm runs: one launch a worker each, the cold one's
+            # on the workers' cards
             assert launches[kernel] == 2 * w, (qn, launches)
             assert sharded == 1 and gathered == 0, (qn, sharded, gathered)
+            assert sorted(seen) == worker_cards, (qn, seen)
+        elif on_card:
+            assert set(seen) == {s4.mesh.device.index}, (qn, seen)
         print(
-            f"mesh {name}: cold {cold:.3f} s, warm {warm:.4f} s; collective "
+            f"mesh {name}: {w} workers on {_cards(s4.mesh.devices)}: cold "
+            f"{cold:.3f} s, warm {warm:.4f} s; collective "
             f"bytes counted {counted}, predicted "
             f"{predicted_bytes(matrix):.0f} (scheme pass x 4); gated nodes "
             f"on shards {sharded}, on gathered operands {gathered}; "
             "launches (cold + warm): " + " ".join(
                 f"{kk}={v}" for kk, v in launches.items() if v)
+            + "; cold launches on cards " + (",".join(
+                f"cuda:{c}" for c in sorted(set(seen))) or "-")
             + f"; {what}; vs one worker: {same} [{card}]", flush=True)
     launches = dict(build.LAUNCHES)
     if on_card:
         missing = [kk for kk, v in launches.items() if v <= 0]
         assert not missing, f"kernels never launched on the mesh: {missing}"
+    where = ("the workers share one card and its default stream, so these "
+             "walls are not network times" if len(set(mesh.devices)) == 1
+             else "one worker a card; the copies between cards are peer "
+             "copies within one node, not network transfers")
     print(f"mesh phase: {time.perf_counter() - t_phase:.2f} s; kernel "
           "launches over the phase: " + " ".join(
               f"{kk}={v}" for kk, v in launches.items())
-          + "; the workers share one card and its default stream, so "
-          "these walls are not network times", flush=True)
+          + f"; {where}", flush=True)
     return launches
 
 
@@ -1923,7 +2034,7 @@ def merges_phase(calls, env, n, card, on_card):
     from repro_torch.kernels import registry
     mj = registry.get("merge_join")
     for dev in (("cpu", "cuda") if on_card else ("cpu",)):
-        s = Session(block_size=256, device=dev)
+        s = Session(block_size=256, device=dev, n_workers=1)
         m = {k: s.load(v.to(dev), k) for k, v in ops.items()}
         p0 = dict(build.GENERATED_LAUNCHES)
         t0 = time.perf_counter()
@@ -3317,6 +3428,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--small", action="store_true",
                     help=f"{SMALL_N}² matrices (the CPU rehearsal)")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="make the data, run the multi-worker phase over "
+                    "the visible cards and stop")
     args = ap.parse_args(argv)
 
     import torch
@@ -3350,7 +3464,7 @@ def main(argv=None) -> int:
         "capacity; 32768 would need ~3.5e7)"))
     t0 = time.perf_counter()
     data, factors = make_data(args.seed, n, bs)
-    s = Session(block_size=bs, device=args.device)
+    s = Session(block_size=bs, device=args.device, n_workers=1)
     mats = {name: s.load(e.dense(s.device), name) for name, e in data.items()}
     mats.update((name, s.load(v, name)) for name, v in factors.items())
     if on_card:
@@ -3360,6 +3474,12 @@ def main(argv=None) -> int:
           f"{sum(e.keys.size for e in data.values())} entries + W, H "
           f"{n}x{PNMF_K}, seed {args.seed}, {time.perf_counter() - t0:.2f} s "
           "(float64 numpy references included)")
+    if args.mesh_only:
+        multi_worker_phase(s, data, ref, n, bs, args.device, args.seed,
+                           card if on_card else "CPU rehearsal")
+        print(f"mesh-only run: done, {torch.cuda.device_count()} card(s) "
+              "visible" if on_card else "mesh-only run: done on the CPU")
+        return 0
 
     backend = "cuda" if on_card else "torch"
     calls, restore = capture_calls(backend)

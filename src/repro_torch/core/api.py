@@ -17,12 +17,15 @@ hash-consed physical operator DAG (``repro_torch.plan``) and executes it.
 ``collect(engine="tree")`` runs the recursive tree-walk executor, kept as
 the correctness oracle.
 
-A session lives on one device: ``Session()`` is the card (and raises
-without one); ``Session(device="cpu")`` runs the plain PyTorch versions
-of the kernels. ``Session(n_workers=N)`` plans for N workers (the §4.7
-schemes) and runs those plans on N logical workers of that one device
-(``core.partitioner.worker_mesh``), counting the bytes its collectives
-move.
+A session's catalog lives on one device: ``Session()`` is the card (and
+raises without one); ``Session(device="cpu")`` runs the plain PyTorch
+versions of the kernels. ``Session(n_workers=N)`` plans for N workers
+(the §4.7 schemes) and runs those plans on a mesh of N workers
+(``core.partitioner.worker_mesh``): one a card while the machine has
+cards enough, logical workers sharing a card beyond that, every worker
+on the CPU there. It counts the bytes its collectives move. Without
+``n_workers`` a session on ``cuda`` has one worker a visible card (the
+JAX package's default, its device count), one on the CPU.
 """
 from __future__ import annotations
 
@@ -42,7 +45,7 @@ from repro_torch.core.expr import (
 from repro_torch.core.matrix import BlockMatrix
 from repro_torch.core.plancache import VersionedLRU
 from repro_torch.core.predicates import parse_join, parse_select
-from repro_torch.device import resolve_device
+from repro_torch.device import card_count, resolve_device
 
 
 def catalog_from_numpy(arrays: Dict[str, np.ndarray], block_size: int = 256,
@@ -62,9 +65,10 @@ class Session:
     ``engine`` selects the default ``collect()`` path: ``"dag"`` (the
     physical planner, default) or ``"tree"`` (the recursive executor,
     kept as the oracle the planner is tested against). ``device`` is
-    where every tensor of the session lives (``None`` → ``"cuda"``).
+    where the session's catalog and results live (``None`` → ``"cuda"``).
     ``n_workers`` is the worker count plans are built and run for
-    (``None``: one).
+    (``None``: every card the session sees on ``cuda``, one on the CPU);
+    a multi-worker plan runs each worker's shards on its own card.
     """
 
     def __init__(self, block_size: int = 256, mode: str = "sparse",
@@ -99,19 +103,20 @@ class Session:
 
     @property
     def workers(self) -> int:
-        """Effective worker count: ``n_workers``, or one. (The JAX
-        package's default is its visible device count; the port's workers
-        are logical, so the count is the caller's.)"""
-        return self.n_workers or 1
+        """Effective worker count: ``n_workers``, or every device the
+        session sees (``device.card_count``: the visible cards on
+        ``cuda``, one on the CPU), the JAX package's rule."""
+        return self.n_workers or card_count(self.device)
 
     @property
     def mesh(self):
         """The session-owned 1-D worker mesh (None on a single worker).
 
-        Built once per worker count on the session's device and threaded
-        through planning, SPMD execution and EXPLAIN. Changing
-        ``n_workers`` rebuilds it, and the plan cache is keyed on it, so a
-        topology change replans and restages.
+        Built once per worker count over the session's cards
+        (``worker_mesh``) and threaded through planning, SPMD execution
+        and EXPLAIN. Changing ``n_workers`` rebuilds it, and the plan
+        cache is keyed on its devices, so a topology change replans and
+        restages.
         """
         w = self.workers
         if w <= 1:
@@ -125,7 +130,7 @@ class Session:
         m = self.mesh
         if m is None:
             return None
-        return (m.n, str(m.device), m.axis_names)
+        return (tuple(str(d) for d in m.devices), m.axis_names)
 
     def load(self, value, name: Optional[str] = None,
              sparsity: Optional[float] = None) -> "Matrix":
@@ -178,9 +183,12 @@ class Session:
         out = ex.run(pplan)
         if self.device.type == "cuda":
             # launches are asynchronous: the query is done when its device
-            # work is, so a caller's clock around collect() (and the
-            # ledger's wall) times execution, not the enqueue
-            torch.cuda.synchronize(self.device)
+            # work is, on every card of the mesh, so a caller's clock
+            # around collect() (and the ledger's wall) times execution,
+            # not the enqueue
+            for d in {self.device, *(self.mesh.devices if self.mesh
+                                     else ())}:
+                torch.cuda.synchronize(d)
         if self.ledger is not None:
             from repro_torch.core.expr import signature
             from repro_torch.obs.ledger import exec_path_of

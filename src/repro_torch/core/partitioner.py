@@ -1,20 +1,25 @@
 """Partition schemes, the worker mesh and §4.7 per-join planning.
 
 The JAX package's module of this name maps the paper's schemes onto
-GSPMD shardings. The port has no GSPMD: a mesh here is N *logical*
-workers on the session's one device, and a scheme is realized on their
-own shards by ``repro_torch.core.spmd`` (Row splits dim 0, Column dim 1,
-Broadcast replicates, ξ is Row, order-3/4 outputs split their leading
-dimension). This module keeps the reference's surface over that layer:
-the mesh (``worker_mesh``), the scheme → placement mapping with the
+GSPMD shardings. The port has no GSPMD: a mesh here is N workers, each
+on a device of its own where the session sees cards enough (worker i on
+card i, as the reference's mesh takes ``jax.devices()[:n]``) and in
+contiguous groups on a card beyond that (``repro_torch.device.
+worker_devices``); on the CPU every worker is the CPU. A scheme is
+realized on the workers' own shards by ``repro_torch.core.spmd`` (Row
+splits dim 0, Column dim 1, Broadcast replicates, ξ is Row, order-3/4
+outputs split their leading dimension), each shard on its worker's
+device. This module keeps the reference's surface over that layer: the
+mesh (``worker_mesh``), the scheme → placement mapping with the
 transpose rule and the rank rules (``scheme_spec``), the §4.7
 assignment the planner annotates joins with (``plan_join_static``), the
 legacy per-call distributed joins, and the measurement of collective
 bytes — counted as the shards move instead of parsed from HLO.
 
-Unlike the reference, ``worker_mesh`` does not check the worker count
-against a device count: every worker lives on the one device it is
-given, so any N ≥ 1 is realizable.
+Unlike the reference, ``worker_mesh`` does not refuse more workers than
+devices: the workers beyond the card count are logical workers sharing
+a card, so any N ≥ 1 is realizable. A card the machine does not have
+raises.
 """
 from __future__ import annotations
 
@@ -28,24 +33,34 @@ from repro_torch.core import spmd
 from repro_torch.core.expr import MergeFn
 from repro_torch.core.matrix import BlockMatrix
 from repro_torch.core.predicates import Field, JoinKind, JoinPred
+from repro_torch.device import worker_devices
 
 WORKER_AXIS = "workers"
 
 
 @dataclasses.dataclass(frozen=True)
 class WorkerMesh:
-    """``n`` logical workers on ``device``, along one axis."""
+    """Workers along one axis: ``devices[i]`` is worker i's device."""
 
-    n: int
-    device: torch.device
+    devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...] = (WORKER_AXIS,)
+
+    @property
+    def n(self) -> int:
+        return len(self.devices)
+
+    @property
+    def device(self) -> torch.device:
+        """Worker 0's device."""
+        return self.devices[0]
 
 
 def worker_mesh(n: int, device) -> WorkerMesh:
-    """A 1-D mesh of ``n`` workers on ``device`` (both explicit)."""
+    """A 1-D mesh of ``n`` workers for a session on ``device`` (both
+    explicit), mapped onto its cards by ``worker_devices``."""
     if n is None or int(n) < 1:
         raise ValueError(f"a worker mesh needs n >= 1 workers, got {n!r}")
-    return WorkerMesh(int(n), torch.device(device))
+    return WorkerMesh(worker_devices(int(n), device))
 
 
 def mesh_workers(mesh: WorkerMesh) -> int:
@@ -157,9 +172,10 @@ def distributed_overlay(mesh: WorkerMesh, a: BlockMatrix, b: BlockMatrix,
     # the §4.7 scheme was chosen for B; Bᵀ takes its transpose-rule image
     scheme_b = transpose_scheme(plan.choice.scheme_b) if transpose \
         else plan.choice.scheme_b
-    av = spmd.place(a.value, plan.choice.scheme_a, mesh.n)
-    bvv = spmd.place(bv, scheme_b, mesh.n)
-    return spmd.assemble(spmd.elementwise(merge.fn, av, bvv)), plan
+    av = spmd.place(a.value, plan.choice.scheme_a, mesh.devices)
+    bvv = spmd.place(bv, scheme_b, mesh.devices)
+    out = spmd.elementwise(merge.fn, av, bvv)
+    return spmd.assemble(out, a.value.device), plan
 
 
 def distributed_d2d(mesh: WorkerMesh, a: BlockMatrix, b: BlockMatrix,
@@ -173,10 +189,10 @@ def distributed_d2d(mesh: WorkerMesh, a: BlockMatrix, b: BlockMatrix,
     plan = plan or plan_join(pred, a, b, mesh_workers(mesh))
     av = a.value if left is Field.RID else a.value.T
     bv = b.value if right is Field.RID else b.value.T
-    aa = spmd.place(av, costmod.ROW, mesh.n)
-    bb = spmd.align(spmd.place(bv, costmod.ROW, mesh.n), aa)
+    aa = spmd.place(av, costmod.ROW, mesh.devices)
+    bb = spmd.align(spmd.place(bv, costmod.ROW, mesh.devices), aa)
     out = aa.map(lambda x, y: merge.fn(x[:, :, None], y[:, None, :]), bb)
-    return spmd.assemble(out), plan
+    return spmd.assemble(out, a.value.device), plan
 
 
 def measured_collective_bytes(fn, *args) -> int:

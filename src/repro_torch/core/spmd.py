@@ -3,17 +3,20 @@
 The JAX package runs a multi-worker plan as one GSPMD program: node
 outputs are pinned to their partitioning schemes and XLA inserts the
 collectives. PyTorch has no such partitioner, so the port realizes the
-schemes itself, with N *logical* workers on the session's one device:
+schemes itself, over the workers of a mesh (``core.partitioner``), each
+on its device: one worker a card, or logical workers sharing a card:
 
-* a ``Sharded`` value holds one tensor a worker, each in its own storage;
-  ``dim`` is the split dimension (``None``: every worker holds a
-  replica) and ``bounds`` the global extent of each worker's slice;
+* a ``Sharded`` value holds one tensor a worker, each in its own storage
+  on that worker's device; ``dim`` is the split dimension (``None``:
+  every worker holds a replica) and ``bounds`` the global extent of each
+  worker's slice;
 * Row splits dim 0 and Column dim 1, in the chunks XLA uses (``ceil(d /
   N)`` a worker, the last ones short or empty); Broadcast is N replicas;
   ξ is Row; order-3/4 outputs split their leading dimension;
 * a collective is an explicit copy between workers' shards
-  (``redistribute``, ``gather``), and ``reduce`` combines per-worker
-  partials.
+  (``redistribute``, ``gather``), a copy from card to card where the
+  workers sit on two, and ``reduce`` combines per-worker partials on
+  worker 0's device and replicates the result onto every worker's.
 
 Every collective counts the bytes it moves between *different* workers
 into the active ``recording()`` contexts: network-wide wire bytes, the
@@ -24,21 +27,28 @@ reshard of a column-split 512² float32 matrix to rows at N = 8 counts
 once (``reduce``): the scheme pass's convention for aggregations (a ring
 all-reduce would move 2(N−1) times that).
 
-On one card the workers run one after another on the default stream and
-their copies are device-to-device: the byte counts carry over to a
-cluster, the times do not.
+One process drives every worker (the JAX package's single controller):
+it enqueues each worker's work on that worker's card in turn, so the
+cards run side by side, and a copy between cards is ordered after the
+work on both (PyTorch's peer copies synchronize the two cards' current
+streams). Logical workers on one card run one after another on its
+default stream, and their copies stay on the card: the byte counts
+carry over to a cluster, the times do not.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.core.cost import BCAST, COL, RANDOM, ROW
 
 Bounds = Tuple[Tuple[int, int], ...]
+# the workers a value is placed on: their devices, or a count of workers
+# on the tensor's own device
+Workers = Union[int, Sequence[torch.device]]
 
 
 def xla_bounds(size: int, n: int) -> Bounds:
@@ -117,9 +127,44 @@ def _count(family: str, nbytes: int, operand: int) -> None:
 # Sharded values.
 # ---------------------------------------------------------------------------
 
-def _own(t: torch.Tensor) -> torch.Tensor:
-    """A contiguous copy in fresh storage."""
-    return t.clone(memory_format=torch.contiguous_format)
+def _own(t: torch.Tensor, device: Optional[torch.device] = None
+         ) -> torch.Tensor:
+    """A contiguous copy in fresh storage on ``device`` (None: ``t``'s):
+    a piece that stays on its device is copied too, never aliased."""
+    return t.to(t.device if device is None else device, copy=True,
+                memory_format=torch.contiguous_format)
+
+
+def _join_on(pieces: Sequence[torch.Tensor], dim: int,
+             device: torch.device) -> torch.Tensor:
+    """``pieces`` concatenated along ``dim`` in fresh storage on
+    ``device``: one ``torch.cat`` where they all are on it, else each
+    piece copied into its place (one copy from card to card a piece)."""
+    if len(pieces) == 1:
+        return _own(pieces[0], device)
+    if all(p.device == device for p in pieces):
+        return _contig(torch.cat(pieces, dim=dim))
+    shape = list(pieces[0].shape)
+    shape[dim] = sum(p.shape[dim] for p in pieces)
+    out = torch.empty(shape, dtype=pieces[0].dtype, device=device)
+    off = 0
+    for p in pieces:
+        out.narrow(dim, off, p.shape[dim]).copy_(p)
+        off += p.shape[dim]
+    return out
+
+
+def _devices(workers: Workers, t: torch.Tensor) -> Tuple[torch.device, ...]:
+    if isinstance(workers, int):
+        return (t.device,) * workers
+    return tuple(workers)
+
+
+def _to(x, device: torch.device):
+    """A tensor, or a tuple of them, on ``device`` (no copy where it is)."""
+    if isinstance(x, tuple):
+        return tuple(_to(v, device) for v in x)
+    return x.to(device)
 
 
 def _contig(t: torch.Tensor) -> torch.Tensor:
@@ -146,6 +191,10 @@ class Sharded:
     def ndim(self) -> int:
         return len(self.shape)
 
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        return tuple(s.device for s in self.shards)
+
     def block_aligned(self, bs: int) -> bool:
         """Whether every worker's slice starts and ends on a block edge
         (the matrix's end counts as one)."""
@@ -165,20 +214,25 @@ class Sharded:
         return Sharded(shards, self.dim, self.bounds, shape)
 
 
-def place(t: torch.Tensor, scheme: str, n: int) -> Sharded:
-    """Hand each worker its part of ``t`` in ``scheme``'s layout. This is
-    a leaf entering the program (host→device placement in the JAX
-    package's staged call), not a collective: nothing is counted."""
+def place(t: torch.Tensor, scheme: str, workers: Workers) -> Sharded:
+    """Hand each worker its part of ``t`` in ``scheme``'s layout, on its
+    device. This is a leaf entering the program (host→device placement
+    in the JAX package's staged call), not a collective: nothing is
+    counted."""
     dim = scheme_dim(scheme, t.ndim)
-    return split(t, dim, n)
+    return split(t, dim, workers)
 
 
-def split(t: torch.Tensor, dim: Optional[int], n: int) -> Sharded:
-    """Uncounted: ``t`` is already every worker's (a replicated result)."""
+def split(t: torch.Tensor, dim: Optional[int], workers: Workers) -> Sharded:
+    """Uncounted: ``t`` is already every worker's (a replicated result).
+    ``workers`` is the workers' devices, or a count of workers on ``t``'s
+    device."""
+    devs = _devices(workers, t)
     if dim is None:
-        return Sharded([_own(t) for _ in range(n)], None, None, t.shape)
-    bounds = xla_bounds(t.shape[dim], n)
-    shards = [_own(t.narrow(dim, lo, hi - lo)) for lo, hi in bounds]
+        return Sharded([_own(t, d) for d in devs], None, None, t.shape)
+    bounds = xla_bounds(t.shape[dim], len(devs))
+    shards = [_own(t.narrow(dim, lo, hi - lo), d)
+              for (lo, hi), d in zip(bounds, devs)]
     return Sharded(shards, dim, bounds, t.shape)
 
 
@@ -186,11 +240,13 @@ def replicated(shards: Sequence[torch.Tensor]) -> Sharded:
     return Sharded(shards, None, None, shards[0].shape)
 
 
-def _empty_like_slice(x: Sharded, dim: int, size: int) -> torch.Tensor:
+def _empty_like_slice(x: Sharded, dim: int, size: int,
+                      j: int) -> torch.Tensor:
+    """An empty slice of ``x`` for worker j, on its device."""
     shape = list(x.shape)
     shape[dim] = size
-    ref = x.shards[0]
-    return torch.empty(shape, dtype=ref.dtype, device=ref.device)
+    return torch.empty(shape, dtype=x.shards[0].dtype,
+                       device=x.shards[j].device)
 
 
 def _piece(x: Sharded, i: int, dim: Optional[int],
@@ -214,7 +270,10 @@ def redistribute(x: Sharded, dim: Optional[int],
                  bounds: Optional[Bounds] = None) -> Sharded:
     """``x`` in another layout, every worker assembling its target slice
     from the shards that hold it; bytes taken from another worker are
-    counted. From a replica the slice is local and free."""
+    counted. From a replica the slice is local and free. Each target
+    slice is assembled on its worker's device: a piece from a worker on
+    another card is copied from card to card, one on the same device
+    copied within it."""
     if dim is not None and bounds is None:
         bounds = xla_bounds(x.shape[dim], x.n)
     if x.dim == dim and (dim is None or x.bounds == tuple(bounds)):
@@ -240,10 +299,9 @@ def redistribute(x: Sharded, dim: Optional[int],
                 sent0 += nbytes if i == 0 else 0
             pieces.append(p)
         if pieces:
-            shards.append(_contig(torch.cat(pieces, dim=x.dim))
-                          if len(pieces) > 1 else _own(pieces[0]))
+            shards.append(_join_on(pieces, x.dim, x.shards[j].device))
         else:
-            shards.append(_empty_like_slice(x, dim, rng[1] - rng[0]))
+            shards.append(_empty_like_slice(x, dim, rng[1] - rng[0], j))
     s0 = x.shards[0]
     operand = sent0 if family == "collective-permute" \
         else s0.numel() * s0.element_size()
@@ -252,34 +310,45 @@ def redistribute(x: Sharded, dim: Optional[int],
 
 
 def gather(x: Sharded, to: int = 0) -> torch.Tensor:
-    """The whole value on worker ``to`` (the other workers' shards are
-    sent to it and counted)."""
+    """The whole value on worker ``to``'s device (the other workers'
+    shards are sent to it and counted)."""
     if x.dim is None:
         return x.shards[to]
     moved = sum(s.numel() * s.element_size()
                 for i, s in enumerate(x.shards) if i != to)
     s0 = x.shards[0]
     _count("gather", moved, 0 if to == 0 else s0.numel() * s0.element_size())
-    return _contig(torch.cat(x.shards, dim=x.dim))
+    return _join_on(x.shards, x.dim, x.shards[to].device)
 
 
-def assemble(x: Sharded) -> torch.Tensor:
-    """The value handed back to the caller (a staged program's output
-    leaving the workers, as the JAX package's jit output): not counted."""
+def assemble(x: Sharded, device: Optional[torch.device] = None
+             ) -> torch.Tensor:
+    """The value handed back to the caller on ``device`` (None: worker
+    0's), a staged program's output leaving the workers, as the JAX
+    package's jit output: not counted."""
+    device = x.shards[0].device if device is None else device
     if x.dim is None:
-        return x.shards[0]
-    return _contig(torch.cat(x.shards, dim=x.dim))
+        return x.shards[0].to(device)
+    return _join_on(x.shards, x.dim, device)
 
 
-def reduce(partials: Sequence[torch.Tensor],
-           combine: Callable[[Sequence[torch.Tensor]], torch.Tensor],
-           n: int) -> Sharded:
-    """One output-sized collective: the workers' partials combined and the
-    result replicated. Counts the output once (see the module doc)."""
-    out = combine(partials)
+def reduce(partials: Sequence,
+           combine: Callable[[Sequence], torch.Tensor],
+           workers: Workers) -> Sharded:
+    """One output-sized collective: the workers' partials (tensors, or
+    tuples of them) brought to worker 0's device and combined there, and
+    the result replicated onto every worker's device (``workers``: their
+    devices, or a count of workers on the first partial's). Counts the
+    output once (see the module doc)."""
+    if isinstance(workers, int):
+        lead = partials[0]
+        workers = _devices(workers,
+                           lead[0] if isinstance(lead, tuple) else lead)
+    devs = tuple(workers)
+    out = combine([_to(p, devs[0]) for p in partials])
     nbytes = out.numel() * out.element_size()
     _count("reduce", nbytes, nbytes)
-    return split(out, None, n)
+    return split(out, None, devs)
 
 
 def consume(x: Sharded, scheme: str) -> Sharded:
@@ -470,7 +539,7 @@ def agg(x: Sharded, fn, dim) -> Sharded:
         return x.map(lambda s: agg_dense(s, fn, dim))
     if {AggDim.ROW: 0, AggDim.COL: 1}.get(dim) == x.dim:
         parts = [agg_dense(s, fn, dim) for s in x.shards]
-        return reduce(parts, lambda p: torch.cat(p, dim=x.dim), x.n)
+        return reduce(parts, lambda p: torch.cat(p, dim=x.dim), x.devices)
     m, n = x.shape
     stats = []
     for s, (lo, hi) in zip(x.shards, x.bounds):
@@ -491,7 +560,7 @@ def agg(x: Sharded, fn, dim) -> Sharded:
     def combine(parts):
         out = _agg_combine(parts, fn, length, ref)
         return out[:, None] if dim is AggDim.ROW else out[None, :]
-    return reduce(stats, combine, x.n)
+    return reduce(stats, combine, x.devices)
 
 
 # -- joins ------------------------------------------------------------------

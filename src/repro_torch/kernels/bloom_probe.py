@@ -44,8 +44,10 @@ def bloom_probe_cuda(words: torch.Tensor, vals: torch.Tensor, *,
                      num_hashes: int = 3, log2_bits: int = 20,
                      tiles: Tiles = None) -> torch.Tensor:
     """Launch the CUDA kernel → bool, the shape of ``vals``. The checks
-    read tensor metadata only; the launch goes on the caller's stream.
-    ``tiles`` is a member of ``GRID`` (None: ``DEFAULT_TILES``)."""
+    read tensor metadata only; the launch goes on the caller's stream of
+    the operands' card, whichever card is current (the shared path's
+    opt-in is set once a card). ``tiles`` is a member of ``GRID`` (None:
+    ``DEFAULT_TILES``)."""
     threads = checked_tiles("bloom_probe", tiles, GRID,
                             DEFAULT_TILES)["threads"]
     if not vals.is_cuda or words.get_device() != vals.get_device():
@@ -66,9 +68,10 @@ def bloom_probe_cuda(words: torch.Tensor, vals: torch.Tensor, *,
     out = torch.empty_like(flat, dtype=torch.bool)
     n = out.numel()
     if n:
-        rc = build.function("bloom_probe_launch")(
-            words.data_ptr(), flat.data_ptr(), n, num_hashes, log2_bits,
-            threads, out.data_ptr(), build.stream_ptr(flat))
+        with torch.cuda.device(flat.device):   # the operands' card
+            rc = build.function("bloom_probe_launch")(
+                words.data_ptr(), flat.data_ptr(), n, num_hashes, log2_bits,
+                threads, out.data_ptr(), build.stream_ptr(flat))
         build.check(rc, "bloom_probe")
         build.count_launch("bloom_probe")
     return out if vals.dim() == 1 else out.view(vals.shape)
@@ -82,9 +85,10 @@ def plan(words: torch.Tensor, vals: torch.Tensor, *, num_hashes: int = 3,
     threads = checked_tiles("bloom_probe", tiles, GRID,
                             DEFAULT_TILES)["threads"]
     info = (ctypes.c_int * 5)()
-    rc = build.function("bloom_probe_plan")(
-        words.data_ptr(), vals.data_ptr(), vals.numel(), num_hashes,
-        log2_bits, threads, info)
+    with torch.cuda.device(vals.device):
+        rc = build.function("bloom_probe_plan")(
+            words.data_ptr(), vals.data_ptr(), vals.numel(), num_hashes,
+            log2_bits, threads, info)
     build.check(rc, "bloom_probe plan")
     return {"path": PATHS[info[0]], "grid": info[1], "threads": info[2],
             "smem_bytes": info[3], "tma": bool(info[4])}

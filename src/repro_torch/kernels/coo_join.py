@@ -72,7 +72,9 @@ def coo_expand_cuda(ends: torch.Tensor, delta: torch.Tensor,
     has an instance of the joins' widths, and another ``vt`` raises
     ``ValueError``. A generated merge (``GENERATED``) runs in its
     run-time-width instance, which takes every width and every ``vt`` of
-    the grid in float32 and float64."""
+    the grid in float32 and float64. It launches on the operands' card,
+    whichever is current (each instance's shared-memory opt-in is set
+    once a card)."""
     vt = checked_tiles("coo_expand", tiles, GRID, DEFAULT_TILES)["vt"]
     ins = (ends, delta, a_vals, a_coords, b_vals, b_coords)
     dev = ends.get_device()
@@ -116,13 +118,14 @@ def coo_expand_cuda(ends: torch.Tensor, delta: torch.Tensor,
             ends.data_ptr(), delta.data_ptr(), a_vals.data_ptr(),
             a_coords.data_ptr(), b_vals.data_ptr(), b_coords.data_ptr(),
             ns, nb, ca, cb, cap, vt)
-    outs = (idx.data_ptr(), val.data_ptr(), build.stream_ptr(ends))
     generated = code.op == GENERATED
-    if generated:
-        rc = build.merge_function(code, "coo_expand")(*args, *outs)
-    else:
-        rc = build.function("coo_expand_launch")(*args, code.op,
-                                                 *code.coeffs, *outs)
+    with torch.cuda.device(dev):       # the operands' card, not the current
+        outs = (idx.data_ptr(), val.data_ptr(), build.stream_ptr(ends))
+        if generated:
+            rc = build.merge_function(code, "coo_expand")(*args, *outs)
+        else:
+            rc = build.function("coo_expand_launch")(*args, code.op,
+                                                     *code.coeffs, *outs)
     build.check(rc, "coo_expand")
     build.count_launch("coo_expand", generated=generated)
     return idx, val

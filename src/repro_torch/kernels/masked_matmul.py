@@ -70,7 +70,9 @@ def masked_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     zero on the device for every call, so no call sees a count left by
     another. The output is a new contiguous [M, N] tensor in which every
     element is written, each 128 × 128 unit by one CTA in a fixed order:
-    the same inputs give the same bits on every launch."""
+    the same inputs give the same bits on every launch. It launches on
+    the operands' card, whichever is current (the pool and its
+    shared-memory opt-in are set once a card)."""
     kc = checked_tiles("masked_matmul", tiles, GRID, DEFAULT_TILES)["kc"]
     dev = a.device
     ins = (a, b, out_block_mask)
@@ -98,11 +100,12 @@ def masked_matmul_cuda(a: torch.Tensor, b: torch.Tensor,
         return out
     mask = out_block_mask.contiguous()
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    rc = build.function("masked_matmul_launch")(
-        _VALUE_CODES[a.dtype], kc, a.data_ptr(), b.data_ptr(),
-        mask.data_ptr(),
-        out.data_ptr(), m, n, k, *a.stride(), *b.stride(), bs,
-        build.stream_ptr(a), counter.data_ptr())
+    with torch.cuda.device(dev):       # the operands' card, not the current
+        rc = build.function("masked_matmul_launch")(
+            _VALUE_CODES[a.dtype], kc, a.data_ptr(), b.data_ptr(),
+            mask.data_ptr(),
+            out.data_ptr(), m, n, k, *a.stride(), *b.stride(), bs,
+            build.stream_ptr(a), counter.data_ptr())
     build.check(rc, "masked_matmul")
     build.count_launch("masked_matmul")
     return out

@@ -102,7 +102,7 @@ def merge_join_cuda(a: torch.Tensor, b: torch.Tensor, mask_a: torch.Tensor,
     place and any other non-contiguous B is copied. The kernel has no
     launch parameter: ``tiles`` must be None or empty. More than 2**31 - 1
     units raise ``RuntimeError`` (cudaErrorInvalidValue) before any
-    launch."""
+    launch. It launches on the operands' card, whichever is current."""
     checked_tiles("merge_join", tiles, (), {})
     dev = a.device
     ins = (a, b, mask_a, mask_b)
@@ -143,12 +143,13 @@ def merge_join_cuda(a: torch.Tensor, b: torch.Tensor, mask_a: torch.Tensor,
             mask_a.data_ptr(), mask_b.data_ptr(), out.data_ptr(),
             m, n, ldb, bs, mode, vec, int(layout == "transposed"))
     generated = code.op == GENERATED
-    if generated:
-        rc = build.merge_function(code, "merge_join")(
-            *args, build.stream_ptr(a))
-    else:
-        rc = build.function("merge_join_launch")(
-            *args, code.op, *code.coeffs, build.stream_ptr(a))
+    with torch.cuda.device(dev):       # the operands' card, not the current
+        if generated:
+            rc = build.merge_function(code, "merge_join")(
+                *args, build.stream_ptr(a))
+        else:
+            rc = build.function("merge_join_launch")(
+                *args, code.op, *code.coeffs, build.stream_ptr(a))
     build.check(rc, "merge_join")
     build.count_launch("merge_join", generated=generated)
     return out

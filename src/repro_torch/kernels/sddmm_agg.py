@@ -71,7 +71,9 @@ def sddmm_agg_cuda(sp: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
     count stays on the card, so nothing here waits on it. Each unit is
     summed whole by one CTA in a fixed order, so the same inputs give the
     same bits on every launch. It has no launch parameter: ``tiles`` must
-    be None or empty."""
+    be None or empty. It launches on the operands' card, whichever is
+    current (the pool and its shared-memory opt-in are set once a
+    card)."""
     checked_tiles("sddmm_agg", tiles, (), {})
     if dim not in DIMS:
         raise ValueError(f"dim {dim!r} not in {DIMS}")
@@ -108,11 +110,12 @@ def sddmm_agg_cuda(sp: torch.Tensor, w: torch.Tensor, h: torch.Tensor,
     out = torch.empty(shape, dtype=sp.dtype, device=dev)
     units = torch.empty(um * un + 1, dtype=torch.int32, device=dev)
     mask = out_block_mask.contiguous()
-    rc = build.function("sddmm_agg_launch")(
-        _VALUE_CODES[sp.dtype], sp.data_ptr(), w.data_ptr(), h.data_ptr(),
-        mask.data_ptr(), units.data_ptr(), part.data_ptr(), out.data_ptr(),
-        m, n, k, *sp.stride(), *w.stride(), *h.stride(), bs,
-        DIMS.index(dim), build.stream_ptr(sp))
+    with torch.cuda.device(dev):       # the operands' card, not the current
+        rc = build.function("sddmm_agg_launch")(
+            _VALUE_CODES[sp.dtype], sp.data_ptr(), w.data_ptr(),
+            h.data_ptr(), mask.data_ptr(), units.data_ptr(), part.data_ptr(),
+            out.data_ptr(), m, n, k, *sp.stride(), *w.stride(), *h.stride(),
+            bs, DIMS.index(dim), build.stream_ptr(sp))
     build.check(rc, "sddmm_agg")
     build.count_launch("sddmm_agg")
     return out

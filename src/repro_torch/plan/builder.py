@@ -32,6 +32,7 @@ from repro_torch.core.expr import (
     MatScalar, Select, Transpose, count_nodes,
 )
 from repro_torch.core.predicates import JoinKind
+from repro_torch.device import card_count
 from repro_torch.plan import ops as P
 
 # The SDDMM rewrite only pays when the gating side is block-sparse enough;
@@ -256,12 +257,14 @@ def build_plan(e: Expr, *, mode: str = "sparse", block_size: int = 256,
     skipped — strategy selection, hash-consing and the scheme DP (the
     inputs of the cost) still run, and nothing is ever staged.
     ``device`` is the session's device: it decides the kernel backend
-    each kernel node is annotated with.
+    each kernel node is annotated with, and ``n_workers`` (None: every
+    device it sees, ``device.card_count``).
     """
     from repro_torch.obs.trace import span
     assert mode in ("sparse", "dense")
     if n_workers is None:
-        n_workers = 1     # the JAX package's default is its device count
+        # the JAX package's default: every device the session sees
+        n_workers = card_count(device)
     b = _Builder(mode, block_size, use_bloom, kernel_backend, n_workers,
                  cost_only=cost_only, device=device)
     with span("lower", mode=mode, cost_only=cost_only):

@@ -83,7 +83,8 @@ class PlanExecutor:
     eager walk (the serving tier's degraded path: it never passes the
     staged-build fault seam). ``mesh`` (session-owned,
     ``core.partitioner.worker_mesh``) selects the SPMD staged paths for
-    multi-worker plans.
+    multi-worker plans: each worker's work runs on its device, and the
+    result is handed back on ``device``.
     """
 
     def __init__(self, env: Dict[str, BlockMatrix], device=None,
@@ -275,7 +276,8 @@ class PlanExecutor:
         leaf_vals = self._leaf_vals(leaf_names)
         self._bump("staged_spmd" if spmd else "staged")
         self._bump("node_evals", plan.n_nodes)
-        out = self._call_staged(fn, leaf_vals, "spmd" if spmd else "plain")
+        out = self._call_staged(fn, leaf_vals, "spmd" if spmd else "plain",
+                                mesh)
         if spmd:
             out = self._spmd_result(out)
         return dense_join_result(out, plan.block_size)
@@ -286,24 +288,29 @@ class PlanExecutor:
                 raise KeyError(f"unbound matrix {name!r}")
         return tuple(self.env[name].value for name in leaf_names)
 
-    def _call_staged(self, fn, leaf_vals, key: str):
+    def _call_staged(self, fn, leaf_vals, key: str, mesh=None):
         """Run one staged call, timing it into ``execute_s``. Traced runs
-        synchronize so span times mean finished device work."""
+        synchronize (every card of ``mesh`` too) so span times mean
+        finished device work."""
         traced = TRACER.active()
         with span("execute", path=f"staged-{key}"):
             t0 = time.perf_counter()
             out = fn(*leaf_vals)
             if traced:
-                _sync(out[0] if isinstance(out, tuple) else out)
+                _sync(out[0] if isinstance(out, tuple) else out, mesh)
             self.timings["execute_s"] += time.perf_counter() - t0
         return out
 
     def _spmd_result(self, out):
-        """Unpack an SPMD call's ``(value, info)`` into the stats."""
+        """Unpack an SPMD call's ``(value, info)`` into the stats. The
+        value leaves the mesh on worker 0's device and is handed back on
+        the executor's (a copy only where the two differ)."""
         value, info = out
         self._bump("collective_bytes", info["bytes"])
         self._bump("spmd_sharded_nodes", info["sharded"])
         self._bump("spmd_gathered_nodes", info["gathered"])
+        if isinstance(value, torch.Tensor):
+            value = value.to(self.device)
         return value
 
     # -- staged sparse path ---------------------------------------------------
@@ -341,7 +348,7 @@ class PlanExecutor:
             cache[key] = entry
         fn, leaf_names, skip_stats = entry
         out = self._call_staged(fn, self._leaf_vals(leaf_names),
-                                "sparse-spmd" if spmd else "sparse")
+                                "sparse-spmd" if spmd else "sparse", mesh)
         if spmd:
             out = self._spmd_result(out)
         root = plan.node(plan.root)
@@ -375,11 +382,16 @@ class PlanExecutor:
 _FALLBACK = object()  # sentinel: staged sparse declined; run the eager oracle
 
 
-def _sync(x) -> None:
-    """Wait for the device work behind ``x`` (traced runs only)."""
+def _sync(x, mesh=None) -> None:
+    """Wait for the device work behind ``x`` (traced runs only): on its
+    card, and on every card of ``mesh`` when it ran there."""
     v = getattr(x, "value", x)
-    if isinstance(v, torch.Tensor) and v.device.type == "cuda":
-        torch.cuda.synchronize(v.device)
+    devices = set(mesh.devices) if mesh is not None else set()
+    if isinstance(v, torch.Tensor):
+        devices.add(v.device)
+    for d in devices:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 # Bounds the per-plan staged-sparse cache: sessions alternating among a
@@ -674,6 +686,7 @@ def _stage_spmd(plan: P.PhysicalPlan, mesh, sparse: bool = False):
 
     bs = plan.block_size
     n = mesh.n
+    devices = mesh.devices
     leaf_names, arg_index = _leaf_index(plan)
     overlays = (JoinKind.DIRECT_OVERLAY, JoinKind.TRANSPOSE_OVERLAY)
 
@@ -693,10 +706,11 @@ def _stage_spmd(plan: P.PhysicalPlan, mesh, sparse: bool = False):
         return spmd.redistribute(w, None), spmd.redistribute(h, None)
 
     def gated(node, info, ops, one, needs_mask: bool):
-        """Run ``one(i, *worker i's operand shards)`` on every worker, or —
-        where the node reads a block mask and the split is off the block
-        edges — ``one(None, *whole operands)`` once on all-gathered
-        operands. Returns ``("shards", outputs)`` or ``("full", output)``."""
+        """Run ``one(i, *worker i's operand shards)`` on every worker (on
+        its device, where its shards are), or — where the node reads a
+        block mask and the split is off the block edges — ``one(None,
+        *whole operands)`` once on all-gathered operands, on worker 0's
+        device. Returns ``("shards", outputs)`` or ``("full", output)``."""
         if needs_mask and not ops[0].block_aligned(bs):
             full = [spmd.redistribute(o, None) for o in ops]
             info["gathered"] += 1
@@ -727,7 +741,7 @@ def _stage_spmd(plan: P.PhysicalPlan, mesh, sparse: bool = False):
                                   sl(mb), path, bs)
         kind, out = gated(node, info, (a, b), one, path != "merge")
         if kind == "full":
-            return spmd.split(out, None, n)
+            return spmd.split(out, None, devices)
         return spmd.Sharded(out, a.dim, a.bounds, a.shape)
 
     def masked(node, info, sp, w, h):
@@ -742,7 +756,7 @@ def _stage_spmd(plan: P.PhysicalPlan, mesh, sparse: bool = False):
         kind, out = gated(node, info, (sp, w, h), one,
                           not node.meta.get("demote_dense"))
         if kind == "full":
-            return spmd.split(out, None, n)
+            return spmd.split(out, None, devices)
         return spmd.Sharded(out, sp.dim, sp.bounds, sp.shape)
 
     def masked_agg(node, info, sp, w, h):
@@ -757,21 +771,22 @@ def _stage_spmd(plan: P.PhysicalPlan, mesh, sparse: bool = False):
         kind, out = gated(node, info, (sp, w, h), one,
                           not node.meta.get("demote_dense"))
         if kind == "full":
-            return spmd.split(out, None, n)
+            return spmd.split(out, None, devices)
         if sp.dim is None:
             return spmd.replicated(out)
         e: Agg = node.expr
         keep = {AggDim.ROW: 0, AggDim.COL: 1}.get(e.dim)
         parts = [p for p in out if p is not None]
         if keep == sp.dim:
-            return spmd.reduce(parts, lambda p: torch.cat(p, dim=keep), n)
+            return spmd.reduce(parts, lambda p: torch.cat(p, dim=keep),
+                               devices)
 
         def total(p):
             acc = p[0]
             for x in p[1:]:
                 acc = acc + x
             return acc
-        return spmd.reduce(parts, total, n)
+        return spmd.reduce(parts, total, devices)
 
     def node_value(node, ch, leaf_vals, info):
         k = node.kind
@@ -782,7 +797,7 @@ def _stage_spmd(plan: P.PhysicalPlan, mesh, sparse: bool = False):
             else:
                 t = torch.ones(e.shape, dtype=torch.float32,
                                device=mesh.device)
-            return spmd.place(t, node.scheme, n)
+            return spmd.place(t, node.scheme, devices)
         if k == P.TRANSPOSE:
             return spmd.transpose(ch[0])
         if k == P.MATSCALAR:
@@ -814,7 +829,7 @@ def _stage_spmd(plan: P.PhysicalPlan, mesh, sparse: bool = False):
                 return overlay_sparse(node, info, ch[0], ch[1])
             # COO outputs have no matrix consumers (the builder un-stages
             # any such plan), so this is the root: one device-tier join on
-            # the whole operands, gathered to worker 0
+            # the whole operands, gathered to worker 0's device
             assert node.op_id == plan.root
             return _coo_join_value(node, spmd.gather(ch[0]),
                                    spmd.gather(ch[1]))

@@ -465,7 +465,7 @@ class ServeEngine:
                 key=key, env=env,
                 shared=buildermod.SharedBuildState(
                     mode=s.mode, block_size=s.block_size,
-                    use_bloom=s.use_bloom, n_workers=s.n_workers or 1,
+                    use_bloom=s.use_bloom, n_workers=s.workers,
                     device=s.device),
                 leaves=masksmod.Leaves(env, s.block_size),
                 opt_cache=VersionedLRU(self._opt_entries),
@@ -724,7 +724,7 @@ class ServeEngine:
                     plan = state.plans.get_or_create(
                         opt.plan, lambda: buildermod.build_plan(
                             opt.plan, mode=s.mode, block_size=s.block_size,
-                            use_bloom=s.use_bloom, n_workers=s.n_workers,
+                            use_bloom=s.use_bloom, n_workers=s.workers,
                             device=s.device),
                         tenant=ticket.tenant)
                     return buildermod.SharedLowering(

@@ -217,7 +217,7 @@ def test_v2v_join_with_nan_on_the_card_matches_cpu(cuda):
         for merge in (product_merge(), sum_merge()):
             got = {}
             for dev in ("cpu", "cuda"):
-                s = Session(block_size=16, device=dev)
+                s = Session(block_size=16, device=dev, n_workers=1)
                 build.reset_launches()
                 got[dev] = s.load(a, "A").join(s.load(b, "B"), "VAL=VAL",
                                                merge).collect()
@@ -509,7 +509,7 @@ def test_session_on_the_card_launches_the_kernels_and_matches_cpu(cuda):
     mul = product_merge()
     results = {}
     for dev in ("cpu", "cuda"):
-        s = Session(block_size=bs, device=dev)
+        s = Session(block_size=bs, device=dev, n_workers=1)
         m = {k: s.load(v, k) for k, v in
              {"Ao": ao, "Bo": bo, "A": a, "B": b}.items()}
         build.reset_launches()
@@ -915,7 +915,7 @@ def test_pnmf_queries_on_the_card_launch_the_kernels_and_match_cpu(cuda):
     h = np.abs(rng.normal(size=(k, n))).astype(np.float32)
     results = {}
     for dev in ("cpu", "cuda"):
-        s = Session(block_size=bs, device=dev)
+        s = Session(block_size=bs, device=dev, n_workers=1)
         A, W, H = s.load(ap, "Ap"), s.load(w, "W"), s.load(h, "H")
         build.reset_launches()
         results[dev] = [A.ediv(W.multiply(H)).multiply(H.t()).collect()] + [
@@ -986,7 +986,7 @@ def test_unsupported_merges_leave_the_card_serving(cuda, monkeypatch):
     def branch(x, y):   # a Python branch on a value: refused (inducing
         return x * y if x > 0 else -x * y   # on both sides, as x*y is)
 
-    s = Session(block_size=64, device="cuda")
+    s = Session(block_size=64, device="cuda", n_workers=1)
     A, B = s.load(a, "A"), s.load(b, "B")
     before = build.LAUNCHES["merge_join"]
     with ServeEngine(s, cse=False, n_threads=1, retry_backoff_s=0.0) as eng:
@@ -1016,7 +1016,7 @@ def test_serving_engine_on_the_card_matches_the_cpu(cuda):
     results, stats = {}, {}
     for dev in ("cpu", "cuda"):
         rng = np.random.default_rng(0)
-        s = Session(block_size=8, device=dev)
+        s = Session(block_size=8, device=dev, n_workers=1)
         templates = wl.query_templates(wl.synthetic_catalog(s, rng, n=48))
         with ServeEngine(s, cse=True, n_threads=2) as eng:
             tickets = [(name, eng.submit(expr)) for name, expr in templates]
@@ -1068,8 +1068,8 @@ def test_four_workers_launch_each_kernel_once_a_worker_on_the_card(cuda):
             "sddmm_agg c": mats["Ap"].emul(wh).sum("c"),
             "sddmm_agg a": mats["Ap"].emul(wh).sum("a"),
         }
-    one = {k: q.collect().value for k, q in
-           queries(Session(block_size=bs, device=cuda)).items()}
+    one = {k: q.collect().value for k, q in queries(
+        Session(block_size=bs, device=cuda, n_workers=1)).items()}
     s4 = Session(block_size=bs, device=cuda, n_workers=4)
     # a matrix of another session on the card loads as is ("cuda" names
     # the current card, "cuda:0" its index)
@@ -1088,6 +1088,244 @@ def test_four_workers_launch_each_kernel_once_a_worker_on_the_card(cuda):
             assert torch.equal(got, one[name]), name
         else:
             torch.testing.assert_close(got, one[name], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Several cards: every kernel launches on its operands' card whichever card
+# is current, and a mesh puts one worker on each card. The fixture skips
+# below two cards.
+# ---------------------------------------------------------------------------
+
+SUM_RTOL = 1e-4           # chip_smoke.py's: sums in another order
+
+
+@pytest.fixture
+def cards():
+    """Every visible card; skips below two (decided here, never at
+    import)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (the path across cards)")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def _kernel_case(name, dev):
+    """``(cuda wrapper, plain version, args, kwargs, tolerance)`` of one
+    call of kernel ``name`` on ``dev``, at shapes whose launches need the
+    card's shared-memory opt-in (``masked_matmul`` at kc 64, the Bloom
+    probe's shared path, ``coo_expand``'s instances); tolerance None is
+    bit for bit."""
+    rng = np.random.default_rng(17)
+    shape, bs = (1024, 768), 128
+    if name == "merge_join":
+        a, b = (torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                                device=dev) for _ in range(2))
+        masks = [_mask(rng, shape, bs, 0.6, dev) for _ in range(2)]
+        return (merge_join_cuda, merge_join_plain, (a, b, *masks),
+                dict(merge=MERGES["affine"], mode=MODE_BOTH, block_size=bs),
+                None)
+    if name == "masked_matmul":
+        a, b = _mm_operands(rng, shape[0], 32, shape[1], dev)
+        return (masked_matmul_cuda, masked_matmul_plain,
+                (a, b, _mask(rng, shape, bs, 0.4, dev)),
+                dict(block_size=bs, tiles={"kc": 64}), MM_TOL[torch.float32])
+    if name == "sddmm_agg":
+        return (sddmm_agg_cuda, sddmm_agg_plain,
+                _agg_inputs(rng, shape, 32, bs, 0.4, torch.float32, dev),
+                dict(dim="row", block_size=bs), AGG_TOL[torch.float32])
+    if name == "coo_expand":
+        ins, cap, _ = _expand_inputs(rng, 3000, 2000, 2, 0.5, torch.float32,
+                                     torch.int32, cap_extra=37)
+        tol = TOL[torch.float32]
+        return (coo_expand_cuda, coo_expand_plain, [x.to(dev) for x in ins],
+                dict(merge=MERGES["mul"], cap=cap), dict(atol=tol, rtol=tol))
+    words, vals, _ = _bloom_case(rng, Q5_N, 20, 3, device=dev)
+    return (bloom_probe_cuda, bloom_probe_plain, (words, vals),
+            dict(num_hashes=3, log2_bits=20), None)
+
+
+def _same(got, want, tol):
+    if isinstance(got, tuple):
+        for g, w in zip(got, want):
+            _same(g, w, tol)
+    elif tol is None or not got.is_floating_point():
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want.to(got.dtype), **tol)
+
+
+@pytest.fixture
+def launch_cards(monkeypatch):
+    """``(operand card, current card)`` at every kernel launch: a wrapper
+    takes its stream inside its device guard, just before the launch."""
+    seen = []
+    stream_ptr = build.stream_ptr
+
+    def spy(t):
+        seen.append((t.get_device(), torch.cuda.current_device()))
+        return stream_ptr(t)
+    monkeypatch.setattr(build, "stream_ptr", spy)
+    return seen
+
+
+@pytest.mark.parametrize("name", sorted(build.LAUNCHES))
+def test_each_kernel_launches_on_its_operands_card(cards, launch_cards,
+                                                   name):
+    """With card 0 current, each kernel on every other card's operands
+    (the last card first, so its one-time setup — pool, shared-memory
+    opt-in — is made there before card 0's) equals its plain version
+    there, launches on that card and leaves card 0 current; then on card
+    0. Every card is synchronized first, so a fault on any shows."""
+    with torch.cuda.device(0):
+        for dev in cards[::-1]:
+            fn, plain, args, kw, tol = _kernel_case(name, dev)
+            launch_cards.clear()
+            before = build.LAUNCHES[name]
+            got = fn(*args, **kw)
+            assert torch.cuda.current_device() == 0
+            for card in cards:
+                torch.cuda.synchronize(card)
+            for t in (got if isinstance(got, tuple) else (got,)):
+                assert t.device == dev
+            _same(got, plain(*args, **kw), tol)
+            assert build.LAUNCHES[name] == before + 1
+            assert launch_cards == [(dev.index, dev.index)], launch_cards
+
+
+def _mesh_arrays(rng, m, bs):
+    """The main path's kernel queries' catalog at a small size: Q3's
+    block-sparse overlay operands, Q5's integer values, Q7–Q10's Ap, W,
+    H (chip_smoke.py's make_data, cut to m²)."""
+    g = m // bs
+
+    def blocky(live, d):
+        keep = np.kron(rng.uniform(size=(g, g)) < live, np.ones((bs, bs)))
+        v = np.where(rng.uniform(size=(m, m)) < d, rng.normal(size=(m, m)),
+                     0)
+        return (v * keep).astype(np.float32)
+
+    def ints():
+        keep = rng.uniform(size=(m, m)) < 0.01
+        return np.where(keep, rng.integers(1, m + 1, (m, m)),
+                        0).astype(np.float32)
+    return {"Ao": blocky(0.8, 0.1), "Bo": blocky(0.9, 0.1),
+            "Aq": ints(), "Bq": ints(), "Ap": np.abs(blocky(0.3, 0.1)),
+            "W": np.abs(rng.normal(size=(m, 16))).astype(np.float32),
+            "H": np.abs(rng.normal(size=(16, m))).astype(np.float32)}
+
+
+def _mesh_queries(s, arrays):
+    from repro_torch.core.sparsity import product_merge
+    mats = {n: s.load(v, n) for n, v in arrays.items()}
+    mul = product_merge()
+    wh = mats["W"].multiply(mats["H"])
+    out = {"Q3": mats["Ao"].join(mats["Bo"], "RID=RID AND CID=CID", mul),
+           "Q5": mats["Aq"].join(mats["Bq"], "VAL=VAL", mul),
+           "Q7": mats["Ap"].ediv(wh).multiply(mats["H"].t())}
+    for qn, dim in (("Q8", "r"), ("Q9", "c"), ("Q10", "a")):
+        out[qn] = mats["Ap"].emul(wh).sum(dim)
+    return out
+
+
+def _dense_pipeline(s, x, y):
+    """``benchmarks/bench_dist_comm.py``'s ((σ(XᵀX) ⋈ Y) ⋈ Y) ⋈ Y."""
+    from repro_torch.core.expr import MergeFn
+    xm, ym = s.load(x, "X"), s.load(y, "Y")
+    k = y.shape[0]
+    add = MergeFn("dist_add", lambda a, b: a + b)
+    mul = MergeFn("dist_mul", lambda a, b: a * b)
+    return (xm.t().multiply(xm).select(f"RID>=0 AND RID<={k - 1}")
+            .join(ym, "RID=RID AND CID=CID", add)
+            .join(ym, "RID=RID AND CID=CID", mul)
+            .join(ym, "RID=CID AND CID=RID", add))
+
+
+def _counted(q):
+    """The collective bytes of one more run of ``q`` on its session's
+    mesh."""
+    from repro_torch.plan import PlanExecutor
+    s = q.session
+    ex = PlanExecutor(s.env, device=s.device, mesh=s.mesh)
+    ex.run(q.physical_plan())
+    for d in set(s.mesh.devices):
+        torch.cuda.synchronize(d)
+    return ex.stats["collective_bytes"]
+
+
+def test_mesh_across_cards_matches_the_one_card_mesh(cards, launch_cards,
+                                                     monkeypatch):
+    """Q3, Q5, Q7–Q10 and the dense pipeline on min(4, cards) workers, one
+    a card, against the same worker count on card 0 alone: the overlay
+    and the V2V join exactly, products and sums within ``SUM_RTOL``; the
+    counted collective bytes equal (and the dense pipeline's equal the
+    scheme pass's prediction); every shard of every value on its
+    worker's card; the gated kernels launch once a worker, each on its
+    worker's card, and Q5's COO join on worker 0's."""
+    from repro_torch.core import Session, spmd
+    from repro_torch.plan.schemes import ENTRY_BYTES
+    w = min(4, len(cards))
+    rng = np.random.default_rng(23)
+    arrays = _mesh_arrays(rng, 1024, 64)
+    x = rng.normal(size=(512, 256)).astype(np.float32)
+    y = rng.normal(size=(256, 256)).astype(np.float32)
+
+    def queries(one_card):
+        sparse = Session(block_size=64, device="cuda", n_workers=w)
+        dense = Session(block_size=64, device="cuda", n_workers=w,
+                        mode="dense")
+        with monkeypatch.context() as m:
+            if one_card:
+                m.setattr(torch.cuda, "device_count", lambda: 1)
+            for s in (sparse, dense):       # each mesh is built here, once
+                assert s.mesh.devices == (tuple(cards[:1]) * w if one_card
+                                          else tuple(cards[:w]))
+        out = _mesh_queries(sparse, arrays)
+        out["pipeline"] = _dense_pipeline(dense, x, y)
+        return out
+    mine = queries(False)
+    theirs = queries(True)
+    want = {qn: q.collect() for qn, q in theirs.items()}
+    gated = {"Q3": "merge_join", "Q7": "masked_matmul", "Q8": "sddmm_agg",
+             "Q9": "sddmm_agg", "Q10": "sddmm_agg"}
+
+    log = []
+    init = spmd.Sharded.__init__
+
+    def record(self, *args, **kw):
+        init(self, *args, **kw)
+        log.append(self)
+    monkeypatch.setattr(spmd.Sharded, "__init__", record)
+    for qn, q in mine.items():
+        q.physical_plan()                     # plan outside the count
+        log.clear()
+        launch_cards.clear()
+        build.reset_launches()
+        got = q.collect()
+        launches = {k: v for k, v in build.LAUNCHES.items() if v}
+        assert log and all(sh.devices == q.session.mesh.devices
+                           for sh in log), qn
+        if qn in gated:
+            assert launches == {gated[qn]: w}, (qn, launches)
+            assert sorted(launch_cards) == [(d.index, d.index)
+                                            for d in cards[:w]], qn
+        elif qn == "Q5":
+            assert set(launches) == {"coo_expand", "bloom_probe"}, launches
+            assert set(launch_cards) == {(0, 0)}, launch_cards
+        else:
+            assert not launches, launches
+        if qn == "Q5":
+            ga, wa = (np.lexsort(r.idx.T[::-1]) for r in (got, want[qn]))
+            assert np.array_equal(got.idx[ga], want[qn].idx[wa])
+            assert np.array_equal(got.val[ga], want[qn].val[wa])
+        elif qn == "Q3":
+            assert torch.equal(got.value, want[qn].value)
+        else:
+            assert got.value.device == want[qn].value.device
+            torch.testing.assert_close(got.value, want[qn].value,
+                                       rtol=SUM_RTOL, atol=1e-5)
+        counted = _counted(q)
+        assert counted == _counted(theirs[qn]), qn
+        if qn == "pipeline":
+            assert counted == q.physical_plan().total_comm_est * ENTRY_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -1688,7 +1926,7 @@ def test_general_merges_through_the_session_on_the_card(cuda):
         x > 0, torch.where(x < 10, x + y, 0.0), 0.0))
     out = {}
     for dev in ("cpu", "cuda"):
-        s = Session(block_size=bs, device=dev)
+        s = Session(block_size=bs, device=dev, n_workers=1)
         A, B = s.load(a, "A"), s.load(b, "B")
         build.reset_launches()
         out[dev] = (A.join(B, "RID=RID AND CID=CID", gated).collect(),
@@ -1711,7 +1949,7 @@ def test_erf_join_through_the_session_equals_the_cpu(cuda):
     a, b = _sparse_pair(10, n, bs)
     out = {}
     for dev in ("cpu", "cuda"):
-        s = Session(block_size=bs, device=dev)
+        s = Session(block_size=bs, device=dev, n_workers=1)
         A, B = s.load(a, "A"), s.load(b, "B")
         build.reset_launches()
         out[dev] = A.join(B, "RID=RID AND CID=CID",
@@ -1747,7 +1985,7 @@ def test_bfloat16_overlay_through_the_session_skips_dead_tiles(
     monkeypatch.setitem(spec.impls, registry.CUDA, recording)
     out = {}
     for dev in ("cpu", "cuda"):
-        s = Session(block_size=bs, device=dev)
+        s = Session(block_size=bs, device=dev, n_workers=1)
         A, B = s.load(a, "A"), s.load(b, "B")
         build.reset_launches()
         out[dev] = A.join(B, "RID=RID AND CID=CID", merge).collect()
