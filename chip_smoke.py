@@ -110,7 +110,8 @@ on and the cards each kernel launched on; a gated kernel launches once a
 worker, on that worker's card. Every other session of the script has one
 worker (``n_workers=1``), so the script measures the same thing on any
 number of cards. ``--mesh-only`` makes the data and runs this phase
-alone (no kernel phases, no last line): a run across four cards.
+and then the LM mesh phase alone (no kernel phases, no kernel JSON):
+a run across four cards, its last line the ``{"ok": true, ...}`` one.
 
 The serving phase comes last. Q1–Q10 go three times each through one
 ``ServeEngine`` (cross-query CSE, two worker threads, one ticket a batch);
@@ -161,6 +162,23 @@ block-program period deep (jamba 8 layers, whisper 1+1), batch 2, prompt
 32 and 4 decodes each held to the forward pass; each cut is printed (MoE
 capacity raised to drop-free, bf16 parameter storage where one period's
 f32 parameters pass 40 GB).
+
+The LM mesh phase (``lm mesh`` lines) serves the same qwen3-1.7b on a
+device mesh, one process a card (``torch.multiprocessing`` spawn, NCCL;
+``launch.mesh.make_device_mesh``, the parameters ``distribute``d in the
+JAX package's placements, ``serve.step`` under
+``sharding.ctx.use_sharding``), rank 0 printing: a 1x1 mesh on one
+card; (2,2), (1,4), (4,1) and batch 1 on (4,1) (the KV cache cut along
+the sequence) on four (``--mesh-only``, and four gloo ranks on the CPU
+rehearsal). Parameters are drawn once on the host from the seed. Each
+line, in f32: the greedy tokens equal the same model's with no mesh,
+prefill's logits and each decode's (against the forward pass at the
+same positions) within rel 1e-4 of the largest logit, and each card's
+resident bytes (the local shards of parameters and caches) equal to the
+dry run's ``argument_bytes`` less its inputs; the collectives of the
+prefill and of one decode step by kind (``CommDebugMode``); then the
+config's own bf16 compute timed (prefill ms, decode ms a token) and
+``max_memory_allocated`` a card. A failing rank exits the run non-zero.
 
 The training phase comes last (``repro_torch.train``, ``optim``,
 ``checkpoint``, ``data.pipeline`` and the training launcher's
@@ -296,6 +314,12 @@ LM_PARAM_LIMIT = 40e9          # bytes of f32 parameters before bf16 storage
 LM_BF16_TOL = 2e-2             # tests/test_decode_equiv.py:53
 LM_F32_TOL = 5e-5              # tests/test_decode_equiv.py:53
 LM_CARD_CPU_TOL = 1e-4         # the port's f32 parity tolerance
+# the LM mesh phase: (mesh (data, model), batch) on four cards; batch 1 on
+# (4, 1) cuts the KV cache along the sequence. f32 logits sharded against
+# unsharded within LM_MESH_RTOL of the largest |logit| (the mesh cuts the
+# reductions differently)
+LM_MESH_RUNS = (((2, 2), 4), ((1, 4), 4), ((4, 1), 4), ((4, 1), 1))
+LM_MESH_RTOL = 1e-4
 # The training phase: the corpus (vocab, seq, batch, docs, doc length) and
 # qwen3-1.7b's full config for TRAIN_STEPS steps on one packed batch; the
 # A/B's of loss_chunk and of the blocks' unbind take TRAIN_AB_STEPS each
@@ -2684,6 +2708,275 @@ def lm_phase(device, seed, small, card):
 
 
 # ---------------------------------------------------------------------------
+# The LM mesh phase: the serving program sharded one rank a card.
+# ---------------------------------------------------------------------------
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _local_bytes(tree) -> int:
+    from repro_torch.models.module import tree_items
+    return sum(t.to_local().nbytes for _, t in tree_items(tree))
+
+
+def _comm_kinds(mode) -> str:
+    counts = {str(k).split(".")[-1]: v
+              for k, v in mode.get_comm_counts().items() if v}
+    return ", ".join(f"{k} {v}" for k, v in sorted(counts.items())) \
+        or "none"
+
+
+def _lm_mesh_reference(params, cfg, prompt, n_new, max_seq):
+    """The unsharded run: prefill's last logits and the greedy tokens."""
+    from repro_torch.serve.step import compiled_prefill, generate
+    logits, _ = compiled_prefill(cfg, max_seq)(params, {"tokens": prompt})
+    return logits[:, -1].float(), generate(params, cfg, prompt, n_new,
+                                           max_seq)
+
+
+def _mesh_sync(on_card):
+    import torch.distributed as dist
+    _sync(on_card)
+    dist.barrier()
+
+
+def _lm_mesh_serve(params, cfg, prompt, n_new, max_seq):
+    """Prefill and ``n_new - 1`` donating greedy decodes under the installed
+    mesh: (prefill's last logits whole, tokens whole, each decode's logits
+    whole, the caches, collectives of the prefill and of the first decode
+    step by kind)."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.serve.step import (compiled_decode, compiled_prefill,
+                                        first_position)
+    decode = compiled_decode(cfg, donate=True)
+    with CommDebugMode() as comm_p:
+        logits, caches = compiled_prefill(cfg, max_seq)(
+            params, {"tokens": prompt})
+    tok = torch.argmax(logits[:, -1].full_tensor(), dim=-1).to(
+        torch.int32)[:, None]
+    toks, steps = [tok], []
+    pos0 = first_position(cfg, prompt.shape[1])
+    comm_d = CommDebugMode()
+    for i in range(n_new - 1):
+        with comm_d if i == 0 else contextlib.nullcontext():
+            lg, tok, caches = decode(params, caches, tok, pos0 + i)
+        steps.append(lg[:, 0].full_tensor().float())
+        toks.append(tok.full_tensor())
+    return (logits[:, -1].full_tensor().float(), torch.cat(toks, dim=1),
+            steps, caches, _comm_kinds(comm_p), _comm_kinds(comm_d))
+
+
+def _lm_mesh_time(params, cfg, prompt, n_new, max_seq, on_card):
+    """The serving steps timed under the installed mesh, nothing else in
+    the clocks (read after a synchronize and a barrier of every rank): a
+    warm prefill, the prefill timed, ``n_new - 1`` greedy decodes timed;
+    then ``LM_PROFILE_STEPS`` decodes under torch.profiler (CUDA activity)
+    after a fresh prefill. Returns (prefill ms, decode ms a token, device
+    ms a decode step, of it NCCL kernels' ms, profiled wall ms a step);
+    the last three None on the CPU."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.step import (compiled_decode, compiled_prefill,
+                                        first_position)
+    prefill = compiled_prefill(cfg, max_seq)
+    decode = compiled_decode(cfg, donate=True)
+    pos0 = first_position(cfg, prompt.shape[1])
+
+    def first():
+        logits, caches = prefill(params, {"tokens": prompt})
+        return torch.argmax(logits[:, -1].full_tensor(), dim=-1).to(
+            torch.int32)[:, None], caches
+
+    first()
+    _mesh_sync(on_card)
+    t0 = time.perf_counter()
+    tok, caches = first()
+    _mesh_sync(on_card)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for i in range(n_new - 1):
+        _, tok, caches = decode(params, caches, tok, pos0 + i)
+    _mesh_sync(on_card)
+    decode_ms = (time.perf_counter() - t0) * 1e3 / max(1, n_new - 1)
+    if not on_card:
+        return prefill_ms, decode_ms, None, None, None
+    tok, caches = first()
+    _mesh_sync(on_card)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(LM_PROFILE_STEPS):
+            _, tok, caches = decode(params, caches, tok, pos0 + i)
+        _mesh_sync(on_card)
+    wall = (time.perf_counter() - t0) * 1e3 / LM_PROFILE_STEPS
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    nccl = sum(e.self_device_time_total for e in dev
+               if "nccl" in e.key.lower()) / 1e3
+    return (prefill_ms, decode_ms, busy / LM_PROFILE_STEPS,
+            nccl / LM_PROFILE_STEPS, wall)
+
+
+def _lm_mesh_runs(rank, device, seed, small, card, runs):
+    """Every (mesh, batch) of ``runs`` on this rank; rank 0 returns the
+    lines. Parameters are drawn once on the host from the seed (the same
+    values on every rank) and distributed onto each mesh; rank 0 also
+    runs them with no mesh, the reference."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import default_rules, make_device_mesh
+    from repro_torch.launch.serve import lm_inputs
+    from repro_torch.models import api as mapi
+    from repro_torch.models.module import (distribute, init_params,
+                                           shardings, tree_map)
+    from repro_torch.sharding.ctx import use_sharding
+    from repro_torch.sharding.partition import Mesh
+    from repro_torch.sharding.specs import pin_inputs
+    on_card = device == "cuda"
+    dev = torch.device("cuda", rank) if on_card else torch.device("cpu")
+    full = get_config(LM_ARCH)
+    b, s, n_new = LM_SERVE if not small else (4, 16, 8)
+    cfg16 = reduced(full) if small else full
+    cfg32 = dataclasses.replace(cfg16, compute_dtype=torch.float32)
+    max_seq = s + n_new
+    spec = mapi.spec(cfg32)
+    t0 = time.perf_counter()
+    host = init_params(spec, torch.Generator("cpu").manual_seed(seed + 31),
+                       "cpu")
+    t_init = time.perf_counter() - t0
+    prompt = lm_inputs(cfg32, b, s, seed + 31, dev)["tokens"]
+    want = {}
+    if rank == 0:
+        ref = tree_map(lambda t: t.to(dev), host)
+        for bb in sorted({bb for _, bb in runs}):
+            want[bb] = _lm_mesh_reference(ref, cfg32, prompt[:bb], n_new,
+                                          max_seq)
+        del ref
+    lines = []
+    for shape, bb in runs:
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        base = _peak_from_here(on_card)
+        mesh = make_device_mesh(shape, ("data", "model"), device)
+        rules = default_rules(mesh)
+        params = distribute(host, shardings(spec, mesh, rules))
+        with use_sharding(mesh, rules):
+            pre, toks, steps, caches, comm_p, comm_d = _lm_mesh_serve(
+                params, cfg32, prompt[:bb], n_new, max_seq)
+            resident = _local_bytes(params) + _local_bytes(caches)
+            del caches
+            fwd_in = torch.cat([prompt[:bb], toks[:, :-1].to(dev)], dim=1)
+            fwd, _ = mapi.forward(params, cfg32,
+                                  pin_inputs({"tokens": fwd_in}))
+            fwd = fwd.full_tensor()
+            worst = max(_lm_rel(lg, fwd[:, s + i])
+                        for i, lg in enumerate(steps))
+            del fwd, steps
+            prefill_ms, decode_ms, busy, nccl, wall = _lm_mesh_time(
+                params, cfg16, prompt[:bb], n_new, max_seq, on_card)
+        peak = (torch.cuda.max_memory_allocated() - base) if on_card else 0
+        per_rank = [None] * dist.get_world_size()
+        dist.all_gather_object(per_rank, (resident, peak))
+        cell = ShapeConfig("lm_mesh", max_seq, bb, "decode")
+        abstract = Mesh(shape, ("data", "model"))
+        a_rules = default_rules(abstract)
+        predicted = (dryrun.argument_bytes(cfg32, cell, abstract, a_rules)
+                     - dryrun.input_bytes(cfg32, cell, abstract, a_rules))
+        del params
+        if rank:
+            continue
+        w_pre, w_toks = want[bb]
+        rel = _lm_rel(pre, w_pre)
+        tag = f"lm mesh {shape[0]}x{shape[1]} (data x model) batch {bb}"
+        assert torch.equal(toks.cpu(), w_toks.cpu()), \
+            f"{tag}: greedy tokens differ from the unsharded run's"
+        assert rel < LM_MESH_RTOL, f"{tag}: prefill rel err {rel:.3e}"
+        assert worst < LM_MESH_RTOL, f"{tag}: decode vs forward {worst:.3e}"
+        assert all(r == predicted for r, _ in per_rank), \
+            f"{tag}: resident bytes {[r for r, _ in per_rank]} != " \
+            f"dry run {predicted}"
+        lines.append(
+            f"{tag}{' (KV cache cut along the sequence)' if bb == 1 and shape[0] > 1 else ''}: "
+            f"{cfg32.arch_id} {cfg32.n_layers} layers, d {cfg32.d_model}, "
+            f"vocab {cfg32.vocab_size}, prompt {s}, {n_new} new tokens "
+            f"(params drawn on the host in {t_init:.2f} s); f32: "
+            f"{toks.shape[1]} greedy tokens == unsharded "
+            f"{toks[0, :6].tolist()}..., prefill logits rel err {rel:.2e} "
+            f"and decode vs forward {worst:.2e} (limit "
+            f"{LM_MESH_RTOL:.0e}); resident bytes per card "
+            f"{[r for r, _ in per_rank]} == dry run argument_bytes - "
+            f"inputs {predicted}; collectives (CommDebugMode): prefill "
+            f"[{comm_p}], decode step [{comm_d}]; bf16 compute: prefill "
+            f"{prefill_ms:.3f} ms, decode {decode_ms:.4f} ms/token"
+            + ("" if busy is None else
+               f" (torch.profiler, {LM_PROFILE_STEPS} steps: device "
+               f"{busy:.3f} ms a step, {nccl:.3f} of it NCCL kernels, "
+               f"{100 * busy / wall:.1f}% of the {wall:.3f} ms profiled "
+               "wall)") + "; "
+            f"max_memory_allocated per card above the start "
+            f"{[round(p / 2**30, 3) for _, p in per_rank]} GiB [{card}]")
+    return lines
+
+
+def _lm_mesh_rank(rank, world, init, device, seed, small, card, runs, out):
+    import torch
+    import torch.distributed as dist
+    kw = {}
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        kw["device_id"] = torch.device("cuda", rank)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=init, rank=rank, world_size=world,
+                            **kw)
+    try:
+        lines = _lm_mesh_runs(rank, device, seed, small, card, runs)
+        if rank == 0:
+            Path(out).write_text(json.dumps(lines))
+    finally:
+        dist.destroy_process_group()
+
+
+def lm_mesh_phase(device, seed, small, card):
+    """qwen3-1.7b's serving program (``serve.step``) on a device mesh, one
+    process a card (``torch.multiprocessing``, spawn; NCCL, or gloo on the
+    CPU rehearsal), the JAX package's placements for every parameter,
+    cache and pinned activation. On four cards (and the CPU rehearsal's
+    four ranks) the meshes of ``LM_MESH_RUNS``, else a 1x1 mesh on one
+    card. Each run, in f32: the greedy tokens equal the unsharded run's,
+    prefill's logits and each decode's (held to the forward pass at the
+    same positions) within ``LM_MESH_RTOL``, and each card's resident
+    bytes (the local shards of parameters and caches) equal to the dry
+    run's ``argument_bytes`` less the inputs; then the config's own bf16
+    compute, timed. A failing rank raises here. Returns rank 0's lines."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as tmp
+    four = device == "cpu" or torch.cuda.device_count() >= 4
+    runs = LM_MESH_RUNS if four else (((1, 1), LM_SERVE[0]),)
+    world = math.prod(runs[0][0])
+    sys.stdout.flush()
+    with tempfile.TemporaryDirectory() as d:
+        out = str(Path(d) / "lines.json")
+        tmp.start_processes(
+            _lm_mesh_rank, nprocs=world, start_method="spawn",
+            args=(world, f"tcp://localhost:{_free_port()}", device, seed,
+                  small, card, runs, out))
+        return json.loads(Path(out).read_text())
+
+
+# ---------------------------------------------------------------------------
 # The training phase: the port's LM training path.
 # ---------------------------------------------------------------------------
 
@@ -3475,10 +3768,21 @@ def main(argv=None) -> int:
           f"{n}x{PNMF_K}, seed {args.seed}, {time.perf_counter() - t0:.2f} s "
           "(float64 numpy references included)")
     if args.mesh_only:
+        where = card if on_card else "CPU rehearsal"
         multi_worker_phase(s, data, ref, n, bs, args.device, args.seed,
-                           card if on_card else "CPU rehearsal")
+                           where)
+        del s, mats
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        print("\n".join(lm_mesh_phase(args.device, args.seed, args.small,
+                                      where)), flush=True)
         print(f"mesh-only run: done, {torch.cuda.device_count()} card(s) "
               "visible" if on_card else "mesh-only run: done on the CPU")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu" if on_card else "cpu",
+            "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
+            "count": torch.cuda.device_count()}}))
         return 0
 
     backend = "cuda" if on_card else "torch"
@@ -3519,6 +3823,8 @@ def main(argv=None) -> int:
         print(cf_phase(args.device, args.seed, True, rehearsal))
         print(demo_phase(args.device, rehearsal))
         print("\n".join(lm_phase(args.device, args.seed, True, rehearsal)))
+        print("\n".join(lm_mesh_phase(args.device, args.seed, True,
+                                      rehearsal)))
         print("\n".join(train_phase(args.device, args.seed, True,
                                     rehearsal)))
         print("\n".join(dryrun_phase(args.device, args.seed, True,
@@ -3590,6 +3896,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print("\n".join(lm_phase(args.device, args.seed, False, card)),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("\n".join(lm_mesh_phase(args.device, args.seed, False, card)),
           flush=True)
     gc.collect()
     torch.cuda.empty_cache()

@@ -13,9 +13,13 @@ other wrote):
 * async save: ``save`` copies every leaf to host memory before it returns,
   and a background thread writes the files, so the train loop blocks only
   for the copy and may update its tensors in place at once;
-* restore onto a device: the leaves are put on ``device``, the one-card
-  counterpart of the JAX package's re-shard onto a new mesh (a checkpoint
-  written from the card restores onto the CPU and back).
+* restore onto a device: the leaves are put on ``device`` (a checkpoint
+  written from the card restores onto the CPU and back), or with
+  ``shardings=`` re-sharded onto a device mesh, as the JAX package
+  restores onto a new mesh (an elastic restart): a tree saved from one
+  mesh restores onto another;
+* a tree of DTensors is saved whole: every rank gathers each leaf (a
+  collective, so every rank calls ``save``) and rank 0 writes.
 
 numpy has no bfloat16, so a bf16 leaf raises ``TypeError`` rather than be
 written in a form the JAX package could not read.
@@ -31,6 +35,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
@@ -63,8 +68,18 @@ def _unflatten_into(tree, flat: Dict[str, Any], prefix=()):
     return flat[key]
 
 
+def _is_dtensor(leaf) -> bool:
+    if not dist.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
+
+
 def _to_host(key: str, leaf) -> np.ndarray:
-    """A copy of ``leaf`` in host memory as a numpy array."""
+    """A copy of ``leaf`` in host memory as a numpy array (a DTensor
+    whole: every rank gathers it)."""
+    if _is_dtensor(leaf):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         if leaf.dtype == torch.bfloat16:
             raise TypeError(
@@ -83,7 +98,17 @@ class Checkpointer:
 
     # -- save ---------------------------------------------------------------
     def save(self, step: int, tree, blocking: bool = False) -> None:
-        host = {k: _to_host(k, v) for k, v in _flatten(tree).items()}
+        """Write ``tree`` as step ``step`` in the background (``blocking``:
+        return when it is written). A tree holding DTensors is gathered on
+        every rank and written by rank 0; with ``blocking`` every rank
+        then waits for the write (a barrier)."""
+        flat = _flatten(tree)
+        host = {k: _to_host(k, v) for k, v in flat.items()}
+        sharded = any(_is_dtensor(v) for v in flat.values())
+        if sharded and dist.get_rank() != 0:
+            if blocking:
+                dist.barrier()
+            return
         self.wait()
         t = threading.Thread(target=self._write, args=(step, host),
                              daemon=True)
@@ -91,6 +116,8 @@ class Checkpointer:
         self._thread = t
         if blocking:
             self.wait()
+            if sharded:
+                dist.barrier()
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -135,11 +162,17 @@ class Checkpointer:
         return sorted(out)
 
     def restore(self, tree_like, step: Optional[int] = None, device=None,
-                verify: bool = True):
+                verify: bool = True, shardings=None):
         """Restore into the structure of ``tree_like`` → (tree, step). With
         ``device`` the leaves are tensors there (``"cuda"`` raises without
-        a card); without it they are numpy arrays, as the JAX package
-        returns them without shardings."""
+        a card); with ``shardings`` (a ``NamedSharding`` a leaf over a
+        ``DeviceMesh``, as ``models.module.shardings`` gives) DTensors laid
+        out by them, whatever mesh wrote the checkpoint; with neither they
+        are numpy arrays, as the JAX package returns them without
+        shardings."""
+        if device is not None and shardings is not None:
+            raise ValueError("give device or shardings, not both: a "
+                             "sharding's mesh names the device")
         steps = self.available()
         if not steps:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -160,4 +193,8 @@ class Checkpointer:
             wanted = _flatten(tree_like)
             flat = {k: torch.from_numpy(a).to(dev) for k, a in flat.items()
                     if k in wanted}
-        return _unflatten_into(tree_like, flat), step
+        tree = _unflatten_into(tree_like, flat)
+        if shardings is not None:
+            from repro_torch.models.module import distribute, tree_map
+            tree = distribute(tree_map(torch.from_numpy, tree), shardings)
+        return tree, step

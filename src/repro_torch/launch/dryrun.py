@@ -142,12 +142,18 @@ def _cache_bytes(cfg, caches, mesh, rules) -> int:
                                                      caches), mesh)
 
 
+def input_bytes(cfg, shape, mesh, rules) -> int:
+    """Per-chip bytes of the step's inputs at ``mesh`` (cut on their
+    leading dim by the batch axes)."""
+    return _lead_bytes(input_specs(cfg, shape), mesh, rules)
+
+
 def argument_bytes(cfg, shape, mesh, rules) -> int:
     """Per-chip bytes of the step's arguments at ``mesh``: the parameters,
     for train AdamW's m and v (laid out as the parameters), its count and
     the state's step (replicated int32 scalars), the inputs, and for
     decode the caches."""
-    ins = _lead_bytes(input_specs(cfg, shape), mesh, rules)
+    ins = input_bytes(cfg, shape, mesh, rules)
     p_bytes = _param_bytes(cfg, mesh, rules)
     if shape.kind == "train":
         return 3 * p_bytes + 2 * 4 + ins

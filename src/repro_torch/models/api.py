@@ -10,6 +10,12 @@
 ``params_from_reference`` is a tree map. ``decode_step`` updates the
 caches in place and returns them. ``LanguageModel`` holds the same tree
 as ``nn.Parameter``s.
+
+Under a device mesh (``sharding.ctx.use_sharding`` over a ``DeviceMesh``)
+the parameters, inputs and caches are DTensors and the three entry points
+run the JAX package's sharded program for the families in
+``MESH_FAMILIES``; any other family raises ``NotImplementedError`` before
+it touches a tensor.
 """
 from __future__ import annotations
 
@@ -29,6 +35,8 @@ from repro_torch.models.layers import apply_norm
 from repro_torch.models.module import (
     ParamSpec, init_params, tree_items, tree_map, tree_unbind,
 )
+from repro_torch.sharding.ctx import device_mesh
+from repro_torch.sharding.specs import pin_caches
 
 
 def spec(cfg: ModelConfig) -> Dict:
@@ -40,8 +48,24 @@ def spec(cfg: ModelConfig) -> Dict:
                     tree)
 
 
+# the families whose blocks run on DTensors (dense attention and MLP:
+# qwen, command-r, stablelm, phi-3-vision's decoder, whisper's
+# encoder-decoder); MoE dispatch and the recurrent scans do not yet
+MESH_FAMILIES = ("dense", "vlm", "audio")
+
+
+def check_mesh_family(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` when a device mesh is installed and
+    ``cfg``'s family has no sharded program in the port."""
+    if device_mesh() is not None and cfg.family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the {cfg.family} family has no sharded program "
+            f"in the port; under a device mesh only {MESH_FAMILIES} run")
+
+
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    check_mesh_family(cfg)
     if cfg.family == "audio":
         return encdec_mod.encdec_forward(params, cfg, batch["frames"],
                                          batch["tokens"])
@@ -51,6 +75,7 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             max_seq: int) -> Tuple[torch.Tensor, Any]:
+    check_mesh_family(cfg)
     if cfg.family == "audio":
         memory = encdec_mod.encode(params, cfg, batch["frames"])
         logits = encdec_mod.decode_train(params, cfg, batch["tokens"],
@@ -58,7 +83,7 @@ def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
         self_c = _encdec_self_cache(params, cfg, batch["tokens"], memory,
                                     max_seq)
         cross_c = encdec_mod.build_cross_cache(params, cfg, memory)
-        return logits, {"self": self_c, "cross": cross_c}
+        return logits, pin_caches(cfg, {"self": self_c, "cross": cross_c})
     return lm_mod.lm_prefill(params, cfg, batch["tokens"], max_seq,
                              batch.get("img_embeds"))
 
@@ -92,6 +117,7 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def decode_step(params, cfg: ModelConfig, caches, token, pos):
+    check_mesh_family(cfg)
     if cfg.family == "audio":
         return encdec_mod.encdec_decode_step(params, cfg, caches, token, pos)
     return lm_mod.lm_decode_step(params, cfg, caches, token, pos)

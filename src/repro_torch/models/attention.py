@@ -12,6 +12,11 @@ Decode writes the new key and value into the layer's cache tensors in
 place (slot ``pos % n``; for sliding-window configs ``n`` is the window
 and the writes wrap as a ring buffer, with per-slot positions keeping the
 mask exact).
+
+Under a device mesh (``sharding.ctx``) the projections run on DTensors
+with the weights gathered over the FSDP axes, the activation sites pin
+the JAX package's specs, and each rank writes its own shard of a cache
+(only the rank holding the slot, for a cache cut along the sequence).
 """
 from __future__ import annotations
 
@@ -23,7 +28,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import apply_rope, rms_head_norm
 from repro_torch.models.module import ParamSpec
-from repro_torch.sharding.ctx import shard_act
+from repro_torch.sharding.ctx import (
+    from_local_like, local, local_cut_like, per_shard, reduce_partial,
+    shard_act, shard_unflatten, weight, write_slot,
+)
 
 NEG_INF = -2.0 ** 20  # large-but-finite mask value (bf16-safe)
 
@@ -56,34 +64,30 @@ def attn_spec(cfg: ModelConfig, layers: Optional[int] = None,
 def _project_qkv(p, cfg: ModelConfig, x: torch.Tensor,
                  kv_x: Optional[torch.Tensor] = None):
     dt = cfg.compute_dtype
-    b, s, _ = x.shape
     kv_x = x if kv_x is None else kv_x
-    t = kv_x.shape[1]
-    q = x @ p["wq"].to(dt)
-    k = kv_x @ p["wk"].to(dt)
-    v = kv_x @ p["wv"].to(dt)
+    q = x @ weight(p["wq"], dt)
+    k = kv_x @ weight(p["wk"], dt)
+    v = kv_x @ weight(p["wv"], dt)
     if cfg.qkv_bias:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    q = shard_act(q.reshape(b, s, cfg.n_heads, cfg.hd),
-                  "batch", None, "act_heads", None)
-    k = shard_act(k.reshape(b, t, cfg.n_kv_heads, cfg.hd),
-                  "batch", None, "act_heads", None)
-    v = shard_act(v.reshape(b, t, cfg.n_kv_heads, cfg.hd),
-                  "batch", None, "act_heads", None)
+        q = q + weight(p["bq"], dt)
+        k = k + weight(p["bk"], dt)
+        v = v + weight(p["bv"], dt)
+    heads = ("batch", None, "act_heads", None)
+    q = shard_unflatten(q, 2, (cfg.n_heads, cfg.hd), *heads)
+    k = shard_unflatten(k, 2, (cfg.n_kv_heads, cfg.hd), *heads)
+    v = shard_unflatten(v, 2, (cfg.n_kv_heads, cfg.hd), *heads)
     if cfg.qk_norm:
-        q = rms_head_norm(p["q_norm"].float(), q)
-        k = rms_head_norm(p["k_norm"].float(), k)
+        q = rms_head_norm(weight(p["q_norm"], torch.float32), q)
+        k = rms_head_norm(weight(p["k_norm"], torch.float32), k)
     return q, k, v
 
 
 def _out_proj(p, cfg: ModelConfig, o: torch.Tensor) -> torch.Tensor:
     b, s = o.shape[:2]
     dt = cfg.compute_dtype
-    y = o.reshape(b, s, -1) @ p["wo"].to(dt)
+    y = reduce_partial(o.reshape(b, s, -1) @ weight(p["wo"], dt))
     if cfg.attn_out_bias:
-        y = y + p["bo"].to(dt)
+        y = y + weight(p["bo"], dt)
     return y
 
 
@@ -103,26 +107,51 @@ def _expand_kv(q, k, v):
     """Repeat each KV head to the query head count (GQA)."""
     g = q.shape[2] // k.shape[2]
     if g > 1:
-        k = k.repeat_interleave(g, dim=2)
-        v = v.repeat_interleave(g, dim=2)
+        # each cut of the KV heads (or of the cache's slots) repeats alone
+        k, v = (per_shard(lambda t: t.repeat_interleave(g, dim=2), x,
+                          x.shape[:2] + (x.shape[2] * g,) + x.shape[3:])
+                for x in (k, v))
     return k, v
+
+
+# Under a device mesh every rank attends over its own batch rows and heads:
+# q, k and v are laid out alike (the sites pin them so) and the products,
+# mask and softmax run on the shards; the result takes q's cut. DTensor
+# would have to flatten a batch cut and a head cut into one dim for bmm.
+_BATCH_HEADS = {0: 0, 2: 2}
+_TO_LOGITS = {0: 0, 2: 1}      # q's batch and heads → logits [B,H,S,T]
+
+
+def _shards(q, k, v):
+    return (local(q), local_cut_like(k, q, _BATCH_HEADS),
+            local_cut_like(v, q, _BATCH_HEADS))
+
+
+def _pin_logits(lg, q, shape):
+    """The logits site (``batch``, ``act_heads``) on this rank's shard."""
+    return local(shard_act(from_local_like(lg, q, _TO_LOGITS, shape),
+                           "batch", "act_heads", None, None))
 
 
 def _sdpa(q, k, v, mask) -> torch.Tensor:
     """q [B,S,Hq,hd], k/v [B,T,Hkv,hd], mask [B?,S,T] → [B,S,Hq,hd]."""
-    hd = q.shape[-1]
+    b, s, h, hd = q.shape
     k, v = _expand_kv(q, k, v)
     k = shard_act(k, "batch", None, "act_heads", None)
     v = shard_act(v, "batch", None, "act_heads", None)
+    t = k.shape[1]
+    ql, kl, vl = _shards(q, k, v)
+    mask = local_cut_like(mask, q, {0: 0} if mask.shape[0] == b else {})
     scale = hd ** -0.5
     # f32 logits from the compute-dtype operands (products exact in f32)
-    logits = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    logits = torch.einsum("bshd,bthd->bhst", ql.float(), kl.float()) * scale
     while mask.ndim < logits.ndim:
         mask = mask[:, None]
     logits = torch.where(mask, logits, NEG_INF)
-    logits = shard_act(logits, "batch", "act_heads", None, None)
+    logits = _pin_logits(logits, q, (b, h, s, t))
     w = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhst,bthd->bshd", w, v)
+    o = torch.einsum("bhst,bthd->bshd", w, vl)
+    return from_local_like(o, q, {0: 0, 1: 1, 2: 2, 3: 3}, q.shape)
 
 
 def _chunked_sdpa(q, k, v, q_offset: int, causal: bool,
@@ -139,22 +168,24 @@ def _chunked_sdpa(q, k, v, q_offset: int, causal: bool,
                          f"T={t} kc={kc}")
     scale = hd ** -0.5
     dev = q.device
+    ql, kl, vl = _shards(q, k, v)
+    lb, lh = ql.shape[0], ql.shape[2]    # this rank's rows and heads
     outs = []
     for qi in range(s // qc):
-        qb = q[:, qi * qc:(qi + 1) * qc]
+        qb = ql[:, qi * qc:(qi + 1) * qc]
         qpos = q_offset + qi * qc + torch.arange(qc, device=dev)
-        m = torch.full((b, h, qc), float("-inf"), device=dev)
-        l = torch.zeros((b, h, qc), device=dev)
-        acc = torch.zeros((b, qc, h, hd), device=dev)   # f32 accumulator
+        m = torch.full((lb, lh, qc), float("-inf"), device=dev)
+        l = torch.zeros((lb, lh, qc), device=dev)
+        acc = torch.zeros((lb, qc, lh, hd), device=dev)   # f32 accumulator
         for ki in range(t // kc):
-            kb = k[:, ki * kc:(ki + 1) * kc]
-            vb = v[:, ki * kc:(ki + 1) * kc]
+            kb = kl[:, ki * kc:(ki + 1) * kc]
+            vb = vl[:, ki * kc:(ki + 1) * kc]
             kpos = ki * kc + torch.arange(kc, device=dev)
             msk = _mask(qpos, kpos, causal, window)       # [qc, kc]
             lg = torch.einsum("bshd,bthd->bhst", qb.float(),
                               kb.float()) * scale
             lg = torch.where(msk[None, None], lg, NEG_INF)
-            lg = shard_act(lg, "batch", "act_heads", None, None)
+            lg = _pin_logits(lg, q, (b, h, qc, kc))
             m2 = torch.maximum(m, lg.amax(dim=-1))
             corr = torch.exp(m - m2)
             pr = torch.exp(lg - m2[..., None])
@@ -164,7 +195,8 @@ def _chunked_sdpa(q, k, v, q_offset: int, causal: bool,
             m = m2
         l = torch.clamp_min(l, 1e-20)
         outs.append((acc / l.transpose(1, 2)[..., None]).to(q.dtype))
-    return torch.cat(outs, dim=1)
+    return from_local_like(torch.cat(outs, dim=1), q,
+                           {0: 0, 1: 1, 2: 2, 3: 3}, q.shape)
 
 
 def attention(p, cfg: ModelConfig, x: torch.Tensor, *,
@@ -252,9 +284,9 @@ def decode_attention(p, cfg: ModelConfig, x: torch.Tensor,
     k_new = apply_rope(k_new, qpos, cfg.rope_theta)
     slot = pos % n
     k, v, cpos = layer_cache["k"], layer_cache["v"], layer_cache["pos"]
-    k[:, slot] = k_new[:, 0]
-    v[:, slot] = v_new[:, 0]
-    cpos[:, slot] = pos
+    write_slot(k, slot, k_new[:, 0])
+    write_slot(v, slot, v_new[:, 0])
+    write_slot(cpos, slot, pos)
     valid = cpos >= 0
     allowed = cpos <= pos
     if cfg.sliding_window is not None:
@@ -273,19 +305,21 @@ def prefill_kv(p, cfg: ModelConfig, x: torch.Tensor, max_seq: int
     kpos = torch.arange(s, device=dev)[None]
     k = apply_rope(k, kpos, cfg.rope_theta)
     n = cache_len(cfg, max_seq)
+    # the sites pin the sequence whole (uncut), so under a device mesh
+    # each shard is rolled or padded along it alone
     if s >= n:
         ks, vs = k[:, s - n:], v[:, s - n:]
         ps = torch.arange(s - n, s, device=dev)[None].expand(b, n)
         # ring-buffer invariant: position p lives at slot p % n
         shift = (s - n) % n
         if shift:
-            ks = torch.roll(ks, shift, dims=1)
-            vs = torch.roll(vs, shift, dims=1)
+            ks, vs = (per_shard(lambda t: torch.roll(t, shift, dims=1), x,
+                                x.shape) for x in (ks, vs))
             ps = torch.roll(ps, shift, dims=1)
     else:
         pad = n - s
-        ks = F.pad(k, (0, 0, 0, 0, 0, pad))
-        vs = F.pad(v, (0, 0, 0, 0, 0, pad))
+        ks, vs = (per_shard(lambda t: F.pad(t, (0, 0, 0, 0, 0, pad)), x,
+                            (b, n) + tuple(x.shape[2:])) for x in (k, v))
         ps = F.pad(torch.arange(s, device=dev)[None].expand(b, s),
                    (0, pad), value=-1)
     return {"k": ks.contiguous(), "v": vs.contiguous(),

@@ -21,6 +21,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.lm import _stacked_norm
 from repro_torch.models.mlp import apply_mlp, mlp_spec
 from repro_torch.models.module import remat, tree_unbind
+from repro_torch.sharding.ctx import shard_unflatten, weight
 
 
 def encdec_spec(cfg: ModelConfig) -> Dict:
@@ -139,16 +140,18 @@ def build_cross_cache(params, cfg: ModelConfig, memory: torch.Tensor
     """Precompute per-layer cross-attention K/V from the encoder memory."""
     dt = cfg.compute_dtype
     b, s, _ = memory.shape
+    # laid out as the cache will be (its heads cut as the sites')
+    heads = ("batch", None, "act_heads", None)
     ks, vs = [], []
     for pp in tree_unbind(params["dec"]["layers"]["cross_attn"],
                           cfg.n_layers):
-        k = memory @ pp["wk"].to(dt)
-        v = memory @ pp["wv"].to(dt)
+        k = memory @ weight(pp["wk"], dt)
+        v = memory @ weight(pp["wv"], dt)
         if cfg.qkv_bias:
-            k = k + pp["bk"].to(dt)
-            v = v + pp["bv"].to(dt)
-        ks.append(k.reshape(b, s, cfg.n_kv_heads, cfg.hd))
-        vs.append(v.reshape(b, s, cfg.n_kv_heads, cfg.hd))
+            k = k + weight(pp["bk"], dt)
+            v = v + weight(pp["bv"], dt)
+        ks.append(shard_unflatten(k, 2, (cfg.n_kv_heads, cfg.hd), *heads))
+        vs.append(shard_unflatten(v, 2, (cfg.n_kv_heads, cfg.hd), *heads))
     pos = torch.arange(s, dtype=torch.int32, device=memory.device)
     return {"k": torch.stack(ks), "v": torch.stack(vs),
             "pos": pos[None, None].expand(cfg.n_layers, b, s).contiguous()}

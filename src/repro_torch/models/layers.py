@@ -5,8 +5,10 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models.module import ParamSpec
+from repro_torch.sharding.ctx import reduce_partial, weight
 
 
 # --------------------------------------------------------------------------
@@ -28,10 +30,10 @@ def apply_norm(p, x: torch.Tensor, kind: str, eps: float = 1e-6
         # population variance, as jnp.var (torch.var defaults to n - 1)
         var = xf.var(dim=-1, keepdim=True, correction=0)
         y = (xf - mu) * torch.rsqrt(var + eps)
-        y = y * p["scale"] + p["bias"]
+        y = y * weight(p["scale"]) + weight(p["bias"])
     else:
         ms = xf.square().mean(dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(ms + eps) * p["scale"]
+        y = xf * torch.rsqrt(ms + eps) * weight(p["scale"])
     return y.to(x.dtype)
 
 
@@ -86,9 +88,9 @@ def linear_spec(d_in: int, d_out: int, in_axis: str = "embed",
 
 
 def apply_linear(p, x: torch.Tensor, dtype) -> torch.Tensor:
-    y = x @ p["w"].to(dtype)
+    y = x @ weight(p["w"], dtype)
     if "b" in p:
-        y = y + p["b"].to(dtype)
+        y = y + weight(p["b"], dtype)
     return y
 
 
@@ -103,13 +105,14 @@ def embed_spec(vocab: int, d: int):
 def embed(p: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """Rows of ``p`` at ``tokens``, cast to ``dtype``: index first, then
     cast (bit-identical to casting the table first, without casting every
-    vocabulary row on each call)."""
-    return p[tokens].to(dtype)
+    vocabulary row on each call). Under a device mesh each rank looks up
+    the rows of its cut of the vocabulary and the pieces are summed."""
+    return reduce_partial(F.embedding(tokens, weight(p))).to(dtype)
 
 
 def unembed(p: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
     """Logits via the (possibly tied) embedding: [B,S,d] → [B,S,V]."""
-    return x @ p.to(dtype).t()
+    return x @ weight(p, dtype).t()
 
 
 def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:

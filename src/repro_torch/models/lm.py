@@ -29,7 +29,8 @@ from repro_torch.models.mlp import apply_mlp, mlp_spec
 from repro_torch.models.moe import apply_moe, moe_spec
 from repro_torch.models.module import ParamSpec, remat, tree_map, \
     tree_unbind
-from repro_torch.sharding.ctx import shard_act
+from repro_torch.sharding.ctx import shard_act, weight
+from repro_torch.sharding.specs import pin_caches
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,7 +124,7 @@ def _embed_inputs(params, cfg: ModelConfig, tokens: torch.Tensor,
     dt = cfg.compute_dtype
     x = embed(params["embed"], tokens, dt)
     if cfg.n_img_tokens and img_embeds is not None:
-        img = img_embeds.to(dt) @ params["img_proj"]["w"].to(dt)
+        img = img_embeds.to(dt) @ weight(params["img_proj"]["w"], dt)
         x = torch.cat([img, x], dim=1)
     return x
 
@@ -201,7 +202,8 @@ def lm_prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
                img_embeds: Optional[torch.Tensor] = None):
     """Full forward that also extracts the decode caches (prefill step).
 
-    Returns (logits [B,S,V], caches) where caches match cache_abstract().
+    Returns (logits [B,S,V], caches) where caches match cache_abstract();
+    under a device mesh they are laid out by ``cache_partition_specs``.
     """
     prog = build_program(cfg)
     x = _embed_inputs(params, cfg, tokens, img_embeds)
@@ -234,7 +236,8 @@ def lm_prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
                 x = x + y
             caches[f"pos{i}"] = cache
         per_block.append(caches)
-    caches = tree_map(lambda *xs: torch.stack(xs), *per_block)
+    caches = pin_caches(cfg, tree_map(lambda *xs: torch.stack(xs),
+                                      *per_block))
     x = apply_norm(params["final_norm"], x, cfg.norm)
     if cfg.prefill_last_only:
         x = x[:, -1:]   # serve-prefill only needs the next-token logits

@@ -9,7 +9,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.module import ParamSpec
-from repro_torch.sharding.ctx import shard_act
+from repro_torch.sharding.ctx import reduce_partial, shard_act, weight
 
 
 def mlp_spec(cfg: ModelConfig, layers: Optional[int] = None,
@@ -34,11 +34,12 @@ def mlp_spec(cfg: ModelConfig, layers: Optional[int] = None,
 def apply_mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dt = cfg.compute_dtype
     if cfg.activation == "swiglu":
-        g = x @ p["w_gate"].to(dt)
-        u = x @ p["w_up"].to(dt)
+        g = x @ weight(p["w_gate"], dt)
+        u = x @ weight(p["w_up"], dt)
         h = shard_act(F.silu(g) * u, "batch", None, "act_ffn")
-        return h @ p["w_down"].to(dt)
-    h = x @ p["w_up"].to(dt) + p["b_up"].to(dt)
+        return reduce_partial(h @ weight(p["w_down"], dt))
+    h = x @ weight(p["w_up"], dt) + weight(p["b_up"], dt)
     # jax.nn.gelu's default is the tanh approximation
     h = shard_act(F.gelu(h, approximate="tanh"), "batch", None, "act_ffn")
-    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
+    return (reduce_partial(h @ weight(p["w_down"], dt))
+            + weight(p["b_down"], dt))

@@ -5,9 +5,10 @@ A model definition is a nested dict of ``ParamSpec`` leaves;
 functions over the materialized tree of tensors (what the JAX package's
 pytrees are there). ``MeshRules`` maps a leaf's *logical axes* onto mesh
 axes and ``partition_specs`` turns a spec tree into per-leaf
-``PartitionSpec``s over an abstract ``Mesh`` (``sharding/partition.py``):
-the dry run sizes each chip's bytes from them; the port runs the models
-on one device.
+``PartitionSpec``s over a ``Mesh`` (``sharding/partition.py``): over an
+abstract one the dry run sizes each chip's bytes from them; over a
+``DeviceMesh`` ``shardings`` gives their DTensor placements and
+``distribute`` puts a tree there (``jax.device_put``'s counterpart).
 """
 from __future__ import annotations
 
@@ -230,8 +231,25 @@ def partition_specs(spec_tree: Tree, mesh, rules: MeshRules) -> Dict:
 
 
 def shardings(spec_tree: Tree, mesh, rules: MeshRules) -> Dict:
+    """A ``NamedSharding`` a leaf; over a ``DeviceMesh`` each one's
+    ``placements`` are its spec's DTensor placements."""
     return tree_map(lambda p: NamedSharding(mesh, p),
                     partition_specs(spec_tree, mesh, rules))
+
+
+def distribute(tree: Tree, shards: Tree) -> Dict:
+    """Each leaf of ``tree`` (the same values on every rank) as a DTensor
+    laid out by its ``NamedSharding`` in ``shards`` (same structure) over
+    that sharding's ``DeviceMesh``, on the mesh's device of this rank;
+    ``distribute_tensor`` takes rank 0's values. The counterpart of
+    ``jax.device_put(a, s)``."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def put(t: torch.Tensor, s: NamedSharding):
+        return distribute_tensor(t.to(s.mesh.device), s.mesh.torch_mesh,
+                                 s.placements)
+
+    return tree_map(put, tree, shards)
 
 
 def act_spec(mesh, rules: MeshRules, *logical: Optional[str]

@@ -5,6 +5,7 @@ from typing import Any, Dict, Tuple
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.module import MeshRules, tree_map
+from repro_torch.sharding.ctx import device_mesh, pin
 from repro_torch.sharding.partition import NamedSharding, PartitionSpec as P
 
 
@@ -82,4 +83,31 @@ def cache_partition_specs(cfg: ModelConfig, mesh, rules: MeshRules,
 
 
 def to_shardings(mesh, spec_tree):
+    """A ``NamedSharding`` a spec; over a ``DeviceMesh`` each one's
+    ``placements`` are the spec's DTensor placements."""
     return tree_map(lambda p: NamedSharding(mesh, p), spec_tree)
+
+
+def pin_inputs(batch: Dict[str, Any]) -> Dict[str, Any]:
+    """Under a device mesh, each model input laid out by
+    ``input_partition_specs`` (a plain tensor, the same on every rank, is
+    cut locally); without one, ``batch`` itself."""
+    ctx = device_mesh()
+    if ctx is None:
+        return batch
+    mesh, rules = ctx
+    specs = input_partition_specs(mesh, rules, batch)
+    return {k: pin(v, specs[k]) for k, v in batch.items()}
+
+
+def pin_caches(cfg: ModelConfig, caches):
+    """Under a device mesh, the caches laid out by
+    ``cache_partition_specs``: the decode program's input and output
+    shardings, so a prefill hands decode caches it can write in place.
+    Without one, ``caches`` themselves."""
+    ctx = device_mesh()
+    if ctx is None:
+        return caches
+    mesh, rules = ctx
+    return tree_map(pin, caches,
+                    cache_partition_specs(cfg, mesh, rules, caches))

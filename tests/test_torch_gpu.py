@@ -2019,3 +2019,57 @@ def test_a_merge_that_does_not_compile_launches_nothing(cuda, monkeypatch):
         coo_expand_cuda(*ins, merge=MERGES["mul"], cap=cap)
     assert dict(build.LAUNCHES) == before
     assert bad.key not in build.BUILD_INFO.get("merges", {})
+
+
+# ---------------------------------------------------------------------------
+# LM serving sharded over four cards (one process a card, NCCL): the
+# qwen3-1.7b gates of chip_smoke.py's lm mesh phase, f32 compute.
+# ---------------------------------------------------------------------------
+
+LM_MESH_CARD_RUNS = (((2, 2), 4), ((4, 1), 1))
+LM_MESH_CARD_SERVE = (4, 128, 32)      # batch, prompt, new tokens
+LM_MESH_CARD_RTOL = 1e-4               # of the largest |logit|
+
+
+@pytest.fixture(scope="module")
+def lm_mesh_card_runs(tmp_path_factory):
+    """Four ranks, one a card; skips below four cards (decided here)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices (LM serving across cards)")
+    import os
+    import pickle
+    import time
+    import torch.multiprocessing as mp
+    import torch_lm_mesh_worker as worker
+    d = tmp_path_factory.mktemp("lm_mesh_cards")
+    spawn = mp.get_context("spawn")
+    procs = [spawn.Process(target=worker.card_main,
+                           args=(r, 4, str(d / "store"), LM_MESH_CARD_RUNS,
+                                 LM_MESH_CARD_SERVE, str(d)))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 900
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10)
+    assert not hung and [p.exitcode for p in procs] == [0] * 4
+    with open(os.path.join(d, "result.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+@pytest.mark.parametrize("shape,batch", LM_MESH_CARD_RUNS,
+                         ids=["2x2_batch4", "4x1_batch1"])
+def test_lm_mesh_qwen3_on_four_cards_matches_one_card(lm_mesh_card_runs,
+                                                      shape, batch):
+    """Greedy tokens equal the unsharded run's; prefill's logits, and each
+    decode's against the forward pass, within ``LM_MESH_CARD_RTOL``; each
+    card's parameter and cache bytes equal to the dry run's."""
+    r = lm_mesh_card_runs[shape, batch]
+    assert r["tokens_equal"]
+    assert r["prefill_rel"] < LM_MESH_CARD_RTOL
+    assert r["decode_rel"] < LM_MESH_CARD_RTOL
+    assert r["bytes"] == [r["predicted"]] * 4
