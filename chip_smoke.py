@@ -110,7 +110,8 @@ on and the cards each kernel launched on; a gated kernel launches once a
 worker, on that worker's card. Every other session of the script has one
 worker (``n_workers=1``), so the script measures the same thing on any
 number of cards. ``--mesh-only`` makes the data and runs this phase
-and then the LM mesh phase alone (no kernel phases, no kernel JSON):
+and then the LM and train mesh phases alone (no kernel phases, no
+kernel JSON):
 a run across four cards, its last line the ``{"ok": true, ...}`` one.
 
 The serving phase comes last. Q1–Q10 go three times each through one
@@ -179,6 +180,25 @@ dry run's ``argument_bytes`` less its inputs; the collectives of the
 prefill and of one decode step by kind (``CommDebugMode``); then the
 config's own bf16 compute timed (prefill ms, decode ms a token) and
 ``max_memory_allocated`` a card. A failing rank exits the run non-zero.
+
+The train mesh phase (``train mesh`` lines) trains the same qwen3-1.7b
+sharded the same way (``train.step`` under ``use_sharding``, the state
+``distribute``d in the parameters' placements), in the same spawn
+pattern, on the training phase's packed batch (batch 4, seq 256, made on
+the host through a CPU Session and handed to every rank): a 1x1 mesh on
+one card, (2,2), (1,4), (4,1) on four (``--mesh-only``, and the CPU
+rehearsal's four gloo ranks). Each mesh: at full width, 2 layers, f32,
+against the unsharded port on card 0, step 1's loss and grad norm within
+rel 1e-4, every gradient within 1e-4 of its leaf's largest |g| and in
+its parameter's placements, the parameters after 3 AdamW steps within
+atol 5e-3, each card's train-state bytes equal to the dry run's
+``argument_bytes`` less its inputs (3 x parameters + 8); then the full
+config (bf16 compute, f32 parameters and moments, remat full) for 10
+steps: finite losses and norms, the last loss below the first, the
+median step ms of steps 3-10, tokens/s, one step's collectives by kind
+(CommDebugMode) and its device and NCCL-kernel ms (torch.profiler), the
+full config's train-state bytes against the dry run's, the peak a card;
+and the phase's wall.
 
 The training phase comes last (``repro_torch.train``, ``optim``,
 ``checkpoint``, ``data.pipeline`` and the training launcher's
@@ -320,6 +340,15 @@ LM_CARD_CPU_TOL = 1e-4         # the port's f32 parity tolerance
 # reductions differently)
 LM_MESH_RUNS = (((2, 2), 4), ((1, 4), 4), ((4, 1), 4), ((4, 1), 1))
 LM_MESH_RTOL = 1e-4
+# the train mesh phase: qwen3-1.7b's train step (train.step under a mesh)
+# on these meshes (data, model) over four cards, a 1x1 mesh on one; the f32
+# gates at full width, 2 layers, against the unsharded port on the same
+# card (loss and grad norm rel, each gradient of its leaf's largest |g|;
+# parameters after TRAIN_MESH_GATE_STEPS AdamW steps at lr 1e-3 within
+# TRAIN_PARAM_ATOL); then the full config timed for TRAIN_STEPS steps
+TRAIN_MESH_SHAPES = ((2, 2), (1, 4), (4, 1))
+TRAIN_MESH_RTOL = 1e-4
+TRAIN_MESH_GATE_STEPS = 3
 # The training phase: the corpus (vocab, seq, batch, docs, doc length) and
 # qwen3-1.7b's full config for TRAIN_STEPS steps on one packed batch; the
 # A/B's of loss_chunk and of the blocks' unbind take TRAIN_AB_STEPS each
@@ -2977,6 +3006,294 @@ def lm_mesh_phase(device, seed, small, card):
 
 
 # ---------------------------------------------------------------------------
+# The train mesh phase: the train step sharded one rank a card.
+# ---------------------------------------------------------------------------
+
+def train_mesh_batch(seed, small):
+    """The training phase's packed batch (batch 4, seq 256; vocab 512, seq
+    32 on the rehearsal) as numpy arrays: the synthetic corpus cleaned and
+    split through a CPU Session (the same rows the card's gives, which the
+    training phase holds to numpy), the first packed batch."""
+    from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
+                                           pack_batches)
+    vocab, seq, b, n_docs, doc_len = TRAIN_DATA
+    if small:
+        vocab, seq = 512, 32
+    dc = DataConfig(vocab_size=vocab, seq_len=seq, global_batch=b,
+                    n_docs=n_docs, doc_len=doc_len, seed=seed)
+    return next(iter(pack_batches(SyntheticCorpus(dc, "cpu").preprocess(),
+                                  dc)))
+
+
+def _whole_tree(tree):
+    from repro_torch.models.module import tree_map
+    return tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor")
+                    else t, tree)
+
+
+def _train_mesh_gates(rank, cfg, host, batch, mesh, rules, want):
+    """The f32 gates of one mesh: (loss rel, grad norm rel, worst gradient
+    of its leaf's largest |g|, placements equal, parameters' max abs
+    difference after the steps, the card's train-state bytes), the errors
+    on rank 0 against ``want`` (the unsharded run on that card)."""
+    from repro_torch.models import api as mapi
+    from repro_torch.models.module import distribute, shardings, tree_items
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.sharding.ctx import use_sharding
+    from repro_torch.train.step import init_state, make_grad_fn, \
+        make_train_step
+    opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10)
+    spec = mapi.spec(cfg)
+    with use_sharding(mesh, rules):
+        params = distribute(host, shardings(spec, mesh, rules))
+        grads, _, _ = make_grad_fn(cfg)(params, batch)
+        placed = all(tuple(g.placements) == tuple(p.placements)
+                     for (_, g), (_, p) in zip(tree_items(grads),
+                                               tree_items(params)))
+        whole = _whole_tree(grads)
+        del grads
+        step = make_train_step(cfg, opt)
+        state = init_state(params, opt)
+        metrics = []
+        for _ in range(TRAIN_MESH_GATE_STEPS):
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        state_bytes = _local_bytes({"params": state.params,
+                                    "opt": state.opt._asdict(),
+                                    "step": state.step})
+        final = _whole_tree(state.params)
+    del state, params
+    if rank:
+        return None, state_bytes
+    w_grads, w_metrics, w_params = want
+    errs = (abs(metrics[0]["loss"] / w_metrics[0]["loss"] - 1),
+            abs(metrics[0]["grad_norm"] / w_metrics[0]["grad_norm"] - 1),
+            _tree_rel(whole, w_grads), placed,
+            _tree_max_abs(final, w_params))
+    return errs, state_bytes
+
+
+def _train_mesh_timed(cfg, host, batch, mesh, rules, on_card):
+    """``TRAIN_STEPS`` steps of the full config from ``host``: (metrics a
+    step, wall ms a step, collectives of one step by kind, device ms and
+    NCCL-kernel ms of one step by torch.profiler or None on the CPU, the
+    peak bytes above the start, the card's train-state bytes)."""
+    import torch
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import api as mapi
+    from repro_torch.models.module import distribute, shardings
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.sharding.ctx import use_sharding
+    from repro_torch.train.step import init_state, make_train_step
+    base = _peak_from_here(on_card)
+    opt = AdamW(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    with use_sharding(mesh, rules):
+        state = init_state(distribute(host, shardings(mapi.spec(cfg), mesh,
+                                                      rules)), opt)
+        step = make_train_step(cfg, opt)
+        metrics, ms = [], []
+        for _ in range(TRAIN_STEPS):
+            _mesh_sync(on_card)
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            m = {k: float(v) for k, v in m.items()}
+            _mesh_sync(on_card)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            metrics.append(m)
+        peak = torch.cuda.max_memory_allocated() - base if on_card else 0
+        with CommDebugMode() as comm:
+            state, _ = step(state, batch)
+        busy = nccl = None
+        if on_card:
+            _mesh_sync(on_card)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                state, _ = step(state, batch)
+                _mesh_sync(on_card)
+            dev = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy = sum(e.self_device_time_total for e in dev) / 1e3
+            nccl = sum(e.self_device_time_total for e in dev
+                       if "nccl" in e.key.lower()) / 1e3
+    state_bytes = _local_bytes({"params": state.params,
+                                "opt": state.opt._asdict(),
+                                "step": state.step})
+    del state
+    return metrics, ms, _comm_kinds(comm), busy, nccl, peak, state_bytes
+
+
+def _train_mesh_runs(rank, device, seed, small, card, shapes, host_batch):
+    """Every mesh of ``shapes`` on this rank; rank 0 returns the lines.
+    The parameters are drawn once on the host from the seed (the same
+    values on every rank) and distributed onto each mesh; rank 0 also runs
+    the f32 model with no mesh on its card, the reference."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import default_rules, make_device_mesh
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import api as mapi
+    from repro_torch.models.module import init_params, tree_map
+    from repro_torch.optim.adamw import AdamW
+    from repro_torch.sharding.partition import Mesh
+    from repro_torch.train.step import init_state, make_grad_fn, \
+        make_train_step
+    on_card = device == "cuda"
+    dev = torch.device("cuda", rank) if on_card else torch.device("cpu")
+    full = get_config(LM_ARCH)
+    cfg = dataclasses.replace(reduced(full), remat=full.remat) if small \
+        else full
+    cfg32 = dataclasses.replace(cfg, n_layers=2, compute_dtype=torch.float32)
+    batch = device_batch(cfg, host_batch, 1, dev)
+    b, s = batch["tokens"].shape
+    t0 = time.perf_counter()
+    host32 = init_params(mapi.spec(cfg32),
+                         torch.Generator("cpu").manual_seed(seed + 41), "cpu")
+    host = init_params(mapi.spec(cfg),
+                       torch.Generator("cpu").manual_seed(seed + 42), "cpu")
+    t_init = time.perf_counter() - t0
+    want = None
+    if rank == 0:
+        ref = tree_map(lambda t: t.to(dev, copy=True), host32)
+        opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10)
+        grads, _, _ = make_grad_fn(cfg32)(ref, batch)
+        grads = tree_map(lambda t: t.cpu(), grads)
+        step = make_train_step(cfg32, opt)
+        state, metrics = init_state(ref, opt), []
+        for _ in range(TRAIN_MESH_GATE_STEPS):
+            state, m = step(state, batch)
+            metrics.append({k: float(v) for k, v in m.items()})
+        want = (grads, metrics, tree_map(lambda t: t.cpu(), state.params))
+        del ref, state, step
+    lines = []
+    for shape in shapes:
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        t_mesh = time.perf_counter()
+        mesh = make_device_mesh(shape, ("data", "model"), device)
+        rules = default_rules(mesh)
+        errs, state_bytes = _train_mesh_gates(rank, cfg32, host32, batch,
+                                              mesh, rules, want)
+        metrics, ms, comm, busy, nccl, peak, full_bytes = _train_mesh_timed(
+            cfg, host, batch, mesh, rules, on_card)
+        per_rank = [None] * dist.get_world_size()
+        dist.all_gather_object(per_rank, (state_bytes, peak, full_bytes))
+        wall = time.perf_counter() - t_mesh
+        if rank:
+            continue
+        tag = f"train mesh {shape[0]}x{shape[1]} (data x model)"
+        cell = ShapeConfig("train_mesh", s, b, "train")
+        abstract = Mesh(shape, ("data", "model"))
+        a_rules = default_rules(abstract)
+        predicted, predicted_full = (
+            dryrun.argument_bytes(c, cell, abstract, a_rules)
+            - dryrun.input_bytes(c, cell, abstract, a_rules)
+            for c in (cfg32, cfg))
+        e_loss, e_norm, e_grad, placed, e_par = errs
+        losses = [m["loss"] for m in metrics]
+        gnorms = [m["grad_norm"] for m in metrics]
+        assert e_loss < TRAIN_MESH_RTOL, f"{tag}: loss rel err {e_loss:.2e}"
+        assert e_norm < TRAIN_MESH_RTOL, f"{tag}: grad norm {e_norm:.2e}"
+        assert e_grad < TRAIN_MESH_RTOL, f"{tag}: gradients {e_grad:.2e}"
+        assert placed, f"{tag}: a gradient not in its parameter's placements"
+        assert e_par < TRAIN_PARAM_ATOL, f"{tag}: params {e_par:.2e}"
+        assert all(r == predicted for r, _, _ in per_rank), \
+            f"{tag}: train-state bytes {[r for r, _, _ in per_rank]} != " \
+            f"dry run {predicted}"
+        assert all(f == predicted_full for _, _, f in per_rank), \
+            f"{tag}: full config's train-state bytes " \
+            f"{[f for _, _, f in per_rank]} != dry run {predicted_full}"
+        assert all(math.isfinite(x) for x in losses + gnorms), \
+            (losses, gnorms)
+        assert losses[-1] < losses[0], f"{tag}: loss did not fall {losses}"
+        med = float(np.median(ms[2:]))
+        lines.append(
+            f"{tag}: {cfg.arch_id}, batch {b}, seq {s} (the training phase's "
+            f"packed batch; params drawn on the host in {t_init:.2f} s); "
+            f"f32 at d {cfg32.d_model}, {cfg32.n_layers} layers against the "
+            f"unsharded port on card 0: loss rel err {e_loss:.2e}, grad norm "
+            f"{e_norm:.2e}, gradients {e_grad:.2e} of each leaf's largest |g| "
+            f"(limit {TRAIN_MESH_RTOL:.0e}), placements of every gradient "
+            f"== its parameter's, params after {TRAIN_MESH_GATE_STEPS} AdamW "
+            f"steps max abs {e_par:.2e} (limit {TRAIN_PARAM_ATOL:.0e}), "
+            f"train-state bytes per card {[r for r, _, _ in per_rank]} == "
+            f"dry run argument_bytes - inputs {predicted}; full config "
+            f"({cfg.n_layers} layers, {str(cfg.compute_dtype)[6:]} compute, "
+            f"remat {cfg.remat}; train-state bytes per card "
+            f"{[f for _, _, f in per_rank]} == dry run {predicted_full}), "
+            f"{TRAIN_STEPS} steps: loss "
+            f"{' '.join(f'{x:.4f}' for x in losses)}; grad norm "
+            f"{' '.join(f'{x:.3f}' for x in gnorms)}; step ms "
+            f"{' '.join(f'{x:.1f}' for x in ms)}; median of steps 3-"
+            f"{TRAIN_STEPS} {med:.2f} ms, {b * s / med * 1e3:.0f} tokens/s; "
+            f"collectives a step (CommDebugMode) [{comm}]"
+            + ("" if busy is None else
+               f"; one step by torch.profiler: device {busy:.2f} ms, "
+               f"{nccl:.2f} of it NCCL kernels")
+            + f"; max_memory_allocated per card above the start "
+            f"{[round(p / 2**30, 3) for _, p, _ in per_rank]} GiB; "
+            f"{wall:.1f} s [{card}]")
+    return lines
+
+
+def _train_mesh_rank(rank, world, init, device, seed, small, card, shapes,
+                     host_batch, out):
+    import torch
+    import torch.distributed as dist
+    kw = {}
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+        kw["device_id"] = torch.device("cuda", rank)
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            init_method=init, rank=rank, world_size=world,
+                            **kw)
+    try:
+        lines = _train_mesh_runs(rank, device, seed, small, card, shapes,
+                                 host_batch)
+        if rank == 0:
+            Path(out).write_text(json.dumps(lines))
+    finally:
+        dist.destroy_process_group()
+
+
+def train_mesh_phase(device, seed, small, card):
+    """qwen3-1.7b's train step (``train.step`` under
+    ``sharding.ctx.use_sharding``) on a device mesh, one process a card
+    (``torch.multiprocessing``, spawn; NCCL, or gloo on the CPU
+    rehearsal): on four cards (and the rehearsal's four ranks) the meshes
+    of ``TRAIN_MESH_SHAPES``, else a 1x1 mesh on one card. Each mesh: the
+    f32 gates at full width, 2 layers (loss, grad norm, every gradient and
+    its placements, the parameters after AdamW steps against the unsharded
+    port on card 0; each card's train-state bytes against the dry run's),
+    then the full config timed. A failing rank raises here. Returns rank
+    0's lines, the phase's wall last."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as tmp
+    t0 = time.perf_counter()
+    four = device == "cpu" or torch.cuda.device_count() >= 4
+    shapes = TRAIN_MESH_SHAPES if four else ((1, 1),)
+    world = math.prod(shapes[0])
+    host_batch = train_mesh_batch(seed, small)
+    sys.stdout.flush()
+    with tempfile.TemporaryDirectory() as d:
+        out = str(Path(d) / "lines.json")
+        tmp.start_processes(
+            _train_mesh_rank, nprocs=world, start_method="spawn",
+            args=(world, f"tcp://localhost:{_free_port()}", device, seed,
+                  small, card, shapes, host_batch, out))
+        lines = json.loads(Path(out).read_text())
+    return lines + [f"train mesh phase: {time.perf_counter() - t0:.1f} s "
+                    f"[{card}]"]
+
+
+# ---------------------------------------------------------------------------
 # The training phase: the port's LM training path.
 # ---------------------------------------------------------------------------
 
@@ -3722,8 +4039,8 @@ def main(argv=None) -> int:
     ap.add_argument("--small", action="store_true",
                     help=f"{SMALL_N}² matrices (the CPU rehearsal)")
     ap.add_argument("--mesh-only", action="store_true",
-                    help="make the data, run the multi-worker phase over "
-                    "the visible cards and stop")
+                    help="make the data, run the multi-worker, LM mesh "
+                    "and train mesh phases over the visible cards and stop")
     args = ap.parse_args(argv)
 
     import torch
@@ -3777,6 +4094,8 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         print("\n".join(lm_mesh_phase(args.device, args.seed, args.small,
                                       where)), flush=True)
+        print("\n".join(train_mesh_phase(args.device, args.seed,
+                                         args.small, where)), flush=True)
         print(f"mesh-only run: done, {torch.cuda.device_count()} card(s) "
               "visible" if on_card else "mesh-only run: done on the CPU")
         print(json.dumps({"ok": True, "device": {
@@ -3825,6 +4144,8 @@ def main(argv=None) -> int:
         print("\n".join(lm_phase(args.device, args.seed, True, rehearsal)))
         print("\n".join(lm_mesh_phase(args.device, args.seed, True,
                                       rehearsal)))
+        print("\n".join(train_mesh_phase(args.device, args.seed, True,
+                                         rehearsal)))
         print("\n".join(train_phase(args.device, args.seed, True,
                                     rehearsal)))
         print("\n".join(dryrun_phase(args.device, args.seed, True,
@@ -3900,6 +4221,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print("\n".join(lm_mesh_phase(args.device, args.seed, False, card)),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("\n".join(train_mesh_phase(args.device, args.seed, False, card)),
           flush=True)
     gc.collect()
     torch.cuda.empty_cache()

@@ -8,7 +8,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.module import ParamSpec
-from repro_torch.sharding.ctx import reduce_partial, weight
+from repro_torch.sharding.ctx import (
+    axes_where, device_mesh, from_shard, grad_placements, local_range,
+    replicated, sum_over, weight,
+)
 
 
 # --------------------------------------------------------------------------
@@ -106,8 +109,36 @@ def embed(p: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """Rows of ``p`` at ``tokens``, cast to ``dtype``: index first, then
     cast (bit-identical to casting the table first, without casting every
     vocabulary row on each call). Under a device mesh each rank looks up
-    the rows of its cut of the vocabulary and the pieces are summed."""
-    return reduce_partial(F.embedding(tokens, weight(p))).to(dtype)
+    the rows of its cut of the vocabulary (``_vocab_cut_lookup``)."""
+    if device_mesh() is None:
+        return F.embedding(tokens, p).to(dtype)
+    return _vocab_cut_lookup(weight(p), tokens).to(dtype)
+
+
+def _vocab_cut_lookup(w, tokens):
+    """``F.embedding(tokens, w)`` for the DTensor table ``w`` [V, d] (its
+    FSDP cut gathered, the vocabulary perhaps cut over the tensor axes) on
+    each rank's shards: the rows of the rank's cut of the vocabulary, zero
+    for a token outside it, summed over the cut's axes. Every output
+    element has one nonzero addend, so the sum is exact. The table's
+    gradient stays on the rank owning the row, a partial sum over the
+    axes that cut the tokens (DTensor's own lookup of a cut table gives a
+    masked partial value whose backward it cannot redistribute)."""
+    tokens = replicated(tokens, w)
+    vocab = axes_where(w, lambda q: q.is_shard(0))
+    if set(vocab) & set(axes_where(tokens, lambda q: q.is_shard())):
+        raise ValueError("a mesh axis cuts both the vocabulary and the "
+                         "tokens")
+    lo, n = local_range(w, 0)
+    wl = w.to_local(grad_placements=grad_placements(w.placements,
+                                                    tokens.placements))
+    tl = tokens.to_local()
+    inside = (tl >= lo) & (tl < lo + n)
+    rows = F.embedding((tl - lo).clamp(0, n - 1), wl)
+    rows = sum_over(torch.where(inside[..., None], rows, 0.0),
+                    w.device_mesh, vocab)
+    return from_shard(rows, w.device_mesh, tokens.placements,
+                      tokens.shape + (w.shape[1],))
 
 
 def unembed(p: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:

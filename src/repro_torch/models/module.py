@@ -166,7 +166,8 @@ def remat(fn: Callable, policy: str) -> Callable:
     saves the outputs of the matrix products (``aten.mm``/``bmm``/
     ``addmm``, the counterpart of ``checkpoint_dots``) and recomputes the
     rest; ``"none"`` returns ``fn``. Recompute changes memory, never
-    values. Without grad mode there is no backward, and ``fn`` runs as
+    values: it runs under the sharding context (``sharding.ctx``) of the
+    forward. Without grad mode there is no backward, and ``fn`` runs as
     is."""
     if policy == "none":
         return fn
@@ -182,7 +183,16 @@ def remat(fn: Callable, policy: str) -> Callable:
     def wrapped(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        from repro_torch.sharding.ctx import current, installed
+        where = current()
+
+        def under(*a):
+            # the recompute runs in the backward, perhaps on the card's
+            # autograd thread: the forward's sharding context goes with it
+            with installed(where):
+                return fn(*a)
+
+        return checkpoint(under, *args, use_reentrant=False, **kw)
 
     return wrapped
 
@@ -242,12 +252,14 @@ def distribute(tree: Tree, shards: Tree) -> Dict:
     laid out by its ``NamedSharding`` in ``shards`` (same structure) over
     that sharding's ``DeviceMesh``, on the mesh's device of this rank;
     ``distribute_tensor`` takes rank 0's values. The counterpart of
-    ``jax.device_put(a, s)``."""
+    ``jax.device_put(a, s)``: the result never shares storage with
+    ``tree`` (a leaf replicated over the mesh would, on its own device),
+    so updating it in place leaves ``tree`` as it was."""
     from torch.distributed.tensor import distribute_tensor
 
     def put(t: torch.Tensor, s: NamedSharding):
-        return distribute_tensor(t.to(s.mesh.device), s.mesh.torch_mesh,
-                                 s.placements)
+        return distribute_tensor(t.to(s.mesh.device, copy=True),
+                                 s.mesh.torch_mesh, s.placements)
 
     return tree_map(put, tree, shards)
 

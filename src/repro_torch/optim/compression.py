@@ -11,9 +11,12 @@
   rescale by the world size. The JAX package does the same over a
   ``shard_map`` axis.
 
-The one-card train step runs the quantize → dequantize pair on its
-gradients (a simulation of the compression's effect on convergence; no
-wire savings without a data-parallel group).
+The train step runs the quantize → dequantize pair on its gradients (a
+simulation of the compression's effect on convergence, as the JAX
+package's step does; no wire savings). Over DTensors (a device mesh) each
+rank quantizes its own shard with the tensor's *global* max-abs (a MAX
+all-reduce of one scalar), so the codes, and the residuals, are those of
+the whole tensor; the JAX step under GSPMD does the same.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from repro_torch.models.module import tree_map
+from repro_torch.sharding.ctx import is_dtensor, like, local
 
 
 class Quantized(NamedTuple):
@@ -36,12 +40,24 @@ def _encode(x: torch.Tensor, amax: torch.Tensor):
     return q, scale
 
 
+def _amax(x: torch.Tensor) -> torch.Tensor:
+    """max |x| in f32; of a DTensor, over the whole tensor (a MAX
+    all-reduce over the process group of the shards' maxima)."""
+    amax = torch.max(torch.abs(local(x))).to(torch.float32)
+    if is_dtensor(x):
+        import torch.distributed as dist
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+    return amax
+
+
 def quantize(x: torch.Tensor) -> Quantized:
-    return Quantized(*_encode(x, torch.max(torch.abs(x)).to(torch.float32)))
+    """Codes (a DTensor like ``x``, for a DTensor) and the f32 scale."""
+    q, scale = _encode(local(x), _amax(x))
+    return Quantized(like(q, x), scale)
 
 
 def dequantize(qx: Quantized, dtype=torch.float32) -> torch.Tensor:
-    return (qx.q.to(torch.float32) * qx.scale).to(dtype)
+    return like((local(qx.q).to(torch.float32) * qx.scale).to(dtype), qx.q)
 
 
 class ErrorFeedback(NamedTuple):
@@ -54,11 +70,12 @@ def ef_init(grads_like) -> ErrorFeedback:
 
 @torch.no_grad()
 def ef_compress(grads, ef: ErrorFeedback) -> Tuple[Any, ErrorFeedback]:
-    """g_hat = Q(g + e);  e' = (g + e) - g_hat  (per tensor)."""
+    """g_hat = Q(g + e);  e' = (g + e) - g_hat  (per tensor; over DTensors
+    on each rank's shards, with the tensor's global max-abs)."""
     def one(g, e):
-        corrected = g + e
+        corrected = like(local(g) + local(e), g)
         g_hat = dequantize(quantize(corrected), g.dtype)
-        return g_hat, corrected - g_hat
+        return g_hat, like(local(corrected) - local(g_hat), g)
 
     pairs = tree_map(one, grads, ef.residual)
     return (tree_map(lambda t: t[0], pairs),

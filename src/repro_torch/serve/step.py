@@ -30,26 +30,14 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.plancache import VersionedLRU
 from repro_torch.models import api as mapi
 from repro_torch.models.module import tree_map
-from repro_torch.sharding.ctx import device_mesh, gather_dim
+from repro_torch.sharding.ctx import check_mesh, device_mesh, gather_dim, \
+    mesh_key
 from repro_torch.sharding.specs import pin_inputs
 
 # Step callables, LRU-bounded: a long-lived serving process cycling
 # through many (cfg, max_seq) shapes must not grow without bound.
 _STEP_CACHE = VersionedLRU(capacity=16)
 _TRACE_COUNTS: Dict[tuple, int] = {}
-
-
-def _mesh_key() -> tuple:
-    """() without a device mesh, else (mesh, rules): the part of a step's
-    key that says where it runs."""
-    ctx = device_mesh()
-    return () if ctx is None else tuple(ctx)
-
-
-def _check_mesh(key: tuple) -> None:
-    if _mesh_key() != key:
-        raise RuntimeError(f"a step built for mesh {key or None} was called "
-                           f"under {_mesh_key() or None}")
 
 
 def _argmax(logits: torch.Tensor) -> torch.Tensor:
@@ -64,10 +52,10 @@ def _no_grad():
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int) -> Callable:
-    where = _mesh_key()
+    where = mesh_key()
 
     def prefill_step(params, batch: Dict[str, torch.Tensor]):
-        _check_mesh(where)
+        check_mesh(where)
         mapi.check_mesh_family(cfg)
         with _no_grad():
             logits, caches = mapi.prefill(params, cfg, pin_inputs(batch),
@@ -81,10 +69,10 @@ def make_decode_step(cfg: ModelConfig, greedy: bool = True,
                      donate: bool = False) -> Callable:
     """Decode one token per row; the next token is the argmax (as the JAX
     package's step, whatever ``greedy`` says)."""
-    where = _mesh_key()
+    where = mesh_key()
 
     def decode_step(params, caches, token: torch.Tensor, pos):
-        _check_mesh(where)
+        check_mesh(where)
         mapi.check_mesh_family(cfg)
         with _no_grad():
             if not donate:
@@ -109,7 +97,7 @@ def _built(key: tuple, build: Callable[[], Callable]) -> Callable:
 def compiled_prefill(cfg: ModelConfig, max_seq: int) -> Callable:
     """The cached prefill step for ``(cfg, max_seq)``, built at most once
     per process (modulo LRU eviction)."""
-    return _built(("prefill", cfg, max_seq) + _mesh_key(),
+    return _built(("prefill", cfg, max_seq) + mesh_key(),
                   lambda: make_prefill_step(cfg, max_seq))
 
 
@@ -117,7 +105,7 @@ def compiled_decode(cfg: ModelConfig, greedy: bool = True,
                     donate: bool = False) -> Callable:
     """The cached decode step for ``cfg``; ``donate=True`` updates the
     caches in place (the serving launcher's steady-state path)."""
-    return _built(("decode", cfg, greedy, donate) + _mesh_key(),
+    return _built(("decode", cfg, greedy, donate) + mesh_key(),
                   lambda: make_decode_step(cfg, greedy, donate))
 
 

@@ -14,6 +14,16 @@ is what pinning activations batch-sharded makes GSPMD do (gather the
 WEIGHTS, not the batch); DTensor's own propagation could move the
 activation instead, so the gather is explicit. An abstract ``Mesh`` has no
 devices: installed, it makes ``shard_act`` raise rather than be ignored.
+
+Gradients: the helpers that hand a rank its local shard (``local_cut_like``,
+``per_shard``, ``local``) label the shard's gradient with the placements of
+the work the rank did on it. An operand whole on a mesh axis whose ranks
+work on different cuts (other batch rows) gets a partial sum of its
+gradient on each of them, labelled ``Partial()``, which the backward of its
+redistribute reduces; DTensor's default, the forward placements, would call
+it replicated and drop that reduction. ``sum_over`` is an all-reduce over
+mesh axes whose backward is the identity (the sum is whole on every rank of
+those axes, and so is the gradient that reaches it).
 """
 from __future__ import annotations
 
@@ -49,18 +59,50 @@ def use_sharding(mesh, rules: MeshRules):
     """Install ``mesh`` and ``rules``. Over a ``DeviceMesh``, plain tensors
     that meet DTensors in an op (positions, rotary frequencies, masks:
     every rank computes the same values) count as replicated."""
+    with installed((mesh, rules)):
+        yield
+
+
+@contextlib.contextmanager
+def installed(state):
+    """Install ``state`` (a value of ``current()``: (mesh, rules), or None)
+    on this thread, with DTensor's implicit replication on over a
+    ``DeviceMesh``; both are restored on exit, so the installs nest.
+    ``models.module.remat`` installs the forward's state around a block's
+    recompute, which the backward may run on another thread (the card's
+    autograd worker), where a thread's context is not seen."""
     prev = current()
-    _STATE.ctx = (mesh, rules)
+    _STATE.ctx = state
+    dispatch = flag = None
+    if state is not None and has_devices(state[0]):
+        from torch.distributed.tensor import DTensor
+        # the flag ``implicit_replication()`` sets; that context manager
+        # clears it on exit instead of restoring it, so nested installs
+        # (a recompute inside the forward's install) set it here
+        dispatch = DTensor._op_dispatcher
+        flag = dispatch._allow_implicit_replication
+        dispatch._allow_implicit_replication = True
     try:
-        if has_devices(mesh):
-            from torch.distributed.tensor.experimental import \
-                implicit_replication
-            with implicit_replication():
-                yield
-        else:
-            yield
+        yield
     finally:
         _STATE.ctx = prev
+        if dispatch is not None:
+            dispatch._allow_implicit_replication = flag
+
+
+def mesh_key() -> tuple:
+    """() without a device mesh, else (mesh, rules): the part of a step's
+    key that says where it runs."""
+    ctx = device_mesh()
+    return () if ctx is None else tuple(ctx)
+
+
+def check_mesh(key: tuple) -> None:
+    """Raise ``RuntimeError`` unless the installed mesh is ``key``'s: a step
+    built for one mesh (or for none) runs under that mesh only."""
+    if mesh_key() != key:
+        raise RuntimeError(f"a step built for mesh {key or None} was called "
+                           f"under {mesh_key() or None}")
 
 
 def divisible_spec(mesh, rules: MeshRules, logical, shape) -> PartitionSpec:
@@ -136,7 +178,9 @@ def shard_unflatten(x, dim: int, sizes, *logical: Optional[str]):
 
 
 def local(x):
-    """The rank's shard of a DTensor; a plain tensor itself."""
+    """The rank's shard of a DTensor (its gradient labelled with the
+    DTensor's placements: the rank works on that shard alone); a plain
+    tensor itself."""
     from torch.distributed.tensor import DTensor
     return x.to_local() if isinstance(x, DTensor) else x
 
@@ -147,16 +191,57 @@ def _cut_like(ref, dims) -> tuple:
                  else Replicate() for p in ref.placements)
 
 
+def grad_placements(held, work) -> tuple:
+    """The placements of the gradient of a local shard laid out by
+    ``held`` that each rank used in work cut as ``work``: ``held``, bar a
+    mesh axis where the shard is whole but the work is cut, whose ranks
+    each hold a partial sum (``Partial()``)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    return tuple(Partial() if isinstance(h, Replicate) and isinstance(w, Shard)
+                 else h for h, w in zip(held, work))
+
+
 def local_cut_like(x, ref, dims):
     """The rank's shard of ``x`` laid out with its dim ``dims[d]`` cut as
     ``ref``'s dim ``d`` and its other dims whole: under a device mesh, the
     operands of a computation each rank does on its own batch rows and
-    heads. A plain ``x`` (the same on every rank), or any ``x`` without a
-    context, is returned as it is."""
+    heads (the work cut as ``ref``). Its gradient is labelled by
+    ``grad_placements``. A plain ``x`` (the same on every rank), or any
+    ``x`` without a context, is returned as it is."""
     from torch.distributed.tensor import DTensor
     if device_mesh() is None or not isinstance(x, DTensor):
         return x
-    return x.redistribute(x.device_mesh, _cut_like(ref, dims)).to_local()
+    cut = _cut_like(ref, dims)
+    return x.redistribute(x.device_mesh, cut).to_local(
+        grad_placements=grad_placements(cut, ref.placements))
+
+
+def like(t, ref):
+    """``t``, the rank's shard of a tensor laid out as ``ref`` (same global
+    shape), as a DTensor like ``ref``; ``t`` itself when ``ref`` is a plain
+    tensor."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(ref, DTensor):
+        return t
+    return from_shard(t, ref.device_mesh, ref.placements, ref.shape)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def replicated(t, ref):
+    """``t`` (the same on every rank) as a DTensor replicated over the mesh
+    of ``ref``: the optimizer's count beside DTensor parameters, labels
+    beside DTensor logits. ``t`` itself when it is a DTensor already or
+    ``ref`` is a plain tensor."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor) or not isinstance(ref, DTensor):
+        return t
+    return DTensor.from_local(t, ref.device_mesh,
+                              [Replicate()] * ref.device_mesh.ndim,
+                              run_check=False)
 
 
 def from_local_like(t, ref, dims, shape):
@@ -165,10 +250,10 @@ def from_local_like(t, ref, dims, shape):
     DTensor; ``t`` itself without a context."""
     if device_mesh() is None:
         return t
-    return _from_local(t, ref.device_mesh, _cut_like(ref, dims), shape)
+    return from_shard(t, ref.device_mesh, _cut_like(ref, dims), shape)
 
 
-def _from_local(t, torch_mesh, placements_, shape):
+def from_shard(t, torch_mesh, placements_, shape):
     """A DTensor of even cuts from the local ``t`` (DTensor infers the
     global shape and strides from the shard's); ``shape`` is the shape the
     caller expects."""
@@ -189,7 +274,82 @@ def per_shard(fn, x, shape):
     if device_mesh() is None:
         return fn(x)
     x = _dtensor(x, "an activation")
-    return _from_local(fn(x.to_local()), x.device_mesh, x.placements, shape)
+    return from_shard(fn(x.to_local()), x.device_mesh, x.placements, shape)
+
+
+def axes_where(x, pred) -> tuple:
+    """The mesh axes of the DTensor ``x`` whose placement satisfies
+    ``pred``."""
+    names = x.device_mesh.mesh_dim_names
+    return tuple(a for a, p in zip(names, x.placements) if pred(p))
+
+
+def _groups(torch_mesh, axes) -> tuple:
+    return tuple(torch_mesh.get_group(a) for a in axes)
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce SUM over process groups; the backward is the identity:
+    the sum is whole on every rank of the groups, each rank's gradient of it
+    the same, and that is the gradient of each rank's addend."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        import torch.distributed as dist
+        t = t.clone()
+        for g in groups:
+            dist.all_reduce(t, group=g)
+        return t
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_over(t, torch_mesh, axes):
+    """The plain tensor ``t`` summed over the ranks of the mesh ``axes`` (an
+    all-reduce a tensor, differentiable as ``_SumOver``); ``t`` itself for
+    no axes."""
+    if not axes:
+        return t
+    return _SumOver.apply(t, _groups(torch_mesh, axes))
+
+
+def reduce_over(t, torch_mesh, axes, op: str):
+    """``t`` reduced by ``op`` (``"max"`` or ``"min"``) over the ranks of
+    the mesh ``axes``, outside autograd."""
+    import torch.distributed as dist
+    t = t.detach().clone()
+    which = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
+    for g in _groups(torch_mesh, axes):
+        dist.all_reduce(t, op=which, group=g)
+    return t
+
+
+def local_range(x, dim: int):
+    """(first index, length) of this rank's cut of the DTensor ``x``'s dim
+    ``dim``: mesh axes that shard it cut it in the mesh's order, the first
+    one outermost (DTensor's nesting)."""
+    coord = x.device_mesh.get_coordinate()
+    lo, size = 0, x.shape[dim]
+    for i, p in enumerate(x.placements):
+        if p.is_shard(dim):
+            n = x.device_mesh.size(i)
+            if size % n:
+                raise ValueError(f"dim {dim} of {x.shape[dim]} is cut "
+                                 "unevenly")
+            size //= n
+            lo += coord[i] * size
+    return lo, size
+
+
+def owns_copy(x) -> bool:
+    """Whether this rank holds the first copy of its shard of the DTensor
+    ``x``: coordinate 0 on every mesh axis where ``x`` is whole. Summing
+    over such ranks counts each element once."""
+    coord = x.device_mesh.get_coordinate()
+    return all(c == 0 for c, p in zip(coord, x.placements)
+               if not p.is_shard())
 
 
 def _replicate_where(x, drop, what: str):
@@ -218,9 +378,10 @@ def gather_dim(x, dim: int):
 
 def reduce_partial(x):
     """Under a device mesh, ``x`` with its pending partial sums (a product
-    contracted over the tensor axis, a vocab-cut embedding lookup) summed
-    and replicated over their axes: the all-reduce GSPMD places where a
-    row-parallel product meets the replicated residual. Left pending,
+    contracted over the tensor axis) summed and replicated over their
+    axes: the all-reduce GSPMD places where a row-parallel product meets
+    the replicated residual; its backward leaves the gradient whole (the
+    backward of an all-reduce is the identity). Left pending,
     DTensor would reduce-scatter it at the next op that cannot take a
     partial value and cut the residual stream's features instead. Without
     a context, ``x`` itself."""
@@ -242,23 +403,6 @@ def pin(x, spec):
                                [Replicate()] * len(mesh.axis_names),
                                run_check=False)
     return x.redistribute(mesh.torch_mesh, placements(mesh, spec))
-
-
-def _local_range(mesh, placements_, dim: int, extent: int):
-    """(first index, length) of this rank's cut of ``dim`` (``extent``
-    long) under ``placements_``: mesh axes that shard it cut it in the
-    mesh's order, the first one outermost (DTensor's nesting)."""
-    from torch.distributed.tensor import Shard
-    coord = mesh.torch_mesh.get_coordinate()
-    lo, size = 0, extent
-    for i, p in enumerate(placements_):
-        if isinstance(p, Shard) and p.dim == dim:
-            n = mesh.torch_mesh.size(i)
-            if size % n:
-                raise ValueError(f"dim {dim} of {extent} is cut unevenly")
-            size //= n
-            lo += coord[i] * size
-    return lo, size
 
 
 def write_slot(cache, slot: int, value) -> None:
@@ -283,7 +427,7 @@ def write_slot(cache, slot: int, value) -> None:
             else:
                 want.append(p)
         value = value.redistribute(mesh.torch_mesh, want).to_local()
-    lo, size = _local_range(mesh, cache.placements, 1, cache.shape[1])
+    lo, size = local_range(cache, 1)
     if lo <= slot < lo + size:
         cache.to_local()[:, slot - lo] = value
 

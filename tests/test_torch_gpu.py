@@ -2073,3 +2073,76 @@ def test_lm_mesh_qwen3_on_four_cards_matches_one_card(lm_mesh_card_runs,
     assert r["prefill_rel"] < LM_MESH_CARD_RTOL
     assert r["decode_rel"] < LM_MESH_CARD_RTOL
     assert r["bytes"] == [r["predicted"]] * 4
+
+
+# ---------------------------------------------------------------------------
+# LM training sharded over four cards (one process a card, NCCL): the
+# train step at test widths against the unsharded port on card 0.
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_CARD_SHAPES = ((2, 2), (4, 1))
+TRAIN_MESH_CARD_OVER = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                            head_dim=16, d_ff=128)
+TRAIN_MESH_CARD_DATA = (4, 8)           # batch, seq
+TRAIN_MESH_CARD_RTOL = 1e-4             # loss, grad norm, gradients (of
+TRAIN_MESH_CARD_ATOL = 5e-3             # the leaf's largest |g|); params
+
+
+@pytest.fixture(scope="module")
+def train_mesh_card_runs(tmp_path_factory):
+    """Four ranks, one a card; skips below four cards (decided here)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices (LM training across cards)")
+    import os
+    import pickle
+    import time
+    import torch.multiprocessing as mp
+    import torch_train_mesh_worker as worker
+    d = tmp_path_factory.mktemp("train_mesh_cards")
+    spawn = mp.get_context("spawn")
+    procs = [spawn.Process(target=worker.card_main,
+                           args=(r, 4, str(d / "store"),
+                                 TRAIN_MESH_CARD_SHAPES,
+                                 TRAIN_MESH_CARD_OVER, TRAIN_MESH_CARD_DATA,
+                                 str(d)))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 600
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    hung = [p for p in procs if p.is_alive()]
+    for p in hung:
+        p.kill()
+        p.join(10)
+    assert not hung and [p.exitcode for p in procs] == [0] * 4
+    with open(os.path.join(d, "result.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+@pytest.mark.parametrize("shape", TRAIN_MESH_CARD_SHAPES,
+                         ids=["2x2", "4x1"])
+def test_train_mesh_on_four_cards_matches_one_card(train_mesh_card_runs,
+                                                   shape):
+    """Step 1's loss and grad norm, every gradient, and the parameters
+    after three AdamW steps against the unsharded port on card 0; each
+    gradient in its parameter's placements; each card's train-state bytes
+    equal to the dry run's."""
+    import torch_train_mesh_worker as worker
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import default_rules
+    from repro_torch.sharding.partition import Mesh
+    r = train_mesh_card_runs[shape]
+    assert r["loss_rel"] < TRAIN_MESH_CARD_RTOL
+    assert r["gnorm_rel"] < TRAIN_MESH_CARD_RTOL
+    assert r["grad_rel"] < TRAIN_MESH_CARD_RTOL
+    assert r["param_abs"] < TRAIN_MESH_CARD_ATOL
+    assert r["placed"]
+    cfg = worker.port_cfg("qwen3-1.7b", TRAIN_MESH_CARD_OVER)
+    mesh = Mesh(shape, worker.AXES)
+    cell = ShapeConfig("train_mesh", TRAIN_MESH_CARD_DATA[1],
+                       TRAIN_MESH_CARD_DATA[0], "train")
+    want = (dryrun.argument_bytes(cfg, cell, mesh, default_rules(mesh))
+            - dryrun.input_bytes(cfg, cell, mesh, default_rules(mesh)))
+    assert r["bytes"] == [want] * 4
