@@ -171,15 +171,24 @@ JAX package's placements, ``serve.step`` under
 ``sharding.ctx.use_sharding``), rank 0 printing: a 1x1 mesh on one
 card; (2,2), (1,4), (4,1) and batch 1 on (4,1) (the KV cache cut along
 the sequence) on four (``--mesh-only``, and four gloo ranks on the CPU
-rehearsal). Parameters are drawn once on the host from the seed. Each
+rehearsal). Parameters are drawn from the seed on each rank's card. Each
 line, in f32: the greedy tokens equal the same model's with no mesh,
-prefill's logits and each decode's (against the forward pass at the
-same positions) within rel 1e-4 of the largest logit, and each card's
+prefill's logits and each decode's (against the same model's with no
+mesh, and for qwen3 against the forward pass at the same positions)
+within rel 1e-4 of the largest logit, and each card's
 resident bytes (the local shards of parameters and caches) equal to the
 dry run's ``argument_bytes`` less its inputs; the collectives of the
 prefill and of one decode step by kind (``CommDebugMode``); then the
 config's own bf16 compute timed (prefill ms, decode ms a token) and
 ``max_memory_allocated`` a card. A failing rank exits the run non-zero.
+The MoE family follows in the same spawn (``MESH_MOE``): granite-moe at
+its full config (24 layers, d 1024, 32 experts top-8, vocab 49,155, the
+global pool) on the 1x1 mesh, and at (2,2) and (1,4) on four cards (EP,
+16 and 8 experts a card), its f32 gates at full width, 2 layers, then
+the config's bf16 compute at full depth timed; mixtral-8x7b at full
+width, 1 layer, on four cards only at (1,4), its f32 gate alone. The 1x1
+runs take 16 new tokens (32 on four cards), and every run draws its
+parameters on its card. Each arch's wall and the phase's are printed.
 
 The train mesh phase (``train mesh`` lines) trains the same qwen3-1.7b
 sharded the same way (``train.step`` under ``use_sharding``, the state
@@ -198,7 +207,10 @@ steps: finite losses and norms, the last loss below the first, the
 median step ms of steps 3-10, tokens/s, one step's collectives by kind
 (CommDebugMode) and its device and NCCL-kernel ms (torch.profiler), the
 full config's train-state bytes against the dry run's, the peak a card;
-and the phase's wall.
+and the phase's wall. The MoE family follows in the same spawn, on the
+LM mesh phase's meshes: the f32 gates (with the MoE aux loss) at 2
+layers (mixtral 1), granite-moe's full config timed on the packed batch
+in its own vocabulary (49,155).
 
 The training phase comes last (``repro_torch.train``, ``optim``,
 ``checkpoint``, ``data.pipeline`` and the training launcher's
@@ -214,7 +226,7 @@ above what earlier phases hold, and one step under torch.profiler
 turns, loss_chunk 0 against 512 and the blocks taken by ``torch.unbind``
 against ``x[i]`` (the port's earlier way), 3 steps each: median ms and
 the peak above the resident state. Then ``launch.train.main`` as a user
-runs it at that config (20 steps, a checkpoint at the last): its
+runs it at that config (10 steps, a checkpoint at the last): its
 ``[done]`` line, a ``[step]`` line a step and the checkpoint on disk;
 it raises itself unless the loss fell. At full width with 2 layers and f32
 compute, one step on the card against the CPU (loss rel 1e-5, grad norm
@@ -250,7 +262,8 @@ the three kernels with a launch parameter, of the float64 instance and of
 (each generated merge's on its merges line), one line per query and
 kernel, the merges, serving,
 autotune, CF, demo, LM, training and dry-run lines (each with the card's
-name and power limit), a ``{"kernels":
+name and power limit), the script's wall from its argument parsing
+(``chip_smoke: ... s wall``, also on a ``--mesh-only`` run), a ``{"kernels":
 [...]}`` JSON line (with each tuned kernel's default and best tiles, the
 generated launches of ``merge_join`` and ``coo_expand`` in the merges
 phase, and the float64 ``masked_matmul``'s numbers),
@@ -340,6 +353,15 @@ LM_CARD_CPU_TOL = 1e-4         # the port's f32 parity tolerance
 # reductions differently)
 LM_MESH_RUNS = (((2, 2), 4), ((1, 4), 4), ((4, 1), 4), ((4, 1), 1))
 LM_MESH_RTOL = 1e-4
+LM_MESH_ONE_CARD_NEW = 16      # new tokens of the 1x1 runs (32 on four cards)
+# the MoE family in the LM and train mesh phases: (arch, its meshes on
+# four cards, the depth of its f32 gates, timed): granite-moe at full
+# width and depth (a 1x1 mesh on one card; EP at 16 and 8 experts a card
+# on four), gated at 2 layers; mixtral-8x7b (186.8 GB of f32 parameters,
+# more than distribute can place from one card) at full width, 1 layer,
+# its f32 gate alone, on four cards only
+MESH_MOE = (("granite-moe-1b-a400m", ((2, 2), (1, 4)), 2, True),
+            ("mixtral-8x7b", ((1, 4),), 1, False))
 # the train mesh phase: qwen3-1.7b's train step (train.step under a mesh)
 # on these meshes (data, model) over four cards, a 1x1 mesh on one; the f32
 # gates at full width, 2 layers, against the unsharded port on the same
@@ -349,6 +371,7 @@ LM_MESH_RTOL = 1e-4
 TRAIN_MESH_SHAPES = ((2, 2), (1, 4), (4, 1))
 TRAIN_MESH_RTOL = 1e-4
 TRAIN_MESH_GATE_STEPS = 3
+TRAIN_MESH_MOE_ONE_CARD_STEPS = 6   # granite-moe's timed steps on a 1x1 mesh
 # The training phase: the corpus (vocab, seq, batch, docs, doc length) and
 # qwen3-1.7b's full config for TRAIN_STEPS steps on one packed batch; the
 # A/B's of loss_chunk and of the blocks' unbind take TRAIN_AB_STEPS each
@@ -356,7 +379,7 @@ TRAIN_DATA = (151_936, 256, 4, 256, 512)
 TRAIN_STEPS = 10
 TRAIN_AB_STEPS = 3
 TRAIN_CHUNK = 512
-TRAIN_LAUNCH_STEPS = 20        # launch.train's own loop, one checkpoint
+TRAIN_LAUNCH_STEPS = 10        # launch.train's own loop, one checkpoint
 TRAIN_CARD_CPU = (4, 16)       # batch, seq of the 2-layer f32 checks
 TRAIN_FAMILY = (2, 32)         # batch, seq of each family's step
 TRAIN_STATE_LIMIT = 60e9       # bytes of params + grads + m + v on the card
@@ -2759,12 +2782,31 @@ def _comm_kinds(mode) -> str:
         or "none"
 
 
+def _drawn(spec, seed, dev):
+    """The parameters of ``spec`` drawn from ``seed`` on ``dev`` (every
+    rank of a mesh the same values; ``distribute`` takes rank 0's)."""
+    import torch
+    from repro_torch.models.module import init_params
+    return init_params(spec, torch.Generator(dev).manual_seed(seed), dev)
+
+
 def _lm_mesh_reference(params, cfg, prompt, n_new, max_seq):
-    """The unsharded run: prefill's last logits and the greedy tokens."""
-    from repro_torch.serve.step import compiled_prefill, generate
-    logits, _ = compiled_prefill(cfg, max_seq)(params, {"tokens": prompt})
-    return logits[:, -1].float(), generate(params, cfg, prompt, n_new,
-                                           max_seq)
+    """The unsharded run, as ``_lm_mesh_serve`` runs it: prefill's last
+    logits, the greedy tokens and each decode step's logits."""
+    import torch
+    from repro_torch.serve.step import (compiled_decode, compiled_prefill,
+                                        first_position)
+    decode = compiled_decode(cfg, donate=True)
+    logits, caches = compiled_prefill(cfg, max_seq)(params,
+                                                    {"tokens": prompt})
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    toks, steps = [tok], []
+    pos0 = first_position(cfg, prompt.shape[1])
+    for i in range(n_new - 1):
+        lg, tok, caches = decode(params, caches, tok, pos0 + i)
+        steps.append(lg[:, 0].float())
+        toks.append(tok)
+    return logits[:, -1].float(), torch.cat(toks, dim=1), steps
 
 
 def _mesh_sync(on_card):
@@ -2851,11 +2893,14 @@ def _lm_mesh_time(params, cfg, prompt, n_new, max_seq, on_card):
             nccl / LM_PROFILE_STEPS, wall)
 
 
-def _lm_mesh_runs(rank, device, seed, small, card, runs):
-    """Every (mesh, batch) of ``runs`` on this rank; rank 0 returns the
-    lines. Parameters are drawn once on the host from the seed (the same
-    values on every rank) and distributed onto each mesh; rank 0 also
-    runs them with no mesh, the reference."""
+def _lm_mesh_runs(rank, device, seed, small, card, arch, runs, gate_layers,
+                  timed):
+    """Every (mesh, batch) of ``runs`` for ``arch`` on this rank; rank 0
+    returns the lines. The f32 gates run at ``gate_layers`` layers (None:
+    the config's depth), the bf16 timing (when ``timed``) at the config's
+    depth. Parameters are drawn from the seed on each rank's device (the
+    same values on every rank) and distributed onto each mesh; rank 0 also
+    runs the gated model with no mesh, the reference."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -2872,15 +2917,19 @@ def _lm_mesh_runs(rank, device, seed, small, card, runs):
     from repro_torch.sharding.specs import pin_inputs
     on_card = device == "cuda"
     dev = torch.device("cuda", rank) if on_card else torch.device("cpu")
-    full = get_config(LM_ARCH)
+    full = get_config(arch)
     b, s, n_new = LM_SERVE if not small else (4, 16, 8)
+    if not small and math.prod(runs[0][0]) == 1:
+        n_new = LM_MESH_ONE_CARD_NEW
     cfg16 = reduced(full) if small else full
-    cfg32 = dataclasses.replace(cfg16, compute_dtype=torch.float32)
+    cfg32 = dataclasses.replace(cfg16, compute_dtype=torch.float32,
+                                n_layers=gate_layers or cfg16.n_layers)
     max_seq = s + n_new
     spec = mapi.spec(cfg32)
     t0 = time.perf_counter()
-    host = init_params(spec, torch.Generator("cpu").manual_seed(seed + 31),
-                       "cpu")
+    host = _drawn(spec, seed + 31, dev)
+    host16 = host if cfg32.n_layers == cfg16.n_layers or not timed else \
+        _drawn(mapi.spec(cfg16), seed + 32, dev)
     t_init = time.perf_counter() - t0
     prompt = lm_inputs(cfg32, b, s, seed + 31, dev)["tokens"]
     want = {}
@@ -2896,6 +2945,7 @@ def _lm_mesh_runs(rank, device, seed, small, card, runs):
         if on_card:
             torch.cuda.empty_cache()
         base = _peak_from_here(on_card)
+        t_run = time.perf_counter()
         mesh = make_device_mesh(shape, ("data", "model"), device)
         rules = default_rules(mesh)
         params = distribute(host, shardings(spec, mesh, rules))
@@ -2904,15 +2954,24 @@ def _lm_mesh_runs(rank, device, seed, small, card, runs):
                 params, cfg32, prompt[:bb], n_new, max_seq)
             resident = _local_bytes(params) + _local_bytes(caches)
             del caches
-            fwd_in = torch.cat([prompt[:bb], toks[:, :-1].to(dev)], dim=1)
-            fwd, _ = mapi.forward(params, cfg32,
-                                  pin_inputs({"tokens": fwd_in}))
-            fwd = fwd.full_tensor()
-            worst = max(_lm_rel(lg, fwd[:, s + i])
-                        for i, lg in enumerate(steps))
-            del fwd, steps
-            prefill_ms, decode_ms, busy, nccl, wall = _lm_mesh_time(
-                params, cfg16, prompt[:bb], n_new, max_seq, on_card)
+            worst = None
+            if cfg32.moe is None:
+                fwd_in = torch.cat([prompt[:bb], toks[:, :-1].to(dev)],
+                                   dim=1)
+                fwd, _ = mapi.forward(params, cfg32,
+                                      pin_inputs({"tokens": fwd_in}))
+                fwd = fwd.full_tensor()
+                worst = max(_lm_rel(lg, fwd[:, s + i])
+                            for i, lg in enumerate(steps))
+                del fwd
+            timing = None
+            if timed:
+                if host16 is not host:
+                    del params
+                    params = distribute(host16, shardings(mapi.spec(cfg16),
+                                                          mesh, rules))
+                timing = _lm_mesh_time(params, cfg16, prompt[:bb], n_new,
+                                       max_seq, on_card)
         peak = (torch.cuda.max_memory_allocated() - base) if on_card else 0
         per_rank = [None] * dist.get_world_size()
         dist.all_gather_object(per_rank, (resident, peak))
@@ -2924,40 +2983,58 @@ def _lm_mesh_runs(rank, device, seed, small, card, runs):
         del params
         if rank:
             continue
-        w_pre, w_toks = want[bb]
+        w_pre, w_toks, w_steps = want[bb]
         rel = _lm_rel(pre, w_pre)
         tag = f"lm mesh {shape[0]}x{shape[1]} (data x model) batch {bb}"
         assert torch.equal(toks.cpu(), w_toks.cpu()), \
-            f"{tag}: greedy tokens differ from the unsharded run's"
-        assert rel < LM_MESH_RTOL, f"{tag}: prefill rel err {rel:.3e}"
-        assert worst < LM_MESH_RTOL, f"{tag}: decode vs forward {worst:.3e}"
+            f"{tag} {arch}: greedy tokens differ from the unsharded run's"
+        assert rel < LM_MESH_RTOL, f"{tag} {arch}: prefill rel err {rel:.3e}"
+        dec = max(_lm_rel(g, w) for g, w in zip(steps, w_steps))
+        assert dec < LM_MESH_RTOL, \
+            f"{tag} {arch}: decode vs unsharded decode {dec:.3e}"
+        # the forward of a model with experts routes its whole pool under
+        # a capacity, so its logits are not decode's (drops differ)
+        assert worst is None or worst < LM_MESH_RTOL, \
+            f"{tag} {arch}: decode vs forward {worst:.3e}"
+        against = f"decode vs unsharded decode {dec:.2e}" + (
+            "" if worst is None else f", vs forward {worst:.2e}")
         assert all(r == predicted for r, _ in per_rank), \
-            f"{tag}: resident bytes {[r for r, _ in per_rank]} != " \
+            f"{tag} {arch}: resident bytes {[r for r, _ in per_rank]} != " \
             f"dry run {predicted}"
+        moe = "" if cfg32.moe is None else (
+            f", {cfg32.moe.n_experts} experts top-{cfg32.moe.top_k}, "
+            f"{'grouped' if cfg32.moe.grouped_dispatch else 'global pool'}")
+        if timing is None:
+            timed_text = "not timed (the f32 gate alone)"
+        else:
+            prefill_ms, decode_ms, busy, nccl, wall = timing
+            timed_text = (
+                f"bf16 compute at {cfg16.n_layers} layers: prefill "
+                f"{prefill_ms:.3f} ms, decode {decode_ms:.4f} ms/token"
+                + ("" if busy is None else
+                   f" (torch.profiler, {LM_PROFILE_STEPS} steps: device "
+                   f"{busy:.3f} ms a step, {nccl:.3f} of it NCCL kernels, "
+                   f"{100 * busy / wall:.1f}% of the {wall:.3f} ms "
+                   "profiled wall)"))
         lines.append(
             f"{tag}{' (KV cache cut along the sequence)' if bb == 1 and shape[0] > 1 else ''}: "
             f"{cfg32.arch_id} {cfg32.n_layers} layers, d {cfg32.d_model}, "
-            f"vocab {cfg32.vocab_size}, prompt {s}, {n_new} new tokens "
-            f"(params drawn on the host in {t_init:.2f} s); f32: "
+            f"vocab {cfg32.vocab_size}{moe}, prompt {s}, {n_new} new tokens "
+            f"(params drawn on {dev.type} in {t_init:.2f} s); f32: "
             f"{toks.shape[1]} greedy tokens == unsharded "
-            f"{toks[0, :6].tolist()}..., prefill logits rel err {rel:.2e} "
-            f"and decode vs forward {worst:.2e} (limit "
+            f"{toks[0, :6].tolist()}..., prefill logits rel err {rel:.2e}, "
+            f"{against} (limit "
             f"{LM_MESH_RTOL:.0e}); resident bytes per card "
             f"{[r for r, _ in per_rank]} == dry run argument_bytes - "
             f"inputs {predicted}; collectives (CommDebugMode): prefill "
-            f"[{comm_p}], decode step [{comm_d}]; bf16 compute: prefill "
-            f"{prefill_ms:.3f} ms, decode {decode_ms:.4f} ms/token"
-            + ("" if busy is None else
-               f" (torch.profiler, {LM_PROFILE_STEPS} steps: device "
-               f"{busy:.3f} ms a step, {nccl:.3f} of it NCCL kernels, "
-               f"{100 * busy / wall:.1f}% of the {wall:.3f} ms profiled "
-               "wall)") + "; "
+            f"[{comm_p}], decode step [{comm_d}]; {timed_text}; "
             f"max_memory_allocated per card above the start "
-            f"{[round(p / 2**30, 3) for _, p in per_rank]} GiB [{card}]")
+            f"{[round(p / 2**30, 3) for _, p in per_rank]} GiB; "
+            f"{time.perf_counter() - t_run:.1f} s [{card}]")
     return lines
 
 
-def _lm_mesh_rank(rank, world, init, device, seed, small, card, runs, out):
+def _lm_mesh_rank(rank, world, init, device, seed, small, card, jobs, out):
     import torch
     import torch.distributed as dist
     kw = {}
@@ -2970,7 +3047,13 @@ def _lm_mesh_rank(rank, world, init, device, seed, small, card, runs, out):
                             init_method=init, rank=rank, world_size=world,
                             **kw)
     try:
-        lines = _lm_mesh_runs(rank, device, seed, small, card, runs)
+        lines = []
+        for arch, runs, gate_layers, timed in jobs:
+            t0 = time.perf_counter()
+            lines += _lm_mesh_runs(rank, device, seed, small, card, arch,
+                                   runs, gate_layers, timed)
+            lines.append(f"lm mesh {arch}: {time.perf_counter() - t0:.1f} s "
+                         f"[{card}]")
         if rank == 0:
             Path(out).write_text(json.dumps(lines))
     finally:
@@ -2978,45 +3061,63 @@ def _lm_mesh_rank(rank, world, init, device, seed, small, card, runs, out):
 
 
 def lm_mesh_phase(device, seed, small, card):
-    """qwen3-1.7b's serving program (``serve.step``) on a device mesh, one
-    process a card (``torch.multiprocessing``, spawn; NCCL, or gloo on the
-    CPU rehearsal), the JAX package's placements for every parameter,
-    cache and pinned activation. On four cards (and the CPU rehearsal's
-    four ranks) the meshes of ``LM_MESH_RUNS``, else a 1x1 mesh on one
-    card. Each run, in f32: the greedy tokens equal the unsharded run's,
-    prefill's logits and each decode's (held to the forward pass at the
-    same positions) within ``LM_MESH_RTOL``, and each card's resident
-    bytes (the local shards of parameters and caches) equal to the dry
-    run's ``argument_bytes`` less the inputs; then the config's own bf16
-    compute, timed. A failing rank raises here. Returns rank 0's lines."""
+    """qwen3-1.7b's and the MoE family's serving program (``serve.step``)
+    on a device mesh, one process a card (``torch.multiprocessing``,
+    spawn; NCCL, or gloo on the CPU rehearsal), the JAX package's
+    placements for every parameter, cache and pinned activation. On four
+    cards (and the CPU rehearsal's four ranks) qwen3 on the meshes of
+    ``LM_MESH_RUNS`` and each ``MESH_MOE`` arch on its own, else a 1x1
+    mesh on one card for qwen3 and granite-moe. Each run, in f32: the
+    greedy tokens equal the unsharded run's, prefill's logits and each
+    decode's (held to the unsharded run's, and without experts also to
+    the forward pass at the same positions: a forward routes its whole
+    pool under a capacity, which drops other assignments than decode's)
+    within ``LM_MESH_RTOL``, and each card's resident bytes (the local shards of
+    parameters and caches) equal to the dry run's ``argument_bytes`` less
+    the inputs; then the config's own bf16 compute at its full depth,
+    timed. A failing rank raises here. Returns rank 0's lines, each
+    arch's wall and the phase's last."""
     import tempfile
     import torch
     import torch.multiprocessing as tmp
+    t0 = time.perf_counter()
     four = device == "cpu" or torch.cuda.device_count() >= 4
-    runs = LM_MESH_RUNS if four else (((1, 1), LM_SERVE[0]),)
-    world = math.prod(runs[0][0])
+    b = LM_SERVE[0]
+    if four:
+        jobs = [(LM_ARCH, LM_MESH_RUNS, None, True)] + [
+            (arch, tuple((shape, b) for shape in shapes), layers, timed)
+            for arch, shapes, layers, timed in MESH_MOE]
+    else:
+        jobs = [(LM_ARCH, (((1, 1), b),), None, True)] + [
+            (arch, (((1, 1), b),), layers, timed)
+            for arch, _, layers, timed in MESH_MOE if timed]
+    world = math.prod(jobs[0][1][0][0])
     sys.stdout.flush()
     with tempfile.TemporaryDirectory() as d:
         out = str(Path(d) / "lines.json")
         tmp.start_processes(
             _lm_mesh_rank, nprocs=world, start_method="spawn",
             args=(world, f"tcp://localhost:{_free_port()}", device, seed,
-                  small, card, runs, out))
-        return json.loads(Path(out).read_text())
+                  small, card, jobs, out))
+        lines = json.loads(Path(out).read_text())
+    return lines + [f"lm mesh phase: {time.perf_counter() - t0:.1f} s "
+                    f"[{card}]"]
 
 
 # ---------------------------------------------------------------------------
 # The train mesh phase: the train step sharded one rank a card.
 # ---------------------------------------------------------------------------
 
-def train_mesh_batch(seed, small):
+def train_mesh_batch(seed, small, vocab=None):
     """The training phase's packed batch (batch 4, seq 256; vocab 512, seq
-    32 on the rehearsal) as numpy arrays: the synthetic corpus cleaned and
-    split through a CPU Session (the same rows the card's gives, which the
+    32 on the rehearsal) as numpy arrays, in ``vocab``'s ids (default the
+    training phase's, qwen3's): the synthetic corpus cleaned and split
+    through a CPU Session (the same rows the card's gives, which the
     training phase holds to numpy), the first packed batch."""
     from repro_torch.data.pipeline import (DataConfig, SyntheticCorpus,
                                            pack_batches)
-    vocab, seq, b, n_docs, doc_len = TRAIN_DATA
+    default, seq, b, n_docs, doc_len = TRAIN_DATA
+    vocab = vocab or default
     if small:
         vocab, seq = 512, 32
     dc = DataConfig(vocab_size=vocab, seq_len=seq, global_batch=b,
@@ -3034,18 +3135,21 @@ def _whole_tree(tree):
 def _train_mesh_gates(rank, cfg, host, batch, mesh, rules, want):
     """The f32 gates of one mesh: (loss rel, grad norm rel, worst gradient
     of its leaf's largest |g|, placements equal, parameters' max abs
-    difference after the steps, the card's train-state bytes), the errors
-    on rank 0 against ``want`` (the unsharded run on that card)."""
+    difference after the steps, the forward's MoE aux loss rel (0 against
+    0 without experts)), the card's train-state bytes; the errors on rank
+    0 against ``want`` (the unsharded run on that card)."""
     from repro_torch.models import api as mapi
     from repro_torch.models.module import distribute, shardings, tree_items
     from repro_torch.optim.adamw import AdamW
     from repro_torch.sharding.ctx import use_sharding
+    from repro_torch.sharding.specs import pin_inputs
     from repro_torch.train.step import init_state, make_grad_fn, \
         make_train_step
     opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10)
     spec = mapi.spec(cfg)
     with use_sharding(mesh, rules):
         params = distribute(host, shardings(spec, mesh, rules))
+        aux = float(mapi.forward(params, cfg, pin_inputs(batch))[1])
         grads, _, _ = make_grad_fn(cfg)(params, batch)
         placed = all(tuple(g.placements) == tuple(p.placements)
                      for (_, g), (_, p) in zip(tree_items(grads),
@@ -3065,16 +3169,17 @@ def _train_mesh_gates(rank, cfg, host, batch, mesh, rules, want):
     del state, params
     if rank:
         return None, state_bytes
-    w_grads, w_metrics, w_params = want
+    w_grads, w_metrics, w_params, w_aux = want
     errs = (abs(metrics[0]["loss"] / w_metrics[0]["loss"] - 1),
             abs(metrics[0]["grad_norm"] / w_metrics[0]["grad_norm"] - 1),
             _tree_rel(whole, w_grads), placed,
-            _tree_max_abs(final, w_params))
+            _tree_max_abs(final, w_params),
+            abs(aux - w_aux) / max(abs(w_aux), 1e-30))
     return errs, state_bytes
 
 
-def _train_mesh_timed(cfg, host, batch, mesh, rules, on_card):
-    """``TRAIN_STEPS`` steps of the full config from ``host``: (metrics a
+def _train_mesh_timed(cfg, host, batch, mesh, rules, on_card, steps):
+    """``steps`` steps of the full config from ``host``: (metrics a
     step, wall ms a step, collectives of one step by kind, device ms and
     NCCL-kernel ms of one step by torch.profiler or None on the CPU, the
     peak bytes above the start, the card's train-state bytes)."""
@@ -3087,13 +3192,13 @@ def _train_mesh_timed(cfg, host, batch, mesh, rules, on_card):
     from repro_torch.sharding.ctx import use_sharding
     from repro_torch.train.step import init_state, make_train_step
     base = _peak_from_here(on_card)
-    opt = AdamW(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    opt = AdamW(lr=3e-4, warmup_steps=2, total_steps=steps)
     with use_sharding(mesh, rules):
         state = init_state(distribute(host, shardings(mapi.spec(cfg), mesh,
                                                       rules)), opt)
         step = make_train_step(cfg, opt)
         metrics, ms = [], []
-        for _ in range(TRAIN_STEPS):
+        for _ in range(steps):
             _mesh_sync(on_card)
             t0 = time.perf_counter()
             state, m = step(state, batch)
@@ -3122,11 +3227,14 @@ def _train_mesh_timed(cfg, host, batch, mesh, rules, on_card):
     return metrics, ms, _comm_kinds(comm), busy, nccl, peak, state_bytes
 
 
-def _train_mesh_runs(rank, device, seed, small, card, shapes, host_batch):
-    """Every mesh of ``shapes`` on this rank; rank 0 returns the lines.
-    The parameters are drawn once on the host from the seed (the same
-    values on every rank) and distributed onto each mesh; rank 0 also runs
-    the f32 model with no mesh on its card, the reference."""
+def _train_mesh_runs(rank, device, seed, small, card, arch, shapes,
+                     gate_layers, timed, host_batch):
+    """Every mesh of ``shapes`` for ``arch`` on this rank; rank 0 returns
+    the lines. The f32 gates run at ``gate_layers`` layers, the timed
+    steps (when ``timed``) at the config's depth. The parameters are
+    drawn from the seed on each rank's device (the same values on every
+    rank) and distributed onto each mesh; rank 0 also runs the f32 model
+    with no mesh on its card, the reference."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -3136,24 +3244,23 @@ def _train_mesh_runs(rank, device, seed, small, card, shapes, host_batch):
     from repro_torch.launch.mesh import default_rules, make_device_mesh
     from repro_torch.launch.train import device_batch
     from repro_torch.models import api as mapi
-    from repro_torch.models.module import init_params, tree_map
+    from repro_torch.models.module import tree_map
     from repro_torch.optim.adamw import AdamW
     from repro_torch.sharding.partition import Mesh
     from repro_torch.train.step import init_state, make_grad_fn, \
         make_train_step
     on_card = device == "cuda"
     dev = torch.device("cuda", rank) if on_card else torch.device("cpu")
-    full = get_config(LM_ARCH)
+    full = get_config(arch)
     cfg = dataclasses.replace(reduced(full), remat=full.remat) if small \
         else full
-    cfg32 = dataclasses.replace(cfg, n_layers=2, compute_dtype=torch.float32)
+    cfg32 = dataclasses.replace(cfg, n_layers=gate_layers,
+                                compute_dtype=torch.float32)
     batch = device_batch(cfg, host_batch, 1, dev)
     b, s = batch["tokens"].shape
     t0 = time.perf_counter()
-    host32 = init_params(mapi.spec(cfg32),
-                         torch.Generator("cpu").manual_seed(seed + 41), "cpu")
-    host = init_params(mapi.spec(cfg),
-                       torch.Generator("cpu").manual_seed(seed + 42), "cpu")
+    host32 = _drawn(mapi.spec(cfg32), seed + 41, dev)
+    host = _drawn(mapi.spec(cfg), seed + 42, dev) if timed else None
     t_init = time.perf_counter() - t0
     want = None
     if rank == 0:
@@ -3161,12 +3268,14 @@ def _train_mesh_runs(rank, device, seed, small, card, shapes, host_batch):
         opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10)
         grads, _, _ = make_grad_fn(cfg32)(ref, batch)
         grads = tree_map(lambda t: t.cpu(), grads)
+        aux = float(mapi.forward(ref, cfg32, batch)[1])
         step = make_train_step(cfg32, opt)
         state, metrics = init_state(ref, opt), []
         for _ in range(TRAIN_MESH_GATE_STEPS):
             state, m = step(state, batch)
             metrics.append({k: float(v) for k, v in m.items()})
-        want = (grads, metrics, tree_map(lambda t: t.cpu(), state.params))
+        want = (grads, metrics, tree_map(lambda t: t.cpu(), state.params),
+                aux)
         del ref, state, step
     lines = []
     for shape in shapes:
@@ -3178,8 +3287,16 @@ def _train_mesh_runs(rank, device, seed, small, card, shapes, host_batch):
         rules = default_rules(mesh)
         errs, state_bytes = _train_mesh_gates(rank, cfg32, host32, batch,
                                               mesh, rules, want)
-        metrics, ms, comm, busy, nccl, peak, full_bytes = _train_mesh_timed(
-            cfg, host, batch, mesh, rules, on_card)
+        # the MoE arch on one card: fewer timed steps, for the script's
+        # time limit
+        steps = TRAIN_MESH_MOE_ONE_CARD_STEPS if cfg.moe is not None \
+            and not small and math.prod(shape) == 1 else TRAIN_STEPS
+        if timed:
+            metrics, ms, comm, busy, nccl, peak, full_bytes = \
+                _train_mesh_timed(cfg, host, batch, mesh, rules, on_card,
+                                  steps)
+        else:
+            peak, full_bytes = 0, None
         per_rank = [None] * dist.get_world_size()
         dist.all_gather_object(per_rank, (state_bytes, peak, full_bytes))
         wall = time.perf_counter() - t_mesh
@@ -3193,43 +3310,61 @@ def _train_mesh_runs(rank, device, seed, small, card, shapes, host_batch):
             dryrun.argument_bytes(c, cell, abstract, a_rules)
             - dryrun.input_bytes(c, cell, abstract, a_rules)
             for c in (cfg32, cfg))
-        e_loss, e_norm, e_grad, placed, e_par = errs
-        losses = [m["loss"] for m in metrics]
-        gnorms = [m["grad_norm"] for m in metrics]
-        assert e_loss < TRAIN_MESH_RTOL, f"{tag}: loss rel err {e_loss:.2e}"
-        assert e_norm < TRAIN_MESH_RTOL, f"{tag}: grad norm {e_norm:.2e}"
-        assert e_grad < TRAIN_MESH_RTOL, f"{tag}: gradients {e_grad:.2e}"
-        assert placed, f"{tag}: a gradient not in its parameter's placements"
-        assert e_par < TRAIN_PARAM_ATOL, f"{tag}: params {e_par:.2e}"
+        e_loss, e_norm, e_grad, placed, e_par, e_aux = errs
+        assert e_loss < TRAIN_MESH_RTOL, \
+            f"{tag} {arch}: loss rel err {e_loss:.2e}"
+        assert e_norm < TRAIN_MESH_RTOL, \
+            f"{tag} {arch}: grad norm {e_norm:.2e}"
+        assert e_aux < TRAIN_MESH_RTOL, \
+            f"{tag} {arch}: aux loss rel err {e_aux:.2e}"
+        assert e_grad < TRAIN_MESH_RTOL, \
+            f"{tag} {arch}: gradients {e_grad:.2e}"
+        assert placed, \
+            f"{tag} {arch}: a gradient not in its parameter's placements"
+        assert e_par < TRAIN_PARAM_ATOL, f"{tag} {arch}: params {e_par:.2e}"
         assert all(r == predicted for r, _, _ in per_rank), \
-            f"{tag}: train-state bytes {[r for r, _, _ in per_rank]} != " \
-            f"dry run {predicted}"
-        assert all(f == predicted_full for _, _, f in per_rank), \
-            f"{tag}: full config's train-state bytes " \
-            f"{[f for _, _, f in per_rank]} != dry run {predicted_full}"
-        assert all(math.isfinite(x) for x in losses + gnorms), \
-            (losses, gnorms)
-        assert losses[-1] < losses[0], f"{tag}: loss did not fall {losses}"
-        med = float(np.median(ms[2:]))
-        lines.append(
-            f"{tag}: {cfg.arch_id}, batch {b}, seq {s} (the training phase's "
-            f"packed batch; params drawn on the host in {t_init:.2f} s); "
+            f"{tag} {arch}: train-state bytes " \
+            f"{[r for r, _, _ in per_rank]} != dry run {predicted}"
+        moe = "" if cfg.moe is None else (
+            f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+            f"{'grouped' if cfg.moe.grouped_dispatch else 'global pool'}")
+        gate = (
+            f"{tag}: {cfg.arch_id}{moe}, batch {b}, seq {s} (the training "
+            f"phase's packed batch in vocab {cfg.vocab_size}; params drawn "
+            f"on {dev.type} in {t_init:.2f} s); "
             f"f32 at d {cfg32.d_model}, {cfg32.n_layers} layers against the "
             f"unsharded port on card 0: loss rel err {e_loss:.2e}, grad norm "
-            f"{e_norm:.2e}, gradients {e_grad:.2e} of each leaf's largest |g| "
+            f"{e_norm:.2e}, aux loss {e_aux:.2e}, gradients {e_grad:.2e} of "
+            f"each leaf's largest |g| "
             f"(limit {TRAIN_MESH_RTOL:.0e}), placements of every gradient "
             f"== its parameter's, params after {TRAIN_MESH_GATE_STEPS} AdamW "
             f"steps max abs {e_par:.2e} (limit {TRAIN_PARAM_ATOL:.0e}), "
             f"train-state bytes per card {[r for r, _, _ in per_rank]} == "
-            f"dry run argument_bytes - inputs {predicted}; full config "
+            f"dry run argument_bytes - inputs {predicted}")
+        if not timed:
+            lines.append(f"{gate}; not timed (the f32 gate alone); "
+                         f"{wall:.1f} s [{card}]")
+            continue
+        assert all(f == predicted_full for _, _, f in per_rank), \
+            f"{tag} {arch}: full config's train-state bytes " \
+            f"{[f for _, _, f in per_rank]} != dry run {predicted_full}"
+        losses = [m["loss"] for m in metrics]
+        gnorms = [m["grad_norm"] for m in metrics]
+        assert all(math.isfinite(x) for x in losses + gnorms), \
+            (losses, gnorms)
+        assert losses[-1] < losses[0], \
+            f"{tag} {arch}: loss did not fall {losses}"
+        med = float(np.median(ms[2:]))
+        lines.append(
+            f"{gate}; full config "
             f"({cfg.n_layers} layers, {str(cfg.compute_dtype)[6:]} compute, "
             f"remat {cfg.remat}; train-state bytes per card "
             f"{[f for _, _, f in per_rank]} == dry run {predicted_full}), "
-            f"{TRAIN_STEPS} steps: loss "
+            f"{steps} steps: loss "
             f"{' '.join(f'{x:.4f}' for x in losses)}; grad norm "
             f"{' '.join(f'{x:.3f}' for x in gnorms)}; step ms "
             f"{' '.join(f'{x:.1f}' for x in ms)}; median of steps 3-"
-            f"{TRAIN_STEPS} {med:.2f} ms, {b * s / med * 1e3:.0f} tokens/s; "
+            f"{steps} {med:.2f} ms, {b * s / med * 1e3:.0f} tokens/s; "
             f"collectives a step (CommDebugMode) [{comm}]"
             + ("" if busy is None else
                f"; one step by torch.profiler: device {busy:.2f} ms, "
@@ -3240,8 +3375,8 @@ def _train_mesh_runs(rank, device, seed, small, card, shapes, host_batch):
     return lines
 
 
-def _train_mesh_rank(rank, world, init, device, seed, small, card, shapes,
-                     host_batch, out):
+def _train_mesh_rank(rank, world, init, device, seed, small, card, jobs,
+                     out):
     import torch
     import torch.distributed as dist
     kw = {}
@@ -3254,8 +3389,13 @@ def _train_mesh_rank(rank, world, init, device, seed, small, card, shapes,
                             init_method=init, rank=rank, world_size=world,
                             **kw)
     try:
-        lines = _train_mesh_runs(rank, device, seed, small, card, shapes,
-                                 host_batch)
+        lines = []
+        for arch, shapes, gate_layers, timed, host_batch in jobs:
+            t0 = time.perf_counter()
+            lines += _train_mesh_runs(rank, device, seed, small, card, arch,
+                                      shapes, gate_layers, timed, host_batch)
+            lines.append(f"train mesh {arch}: "
+                         f"{time.perf_counter() - t0:.1f} s [{card}]")
         if rank == 0:
             Path(out).write_text(json.dumps(lines))
     finally:
@@ -3263,31 +3403,39 @@ def _train_mesh_rank(rank, world, init, device, seed, small, card, shapes,
 
 
 def train_mesh_phase(device, seed, small, card):
-    """qwen3-1.7b's train step (``train.step`` under
+    """qwen3-1.7b's and the MoE family's train step (``train.step`` under
     ``sharding.ctx.use_sharding``) on a device mesh, one process a card
     (``torch.multiprocessing``, spawn; NCCL, or gloo on the CPU
-    rehearsal): on four cards (and the rehearsal's four ranks) the meshes
-    of ``TRAIN_MESH_SHAPES``, else a 1x1 mesh on one card. Each mesh: the
-    f32 gates at full width, 2 layers (loss, grad norm, every gradient and
-    its placements, the parameters after AdamW steps against the unsharded
-    port on card 0; each card's train-state bytes against the dry run's),
-    then the full config timed. A failing rank raises here. Returns rank
-    0's lines, the phase's wall last."""
+    rehearsal): on four cards (and the rehearsal's four ranks) qwen3 on
+    the meshes of ``TRAIN_MESH_SHAPES`` and each ``MESH_MOE`` arch on its
+    own, else a 1x1 mesh on one card for qwen3 and granite-moe. Each
+    mesh: the f32 gates at full width, 2 layers (mixtral 1) (loss, grad
+    norm, the MoE aux loss, every gradient and its placements, the
+    parameters after AdamW steps against the unsharded port on card 0;
+    each card's train-state bytes against the dry run's), then the full
+    config timed on the training phase's packed batch in the arch's
+    vocabulary. A failing rank raises here. Returns rank 0's lines, each
+    arch's wall and the phase's last."""
     import tempfile
     import torch
     import torch.multiprocessing as tmp
+    from repro_torch.configs import get_config
     t0 = time.perf_counter()
     four = device == "cpu" or torch.cuda.device_count() >= 4
-    shapes = TRAIN_MESH_SHAPES if four else ((1, 1),)
-    world = math.prod(shapes[0])
-    host_batch = train_mesh_batch(seed, small)
+    qwen3 = train_mesh_batch(seed, small)
+    moe = [(arch, shapes if four else ((1, 1),), layers, timed,
+            train_mesh_batch(seed, small, get_config(arch).vocab_size))
+           for arch, shapes, layers, timed in MESH_MOE if four or timed]
+    jobs = [(LM_ARCH, TRAIN_MESH_SHAPES if four else ((1, 1),), 2, True,
+             qwen3)] + moe
+    world = math.prod(jobs[0][1][0])
     sys.stdout.flush()
     with tempfile.TemporaryDirectory() as d:
         out = str(Path(d) / "lines.json")
         tmp.start_processes(
             _train_mesh_rank, nprocs=world, start_method="spawn",
             args=(world, f"tcp://localhost:{_free_port()}", device, seed,
-                  small, card, shapes, host_batch, out))
+                  small, card, jobs, out))
         lines = json.loads(Path(out).read_text())
     return lines + [f"train mesh phase: {time.perf_counter() - t0:.1f} s "
                     f"[{card}]"]
@@ -4042,6 +4190,7 @@ def main(argv=None) -> int:
                     help="make the data, run the multi-worker, LM mesh "
                     "and train mesh phases over the visible cards and stop")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import torch
     on_card = args.device == "cuda"
@@ -4098,6 +4247,8 @@ def main(argv=None) -> int:
                                          args.small, where)), flush=True)
         print(f"mesh-only run: done, {torch.cuda.device_count()} card(s) "
               "visible" if on_card else "mesh-only run: done on the CPU")
+        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall "
+              f"[{where}]")
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu" if on_card else "cpu",
             "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
@@ -4234,6 +4385,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print("\n".join(dryrun_phase(args.device, args.seed, False, card)),
           flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall [{card}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

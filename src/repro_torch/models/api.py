@@ -50,8 +50,9 @@ def spec(cfg: ModelConfig) -> Dict:
 
 # the families whose blocks run on DTensors (dense attention and MLP:
 # qwen, command-r, stablelm, phi-3-vision's decoder, whisper's
-# encoder-decoder); MoE dispatch and the recurrent scans do not yet
-MESH_FAMILIES = ("dense", "vlm", "audio")
+# encoder-decoder; the MoE dispatch: granite-moe, mixtral); the recurrent
+# scans (rwkv, jamba's mamba) do not yet
+MESH_FAMILIES = ("dense", "vlm", "audio", "moe")
 
 
 def check_mesh_family(cfg: ModelConfig) -> None:

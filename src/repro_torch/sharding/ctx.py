@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Optional, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -123,6 +123,25 @@ def divisible_spec(mesh, rules: MeshRules, logical, shape) -> PartitionSpec:
         else:
             out.append(None)
     return PartitionSpec(*out)
+
+
+class Layout(NamedTuple):
+    """The mesh and placements of a DTensor not made yet: a ``ref`` for
+    ``local_cut_like`` and ``from_local_like`` (the layout of the work
+    each rank does, before its result exists)."""
+    device_mesh: Any
+    placements: tuple
+
+
+def site_layout(shape, *logical: Optional[str]) -> Optional[Layout]:
+    """Under a device mesh, the layout ``shard_act`` gives an activation
+    of ``shape`` at a site pinned to ``logical``; ``None`` without one."""
+    ctx = device_mesh()
+    if ctx is None:
+        return None
+    mesh, rules = ctx
+    return Layout(mesh.torch_mesh, placements(
+        mesh, divisible_spec(mesh, rules, logical, tuple(shape))))
 
 
 def _dtensor(x, what: str):

@@ -64,7 +64,7 @@ MODELS = {"dense": "qwen3-1.7b", "vlm": "phi-3-vision-4.2b",
 OVERS = {m: OVER for m in MODELS}
 OVERS["chunked"] = dict(OVER, chunked_attn_threshold=8, attn_chunk_q=4,
                         attn_chunk_kv=4)
-REFUSED = ("granite-moe-1b-a400m", "rwkv6-7b", "jamba-v0.1-52b")
+REFUSED = ("rwkv6-7b", "jamba-v0.1-52b")
 B, S, MAX, N_STEPS, N_NEW = 4, 8, 32, 4, 4
 SERVE = {"b4": B, "b1": 1}
 JOIN_S = 240

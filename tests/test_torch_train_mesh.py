@@ -70,7 +70,7 @@ OVERS = {m: OVER for m in MODELS}
 OVERS["chunked"] = dict(OVER, chunked_attn_threshold=8, attn_chunk_q=4,
                         attn_chunk_kv=4)
 OVERS["loss_chunk"] = dict(OVER, loss_chunk=4)
-REFUSED = ("granite-moe-1b-a400m", "rwkv6-7b", "jamba-v0.1-52b")
+REFUSED = ("rwkv6-7b", "jamba-v0.1-52b")
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 B, S = 4, 8
 LOSS_RTOL = 1e-4

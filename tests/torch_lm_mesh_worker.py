@@ -24,7 +24,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import default_rules, make_device_mesh
 from repro_torch.launch.serve import lm_inputs
-from repro_torch.models import api, attention, lm, mlp
+from repro_torch.models import api, attention, lm, mlp, moe
 from repro_torch.models.module import (
     distribute, init_params, shardings, tree_items, tree_map,
 )
@@ -38,8 +38,13 @@ AXES = ("data", "model")
 
 
 def port_cfg(arch: str, over: dict):
-    return dataclasses.replace(reduced(get_config(arch)),
-                               compute_dtype=torch.float32, **over)
+    """The reduced config at ``over``'s widths, f32 compute;
+    ``moe=(("field", value), ...)`` replaces fields of the MoE config."""
+    cfg = reduced(get_config(arch))
+    over = dict(over)
+    if isinstance(over.get("moe"), tuple):
+        over["moe"] = dataclasses.replace(cfg.moe, **dict(over["moe"]))
+    return dataclasses.replace(cfg, compute_dtype=torch.float32, **over)
 
 
 def _placed(tree) -> dict:
@@ -52,8 +57,9 @@ def _local_bytes(tree) -> int:
 
 
 def _record_sites(sites: list) -> None:
-    """Wrap every ``shard_act`` the dense blocks call so each call under a
-    device mesh records (logical axes, shape, placements it gave)."""
+    """Wrap every ``shard_act`` the blocks call (dense and MoE) so each
+    call under a device mesh records (logical axes, shape, placements it
+    gave)."""
     real = ctx.shard_act
 
     def recording(x, *logical):
@@ -63,7 +69,7 @@ def _record_sites(sites: list) -> None:
                           repr(tuple(out.placements))))
         return out
 
-    for mod in (ctx, attention, mlp, lm):
+    for mod in (ctx, attention, mlp, moe, lm):
         mod.shard_act = recording
 
 
@@ -148,8 +154,9 @@ def _run(rank: int, shape, job: dict, device: str) -> dict:
         batch = {k: torch.as_tensor(v, device=mesh.device)
                  for k, v in case["batch"].items()}
         with ctx.use_sharding(mesh, rules):
-            logits, _ = api.forward(dp, cfg, pin_inputs(batch))
+            logits, aux = api.forward(dp, cfg, pin_inputs(batch))
         res[name, "forward"] = logits.full_tensor().cpu().numpy()
+        res[name, "aux"] = _gather(float(aux))
         for b_name, b in case["serve"].items():
             pb = {k: torch.as_tensor(v, device=mesh.device)
                   for k, v in b["batch"].items()}

@@ -34,15 +34,13 @@ from repro_torch.train import step as step_mod
 from repro_torch.train.step import (
     TrainState, init_state, make_grad_fn, make_train_step, state_shardings,
 )
+from torch_lm_mesh_worker import port_cfg
 
 AXES = ("data", "model")
 POD_AXES = ("pod", "data", "model")
 N_STEPS = 3
-
-
-def port_cfg(arch: str, over: dict):
-    return dataclasses.replace(reduced(get_config(arch)),
-                               compute_dtype=torch.float32, **over)
+# what the job's ``extras_model`` also runs, unless the job names a subset
+EXTRAS = ("remat", "accum", "compress", "restore", "pod")
 
 
 def _whole(t):
@@ -90,6 +88,9 @@ def _train(cfg, host, batch, mesh, rules, opt, **kw):
         dp = distribute(host, shardings(spec, mesh, rules))
         grads, loss, acc = make_grad_fn(cfg)(dp, batch)
         out["grads"], out["grad_placed"] = _full(grads), _placed(grads)
+        if cfg.moe is not None:
+            out["aux"] = _gather(float(api.forward(dp, cfg,
+                                                   pin_inputs(batch))[1]))
         state = init_state(dp, opt, compress=kw.get("compress", False))
         state, out["metrics"] = _steps(make_train_step(cfg, opt, **kw),
                                        state, batch)
@@ -283,19 +284,27 @@ def _run(rank: int, shape, job: dict, device: str) -> dict:
         res[name], grads = _train(cfg, host, batch, mesh, rules, opt)
         if name != job["extras_model"]:
             continue
-        res["remat"] = _remat(cfg, host, batch, mesh, rules)
-        with ctx.use_sharding(mesh, rules):
-            dp = distribute(host, shardings(api.spec(cfg), mesh, rules))
-            state, m = make_train_step(cfg, opt, grad_accum=2)(
-                init_state(dp, opt), batch)
-        res["accum"] = {"metrics": _floats(m), "params": _full(state.params)}
-        res["compress"], _ = _train(cfg, host, batch, mesh, rules, opt,
-                                    compress=True)
-        res["ef"] = _compressed(grads, mesh, rules)
-        res["restore"] = _restore(cfg, host, batch, job, mesh, rules, opt)
-        pod = make_device_mesh((2, 2, 1), POD_AXES, device)
-        res["pod"], _ = _train(cfg, host, batch, pod, default_rules(pod),
-                               opt)
+        extras = job.get("extras", EXTRAS)
+        if "remat" in extras:
+            res["remat"] = _remat(cfg, host, batch, mesh, rules)
+        if "accum" in extras:
+            with ctx.use_sharding(mesh, rules):
+                dp = distribute(host, shardings(api.spec(cfg), mesh, rules))
+                state, m = make_train_step(cfg, opt, grad_accum=2)(
+                    init_state(dp, opt), batch)
+            res["accum"] = {"metrics": _floats(m),
+                            "params": _full(state.params)}
+        if "compress" in extras:
+            res["compress"], _ = _train(cfg, host, batch, mesh, rules, opt,
+                                        compress=True)
+            res["ef"] = _compressed(grads, mesh, rules)
+        if "restore" in extras:
+            res["restore"] = _restore(cfg, host, batch, job, mesh, rules,
+                                      opt)
+        if "pod" in extras:
+            pod = make_device_mesh((2, 2, 1), POD_AXES, device)
+            res["pod"], _ = _train(cfg, host, batch, pod,
+                                   default_rules(pod), opt)
     res["refusals"] = _refusals(mesh, rules, job["refused_archs"], opt)
     res["psum"] = _gather(_psum(rank, device))
     return res
