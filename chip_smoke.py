@@ -6,6 +6,8 @@ training on one NVIDIA card.
     python3 chip_smoke.py                      # on the card: full size
     python3 chip_smoke.py --device cpu --small # CPU rehearsal, plain versions
     python3 chip_smoke.py --mesh-only          # the data and the mesh phase
+    python3 chip_smoke.py --mesh-only --gates rwkv6-7b jamba-v0.1-52b
+                                               # those archs' mesh gates alone
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` and runs ten
 queries through ``Session(device="cuda")`` and ``Matrix.collect()`` over
@@ -188,7 +190,19 @@ global pool) on the 1x1 mesh, and at (2,2) and (1,4) on four cards (EP,
 the config's bf16 compute at full depth timed; mixtral-8x7b at full
 width, 1 layer, on four cards only at (1,4), its f32 gate alone. The 1x1
 runs take 16 new tokens (32 on four cards), and every run draws its
-parameters on its card. Each arch's wall and the phase's are printed.
+parameters on its card. The recurrent families follow in the same spawn
+(``MESH_RECURRENT``), on the 1x1 mesh and at (2,2) and (1,4) on four
+cards: rwkv6-7b at full width (d 4096, 64 WKV heads, vocab 65,536), its
+f32 gates at 2 layers, then its bf16 compute at its full 32 layers
+timed; jamba-v0.1-52b at full width (d 4096, d_in 8192, 16 experts
+top-2), its f32 gates alone at 2 layers with attention every 2nd layer
+at index 1 (a Mamba + MLP and an attention + MoE position). Their lines
+also hold the recurrent states (conv window, SSM or WKV state, token
+shifts) after prefill and after the last decode against the unsharded
+run's, within ``LM_MESH_RTOL`` of each leaf's largest |x|, and the count
+of a decode step's all-gathers whose input is a state's shard (0: each
+rank writes its own shards in place). Each arch's wall and the phase's
+are printed.
 
 The train mesh phase (``train mesh`` lines) trains the same qwen3-1.7b
 sharded the same way (``train.step`` under ``use_sharding``, the state
@@ -203,14 +217,25 @@ its parameter's placements, the parameters after 3 AdamW steps within
 atol 5e-3, each card's train-state bytes equal to the dry run's
 ``argument_bytes`` less its inputs (3 x parameters + 8); then the full
 config (bf16 compute, f32 parameters and moments, remat full) for 10
-steps: finite losses and norms, the last loss below the first, the
-median step ms of steps 3-10, tokens/s, one step's collectives by kind
-(CommDebugMode) and its device and NCCL-kernel ms (torch.profiler), the
-full config's train-state bytes against the dry run's, the peak a card;
-and the phase's wall. The MoE family follows in the same spawn, on the
-LM mesh phase's meshes: the f32 gates (with the MoE aux loss) at 2
-layers (mixtral 1), granite-moe's full config timed on the packed batch
-in its own vocabulary (49,155).
+steps at the peak learning rate ``TRAIN_MESH_LR``: finite losses and
+norms, the last loss below the first, the median step ms of steps 3-10,
+tokens/s, step 1's collectives by kind (CommDebugMode) and step 2's
+device and NCCL-kernel ms (torch.profiler; both steps' clocks run, the
+median leaves them out), the full config's train-state bytes against the
+dry run's, the peak a card; and the phase's wall. The MoE family follows
+in the same spawn, on the LM mesh phase's meshes: the f32 gates (with
+the MoE aux loss) at 2 layers (mixtral 1), granite-moe's full config
+timed on the packed batch in its own vocabulary (49,155). Then the
+recurrent families: rwkv6-7b's and jamba's f32 gates at 2 layers
+(jamba's interleave as in the LM mesh phase), rwkv6-7b timed in its
+vocabulary (65,536) at full depth on four cards and, on one, at the
+deepest cut whose f32 parameters, gradients, m and v fit
+``TRAIN_STATE_LIMIT`` (the cut printed). Each arch of ``MESH_ARCHS`` (a
+``MeshArch``: its meshes, gate depth and fields, the recurrent gates' 64
+positions) takes ``TRAIN_MESH_ARCH_STEPS`` timed steps. ``--mesh-only
+--gates ARCH ...`` runs the named archs' f32 gates alone in both mesh
+phases, nothing timed: a short check of a family across four cards. Rank
+0 prints each arch's lines as it ends.
 
 The training phase comes last (``repro_torch.train``, ``optim``,
 ``checkpoint``, ``data.pipeline`` and the training launcher's
@@ -243,17 +268,21 @@ GB, the reduced config where the bf16 one does too: jamba.
 The dry-run phase comes last (``launch.dryrun``, ``analysis.opstats``,
 ``roofline`` and ``report``; it launches no kernel of the port). The
 sweep of every arch, shape and mesh (16×16 and 2×16×16), each arch one
-block-program period deep, in worker processes: a line a cell, the
-report's tables and the wall; every cell ok, bar ``long_500k`` skipped
-for the full-attention archs. Then qwen3-1.7b's training step at the
-training phase's configuration (batch 4, seq 256, remat full, AdamW) and
-one decode step at the LM phase's shape (batch 4, 160 positions) are
-traced on ``meta`` by ``trace_step`` and run on the card: the predicted
-dot flops within 1e-3 of ``FlopCounterMode``'s on the card, the
-predicted peak within 10% of ``max_memory_allocated`` above what earlier
-phases hold; the roofline's step time (H100 datasheet peaks) beside the
-measured median, the MFU of both, and the traced launches beside
-torch.profiler's kernels.
+block-program period deep, starts right after the kernels' build in a
+process of its own (``DryrunSweep``: its worker processes on
+``DRYRUN_CORES`` of the host's cores at nice ``DRYRUN_NICE``), beside
+the phases before this one, since jamba's and rwkv's per-position loops
+take minutes to trace; the phase waits for it: a line a cell, the
+report's tables, the sweep's wall and the wait; every cell ok, bar
+``long_500k`` skipped for the full-attention archs. Then qwen3-1.7b's
+training step at the training phase's configuration (batch 4, seq 256,
+remat full, AdamW) and one decode step at the LM phase's shape (batch 4,
+160 positions) are traced on ``meta`` by ``trace_step`` and run on the
+card: the predicted dot flops within 1e-3 of ``FlopCounterMode``'s on
+the card, the predicted peak within 10% of ``max_memory_allocated``
+above what earlier phases hold; the roofline's step time (H100 datasheet
+peaks) beside the measured median, the MFU of both, and the traced
+launches beside torch.profiler's kernels.
 
 Output: the card's name and power limit (``nvidia-smi``), the build time,
 after a fresh build the ptxas registers and spills of every instance of
@@ -283,6 +312,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 
@@ -354,24 +384,59 @@ LM_CARD_CPU_TOL = 1e-4         # the port's f32 parity tolerance
 LM_MESH_RUNS = (((2, 2), 4), ((1, 4), 4), ((4, 1), 4), ((4, 1), 1))
 LM_MESH_RTOL = 1e-4
 LM_MESH_ONE_CARD_NEW = 16      # new tokens of the 1x1 runs (32 on four cards)
-# the MoE family in the LM and train mesh phases: (arch, its meshes on
-# four cards, the depth of its f32 gates, timed): granite-moe at full
-# width and depth (a 1x1 mesh on one card; EP at 16 and 8 experts a card
-# on four), gated at 2 layers; mixtral-8x7b (186.8 GB of f32 parameters,
-# more than distribute can place from one card) at full width, 1 layer,
-# its f32 gate alone, on four cards only
-MESH_MOE = (("granite-moe-1b-a400m", ((2, 2), (1, 4)), 2, True),
-            ("mixtral-8x7b", ((1, 4),), 1, False))
+
+
+class MeshArch(NamedTuple):
+    """An arch of the LM and train mesh phases beside qwen3's runs."""
+    arch: str
+    shapes: tuple          # its meshes (data, model) on four cards
+    gate_layers: int       # the depth of its f32 gates
+    timed: bool            # the config's own compute timed after the gates
+    one_card: bool         # also runs on one card, on a 1x1 mesh
+    gate_over: tuple = ()  # the gates' config fields, (name, value) pairs
+    gate_seq: int = 0      # the train gates' positions (0: the batch's)
+
+
+# granite-moe at full width and depth (EP at 16 and 8 experts a card on
+# four), gated at 2 layers; mixtral-8x7b (186.8 GB of f32 parameters, more
+# than distribute can place from one card) at full width, 1 layer, its f32
+# gate alone, on four cards only
+MESH_MOE = (MeshArch("granite-moe-1b-a400m", ((2, 2), (1, 4)), 2, True,
+                     True),
+            MeshArch("mixtral-8x7b", ((1, 4),), 1, False, False))
+# rwkv6-7b at full width, its f32 gates at 2 layers (3.9 GB), the bf16
+# serving timed at its full 32 layers, the training at the deepest cut
+# whose f32 train state fits TRAIN_STATE_LIMIT on one card and at full
+# depth on four; jamba-v0.1-52b at full width, its f32 gates alone at 2
+# layers with attention every 2nd layer at index 1 (a Mamba + MLP and an
+# attention + MoE position, 14.7 GB; its 51.6 G parameters cannot be
+# placed from one card, as mixtral's cannot). Their train gates take the
+# batch's first 64 positions: the scans loop over the positions in Python
+# (256 took 60 s a gate on one card)
+MESH_RECURRENT = (MeshArch("rwkv6-7b", ((2, 2), (1, 4)), 2, True, True,
+                           gate_seq=64),
+                  MeshArch("jamba-v0.1-52b", ((2, 2), (1, 4)), 2, False, True,
+                           (("attn_every", 2), ("attn_index", 1)),
+                           gate_seq=64))
+MESH_ARCHS = MESH_MOE + MESH_RECURRENT
+RECURRENT_STATES = ("conv", "h", "wkv", "shift_t", "shift_c")
 # the train mesh phase: qwen3-1.7b's train step (train.step under a mesh)
 # on these meshes (data, model) over four cards, a 1x1 mesh on one; the f32
 # gates at full width, 2 layers, against the unsharded port on the same
 # card (loss and grad norm rel, each gradient of its leaf's largest |g|;
 # parameters after TRAIN_MESH_GATE_STEPS AdamW steps at lr 1e-3 within
-# TRAIN_PARAM_ATOL); then the full config timed for TRAIN_STEPS steps
+# TRAIN_PARAM_ATOL); then the full config timed for TRAIN_STEPS steps, each
+# MESH_ARCHS arch for TRAIN_MESH_ARCH_STEPS (step 1 under CommDebugMode,
+# step 2 under torch.profiler, the median over the steps after them)
 TRAIN_MESH_SHAPES = ((2, 2), (1, 4), (4, 1))
 TRAIN_MESH_RTOL = 1e-4
 TRAIN_MESH_GATE_STEPS = 3
-TRAIN_MESH_MOE_ONE_CARD_STEPS = 6   # granite-moe's timed steps on a 1x1 mesh
+TRAIN_MESH_ARCH_STEPS = 5
+# the timed runs' peak learning rate, every arch's: they time a step, and
+# from a random init at full width the bf16 loss at 3e-4 jumps before it
+# falls (qwen3-1.7b 11.1 to 17.4 at step 3, rwkv6-7b 12.0 to 37.9 at step
+# 2; NVIDIA H100 80GB HBM3, 700 W), which the loss-fell check would read
+TRAIN_MESH_LR = 1e-5
 # The training phase: the corpus (vocab, seq, batch, docs, doc length) and
 # qwen3-1.7b's full config for TRAIN_STEPS steps on one packed batch; the
 # A/B's of loss_chunk and of the blocks' unbind take TRAIN_AB_STEPS each
@@ -394,6 +459,13 @@ TRAIN_REMAT_RTOL = 1e-6        # recompute changes memory, never values
 # 256, the training phase's) and decode step (batch 4, 160 positions, the
 # LM phase's) held to the same steps on the card
 DRYRUN_BLOCKS = 1
+# The sweep traces in a process of its own from the script's start, beside
+# the phases before it, on DRYRUN_CORES of the host's cores at a lower
+# priority: one period of jamba's 4k training and 32k prefill cells, whose
+# per-position loops trace on one core each, take 298 and 243 s (rwkv's
+# 48 and 33 s, the next longest cell 10 s; one core of an 8-core x86 host)
+DRYRUN_CORES = 2
+DRYRUN_NICE = 10
 DRYRUN_DECODE = (4, 160, 16)     # batch, positions, timed decode steps
 DRYRUN_FLOP_RTOL = 1e-3          # predicted dot flops against measured
 DRYRUN_PEAK_RTOL = 0.10          # predicted peak against max allocated
@@ -2790,15 +2862,25 @@ def _drawn(spec, seed, dev):
     return init_params(spec, torch.Generator(dev).manual_seed(seed), dev)
 
 
+def _states(caches, whole=False) -> dict:
+    """The recurrent states of a cache tree (``RECURRENT_STATES`` leaves),
+    each whole (gathered, under a mesh) as a copy on its device."""
+    from repro_torch.models.module import tree_items
+    return {"/".join(k): (t.full_tensor() if whole else t).float().clone()
+            for k, t in tree_items(caches) if k[-1] in RECURRENT_STATES}
+
+
 def _lm_mesh_reference(params, cfg, prompt, n_new, max_seq):
     """The unsharded run, as ``_lm_mesh_serve`` runs it: prefill's last
-    logits, the greedy tokens and each decode step's logits."""
+    logits, the greedy tokens, each decode step's logits, and the
+    recurrent states after prefill and after the last decode."""
     import torch
     from repro_torch.serve.step import (compiled_decode, compiled_prefill,
                                         first_position)
     decode = compiled_decode(cfg, donate=True)
     logits, caches = compiled_prefill(cfg, max_seq)(params,
                                                     {"tokens": prompt})
+    states = [_states(caches)]
     tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
     toks, steps = [tok], []
     pos0 = first_position(cfg, prompt.shape[1])
@@ -2806,7 +2888,8 @@ def _lm_mesh_reference(params, cfg, prompt, n_new, max_seq):
         lg, tok, caches = decode(params, caches, tok, pos0 + i)
         steps.append(lg[:, 0].float())
         toks.append(tok)
-    return logits[:, -1].float(), torch.cat(toks, dim=1), steps
+    states.append(_states(caches))
+    return logits[:, -1].float(), torch.cat(toks, dim=1), steps, states
 
 
 def _mesh_sync(on_card):
@@ -2815,11 +2898,31 @@ def _mesh_sync(on_card):
     dist.barrier()
 
 
+def _gather_shapes():
+    """A dispatch mode recording in ``.shapes`` the local shape of every
+    all-gather's input (entered beside ``CommDebugMode``): a decode step
+    must gather no recurrent state's shard."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class GatherShapes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.shapes = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if "all_gather" in func.name():
+                self.shapes.append(tuple(args[0].shape))
+            return func(*args, **(kwargs or {}))
+
+    return GatherShapes()
+
+
 def _lm_mesh_serve(params, cfg, prompt, n_new, max_seq):
     """Prefill and ``n_new - 1`` donating greedy decodes under the installed
     mesh: (prefill's last logits whole, tokens whole, each decode's logits
     whole, the caches, collectives of the prefill and of the first decode
-    step by kind)."""
+    step by kind, the recurrent states whole after prefill and after the
+    last decode, the local shapes the first decode step all-gathered)."""
     import torch
     from torch.distributed.tensor.debug import CommDebugMode
     from repro_torch.serve.step import (compiled_decode, compiled_prefill,
@@ -2828,18 +2931,31 @@ def _lm_mesh_serve(params, cfg, prompt, n_new, max_seq):
     with CommDebugMode() as comm_p:
         logits, caches = compiled_prefill(cfg, max_seq)(
             params, {"tokens": prompt})
+    states = [_states(caches, whole=True)]
     tok = torch.argmax(logits[:, -1].full_tensor(), dim=-1).to(
         torch.int32)[:, None]
     toks, steps = [tok], []
     pos0 = first_position(cfg, prompt.shape[1])
-    comm_d = CommDebugMode()
+    comm_d, gathered = CommDebugMode(), _gather_shapes()
     for i in range(n_new - 1):
-        with comm_d if i == 0 else contextlib.nullcontext():
+        with (comm_d if i == 0 else contextlib.nullcontext()), \
+                (gathered if i == 0 else contextlib.nullcontext()):
             lg, tok, caches = decode(params, caches, tok, pos0 + i)
         steps.append(lg[:, 0].full_tensor().float())
         toks.append(tok.full_tensor())
+    states.append(_states(caches, whole=True))
     return (logits[:, -1].full_tensor().float(), torch.cat(toks, dim=1),
-            steps, caches, _comm_kinds(comm_p), _comm_kinds(comm_d))
+            steps, caches, _comm_kinds(comm_p), _comm_kinds(comm_d), states,
+            gathered.shapes)
+
+
+def _state_shards(caches) -> set:
+    """The local shapes of one block's slice of each recurrent state cut
+    over some mesh axis (a whole one has nothing to gather)."""
+    from repro_torch.models.module import tree_items
+    return {tuple(t.to_local().shape[1:]) for k, t in tree_items(caches)
+            if k[-1] in RECURRENT_STATES
+            and any(p.is_shard() for p in t.placements)}
 
 
 def _lm_mesh_time(params, cfg, prompt, n_new, max_seq, on_card):
@@ -2893,52 +3009,60 @@ def _lm_mesh_time(params, cfg, prompt, n_new, max_seq, on_card):
             nccl / LM_PROFILE_STEPS, wall)
 
 
-def _lm_mesh_runs(rank, device, seed, small, card, arch, runs, gate_layers,
-                  timed):
-    """Every (mesh, batch) of ``runs`` for ``arch`` on this rank; rank 0
-    returns the lines. The f32 gates run at ``gate_layers`` layers (None:
-    the config's depth), the bf16 timing (when ``timed``) at the config's
-    depth. Parameters are drawn from the seed on each rank's device (the
-    same values on every rank) and distributed onto each mesh; rank 0 also
-    runs the gated model with no mesh, the reference."""
+def _mesh_cfgs(arch, small, gate_layers, gate_over):
+    """(the arch's config as timed: full, or the reduced one on the CPU
+    rehearsal; its f32 gate at ``gate_layers`` layers with ``gate_over``'s
+    fields)."""
     import dataclasses
     import torch
-    import torch.distributed as dist
     from repro_torch.configs import get_config, reduced
+    full = get_config(arch)
+    cfg = dataclasses.replace(reduced(full), remat=full.remat) if small \
+        else full
+    return cfg, dataclasses.replace(
+        cfg, compute_dtype=torch.float32,
+        n_layers=gate_layers or cfg.n_layers, **dict(gate_over))
+
+
+def _lm_mesh_runs(rank, device, seed, small, card, job: MeshArch, runs):
+    """Every (mesh, batch) of ``runs`` for ``job``'s arch on this rank;
+    rank 0 returns the lines. The f32 gates run at ``job.gate_layers``
+    layers (0: the config's depth) with ``job.gate_over``'s config fields,
+    the bf16 timing (when ``job.timed``) at the config's depth.
+    Parameters are drawn from the seed on each rank's device (the same
+    values on every rank) and distributed onto each mesh, the timed ones
+    drawn anew for each mesh and dropped once distributed; rank 0 also
+    runs the gated model with no mesh, the reference."""
+    import torch
+    import torch.distributed as dist
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import default_rules, make_device_mesh
     from repro_torch.launch.serve import lm_inputs
     from repro_torch.models import api as mapi
-    from repro_torch.models.module import (distribute, init_params,
-                                           shardings, tree_map)
+    from repro_torch.models.module import distribute, shardings
     from repro_torch.sharding.ctx import use_sharding
     from repro_torch.sharding.partition import Mesh
     from repro_torch.sharding.specs import pin_inputs
     on_card = device == "cuda"
     dev = torch.device("cuda", rank) if on_card else torch.device("cpu")
-    full = get_config(arch)
     b, s, n_new = LM_SERVE if not small else (4, 16, 8)
     if not small and math.prod(runs[0][0]) == 1:
         n_new = LM_MESH_ONE_CARD_NEW
-    cfg16 = reduced(full) if small else full
-    cfg32 = dataclasses.replace(cfg16, compute_dtype=torch.float32,
-                                n_layers=gate_layers or cfg16.n_layers)
+    arch, timed, gate_over = job.arch, job.timed, job.gate_over
+    cfg16, cfg32 = _mesh_cfgs(arch, small, job.gate_layers, gate_over)
     max_seq = s + n_new
     spec = mapi.spec(cfg32)
     t0 = time.perf_counter()
     host = _drawn(spec, seed + 31, dev)
-    host16 = host if cfg32.n_layers == cfg16.n_layers or not timed else \
-        _drawn(mapi.spec(cfg16), seed + 32, dev)
     t_init = time.perf_counter() - t0
+    same = cfg32.n_layers == cfg16.n_layers and not gate_over
     prompt = lm_inputs(cfg32, b, s, seed + 31, dev)["tokens"]
     want = {}
     if rank == 0:
-        ref = tree_map(lambda t: t.to(dev), host)
         for bb in sorted({bb for _, bb in runs}):
-            want[bb] = _lm_mesh_reference(ref, cfg32, prompt[:bb], n_new,
+            want[bb] = _lm_mesh_reference(host, cfg32, prompt[:bb], n_new,
                                           max_seq)
-        del ref
     lines = []
     for shape, bb in runs:
         gc.collect()
@@ -2950,9 +3074,11 @@ def _lm_mesh_runs(rank, device, seed, small, card, arch, runs, gate_layers,
         rules = default_rules(mesh)
         params = distribute(host, shardings(spec, mesh, rules))
         with use_sharding(mesh, rules):
-            pre, toks, steps, caches, comm_p, comm_d = _lm_mesh_serve(
-                params, cfg32, prompt[:bb], n_new, max_seq)
+            (pre, toks, steps, caches, comm_p, comm_d, states,
+             gathered) = _lm_mesh_serve(params, cfg32, prompt[:bb], n_new,
+                                        max_seq)
             resident = _local_bytes(params) + _local_bytes(caches)
+            shard_shapes = _state_shards(caches)
             del caches
             worst = None
             if cfg32.moe is None:
@@ -2966,10 +3092,12 @@ def _lm_mesh_runs(rank, device, seed, small, card, arch, runs, gate_layers,
                 del fwd
             timing = None
             if timed:
-                if host16 is not host:
+                if not same:
                     del params
-                    params = distribute(host16, shardings(mapi.spec(cfg16),
-                                                          mesh, rules))
+                    gc.collect()
+                    params = distribute(
+                        _drawn(mapi.spec(cfg16), seed + 32, dev),
+                        shardings(mapi.spec(cfg16), mesh, rules))
                 timing = _lm_mesh_time(params, cfg16, prompt[:bb], n_new,
                                        max_seq, on_card)
         peak = (torch.cuda.max_memory_allocated() - base) if on_card else 0
@@ -2983,7 +3111,7 @@ def _lm_mesh_runs(rank, device, seed, small, card, arch, runs, gate_layers,
         del params
         if rank:
             continue
-        w_pre, w_toks, w_steps = want[bb]
+        w_pre, w_toks, w_steps, w_states = want[bb]
         rel = _lm_rel(pre, w_pre)
         tag = f"lm mesh {shape[0]}x{shape[1]} (data x model) batch {bb}"
         assert torch.equal(toks.cpu(), w_toks.cpu()), \
@@ -2998,19 +3126,40 @@ def _lm_mesh_runs(rank, device, seed, small, card, arch, runs, gate_layers,
             f"{tag} {arch}: decode vs forward {worst:.3e}"
         against = f"decode vs unsharded decode {dec:.2e}" + (
             "" if worst is None else f", vs forward {worst:.2e}")
+        if w_states[0]:
+            st = [max(_lm_rel(g[k], w[k]) for k in w)
+                  for g, w in zip(states, w_states)]
+            assert max(st) < LM_MESH_RTOL, \
+                f"{tag} {arch}: recurrent states {st}"
+            state_gathers = sum(g in shard_shapes for g in gathered)
+            assert state_gathers == 0, \
+                f"{tag} {arch}: a decode step all-gathered a state's " \
+                f"shard: {gathered} of {sorted(shard_shapes)}"
+            names = sorted({k.split("/")[-1] for k in w_states[0]})
+            against += (
+                f"; recurrent states ({', '.join(names)}) "
+                f"after prefill {st[0]:.2e}, after the last decode "
+                f"{st[1]:.2e} of each leaf's largest |x|; all-gathers of a "
+                f"cut state's shard {sorted(shard_shapes)} in a decode "
+                f"step: {state_gathers} (of {len(gathered)} all-gathers)")
         assert all(r == predicted for r, _ in per_rank), \
             f"{tag} {arch}: resident bytes {[r for r, _ in per_rank]} != " \
             f"dry run {predicted}"
         moe = "" if cfg32.moe is None else (
             f", {cfg32.moe.n_experts} experts top-{cfg32.moe.top_k}, "
             f"{'grouped' if cfg32.moe.grouped_dispatch else 'global pool'}")
+        kinds = "" if cfg32.family not in ("ssm", "hybrid") else (
+            f", {cfg32.family} {'/'.join(dict.fromkeys(cfg32.layer_kinds()))}"
+            + (f" (attention every {cfg32.attn_every} at "
+               f"{cfg32.attn_index})" if gate_over else ""))
         if timing is None:
             timed_text = "not timed (the f32 gate alone)"
         else:
             prefill_ms, decode_ms, busy, nccl, wall = timing
             timed_text = (
                 f"bf16 compute at {cfg16.n_layers} layers: prefill "
-                f"{prefill_ms:.3f} ms, decode {decode_ms:.4f} ms/token"
+                f"{prefill_ms:.3f} ms, decode {decode_ms:.4f} ms/token "
+                f"({bb * 1e3 / decode_ms:.1f} tokens/s)"
                 + ("" if busy is None else
                    f" (torch.profiler, {LM_PROFILE_STEPS} steps: device "
                    f"{busy:.3f} ms a step, {nccl:.3f} of it NCCL kernels, "
@@ -3019,8 +3168,8 @@ def _lm_mesh_runs(rank, device, seed, small, card, arch, runs, gate_layers,
         lines.append(
             f"{tag}{' (KV cache cut along the sequence)' if bb == 1 and shape[0] > 1 else ''}: "
             f"{cfg32.arch_id} {cfg32.n_layers} layers, d {cfg32.d_model}, "
-            f"vocab {cfg32.vocab_size}{moe}, prompt {s}, {n_new} new tokens "
-            f"(params drawn on {dev.type} in {t_init:.2f} s); f32: "
+            f"vocab {cfg32.vocab_size}{moe}{kinds}, prompt {s}, {n_new} new "
+            f"tokens (params drawn on {dev.type} in {t_init:.2f} s); f32: "
             f"{toks.shape[1]} greedy tokens == unsharded "
             f"{toks[0, :6].tolist()}..., prefill logits rel err {rel:.2e}, "
             f"{against} (limit "
@@ -3034,7 +3183,7 @@ def _lm_mesh_runs(rank, device, seed, small, card, arch, runs, gate_layers,
     return lines
 
 
-def _lm_mesh_rank(rank, world, init, device, seed, small, card, jobs, out):
+def _lm_mesh_rank(rank, world, init, device, seed, small, card, jobs):
     import torch
     import torch.distributed as dist
     kw = {}
@@ -3047,61 +3196,67 @@ def _lm_mesh_rank(rank, world, init, device, seed, small, card, jobs, out):
                             init_method=init, rank=rank, world_size=world,
                             **kw)
     try:
-        lines = []
-        for arch, runs, gate_layers, timed in jobs:
+        for job, runs in jobs:
             t0 = time.perf_counter()
-            lines += _lm_mesh_runs(rank, device, seed, small, card, arch,
-                                   runs, gate_layers, timed)
-            lines.append(f"lm mesh {arch}: {time.perf_counter() - t0:.1f} s "
-                         f"[{card}]")
-        if rank == 0:
-            Path(out).write_text(json.dumps(lines))
+            lines = _lm_mesh_runs(rank, device, seed, small, card, job, runs)
+            if rank == 0:
+                print("\n".join(lines + [
+                    f"lm mesh {job.arch}: {time.perf_counter() - t0:.1f} s "
+                    f"[{card}]"]), flush=True)
     finally:
         dist.destroy_process_group()
 
 
-def lm_mesh_phase(device, seed, small, card):
-    """qwen3-1.7b's and the MoE family's serving program (``serve.step``)
-    on a device mesh, one process a card (``torch.multiprocessing``,
-    spawn; NCCL, or gloo on the CPU rehearsal), the JAX package's
-    placements for every parameter, cache and pinned activation. On four
-    cards (and the CPU rehearsal's four ranks) qwen3 on the meshes of
-    ``LM_MESH_RUNS`` and each ``MESH_MOE`` arch on its own, else a 1x1
-    mesh on one card for qwen3 and granite-moe. Each run, in f32: the
-    greedy tokens equal the unsharded run's, prefill's logits and each
-    decode's (held to the unsharded run's, and without experts also to
-    the forward pass at the same positions: a forward routes its whole
-    pool under a capacity, which drops other assignments than decode's)
-    within ``LM_MESH_RTOL``, and each card's resident bytes (the local shards of
-    parameters and caches) equal to the dry run's ``argument_bytes`` less
-    the inputs; then the config's own bf16 compute at its full depth,
-    timed. A failing rank raises here. Returns rank 0's lines, each
-    arch's wall and the phase's last."""
-    import tempfile
+def _mesh_jobs(device, qwen3: MeshArch, gates=()) -> list:
+    """The runs of a mesh phase, (job, its meshes): qwen3's and each
+    ``MESH_ARCHS`` arch's on four cards (and the CPU rehearsal's four
+    ranks), else a 1x1 mesh on one card for those that run on one; with
+    ``gates``, the f32 gates alone of the archs it names."""
     import torch
+    four = device == "cpu" or torch.cuda.device_count() >= 4
+    jobs = [qwen3, *MESH_ARCHS]
+    if gates:
+        jobs = [j._replace(timed=False) for j in jobs if j.arch in gates]
+    return [(j, j.shapes if four else ((1, 1),))
+            for j in jobs if four or j.one_card]
+
+
+def lm_mesh_phase(device, seed, small, card, gates=()):
+    """qwen3-1.7b's, the MoE family's and the recurrent families' serving
+    program (``serve.step``) on a device mesh, one process a card
+    (``torch.multiprocessing``, spawn; NCCL, or gloo on the CPU
+    rehearsal), the JAX package's placements for every parameter, cache
+    and pinned activation. On four cards (and the CPU rehearsal's four
+    ranks) qwen3 on the meshes of ``LM_MESH_RUNS`` and each
+    ``MESH_ARCHS`` arch on its own, else a 1x1 mesh on one card for qwen3
+    and the archs that run on one card. Each run, in f32: the greedy
+    tokens equal the unsharded run's, prefill's logits and each decode's
+    (held to the unsharded run's, and without experts also to the forward
+    pass at the same positions: a forward routes its whole pool under a
+    capacity, which drops other assignments than decode's) within
+    ``LM_MESH_RTOL``, the recurrent states after prefill and after the
+    last decode within the same tolerance and no state's shard
+    all-gathered in a decode step, and each card's resident bytes (the
+    local shards of parameters and caches) equal to the dry run's
+    ``argument_bytes`` less the inputs; then the config's own bf16
+    compute at its full depth, timed (with ``gates``, the named archs'
+    gates alone). A failing rank raises here. Rank 0 prints each arch's
+    lines and wall as it ends; returns the phase's wall line."""
     import torch.multiprocessing as tmp
     t0 = time.perf_counter()
-    four = device == "cpu" or torch.cuda.device_count() >= 4
     b = LM_SERVE[0]
-    if four:
-        jobs = [(LM_ARCH, LM_MESH_RUNS, None, True)] + [
-            (arch, tuple((shape, b) for shape in shapes), layers, timed)
-            for arch, shapes, layers, timed in MESH_MOE]
-    else:
-        jobs = [(LM_ARCH, (((1, 1), b),), None, True)] + [
-            (arch, (((1, 1), b),), layers, timed)
-            for arch, _, layers, timed in MESH_MOE if timed]
+    qwen3 = MeshArch(LM_ARCH, tuple(s for s, _ in LM_MESH_RUNS), 0, True,
+                     True)
+    jobs = [(job, LM_MESH_RUNS if job.arch == LM_ARCH and len(shapes) > 1
+             else tuple((shape, b) for shape in shapes))
+            for job, shapes in _mesh_jobs(device, qwen3, gates)]
     world = math.prod(jobs[0][1][0][0])
     sys.stdout.flush()
-    with tempfile.TemporaryDirectory() as d:
-        out = str(Path(d) / "lines.json")
-        tmp.start_processes(
-            _lm_mesh_rank, nprocs=world, start_method="spawn",
-            args=(world, f"tcp://localhost:{_free_port()}", device, seed,
-                  small, card, jobs, out))
-        lines = json.loads(Path(out).read_text())
-    return lines + [f"lm mesh phase: {time.perf_counter() - t0:.1f} s "
-                    f"[{card}]"]
+    tmp.start_processes(
+        _lm_mesh_rank, nprocs=world, start_method="spawn",
+        args=(world, f"tcp://localhost:{_free_port()}", device, seed, small,
+              card, jobs))
+    return [f"lm mesh phase: {time.perf_counter() - t0:.1f} s [{card}]"]
 
 
 # ---------------------------------------------------------------------------
@@ -3126,18 +3281,26 @@ def train_mesh_batch(seed, small, vocab=None):
                                   dc)))
 
 
-def _whole_tree(tree):
+def _whole_tree(tree, cpu=False):
+    """Each leaf whole (a DTensor gathered), on the host with ``cpu``."""
     from repro_torch.models.module import tree_map
-    return tree_map(lambda t: t.full_tensor() if hasattr(t, "full_tensor")
-                    else t, tree)
+
+    def whole(t):
+        t = t.full_tensor() if hasattr(t, "full_tensor") else t
+        return t.cpu() if cpu else t
+
+    return tree_map(whole, tree)
 
 
-def _train_mesh_gates(rank, cfg, host, batch, mesh, rules, want):
+def _train_mesh_gates(rank, cfg, draw, batch, mesh, rules, want):
     """The f32 gates of one mesh: (loss rel, grad norm rel, worst gradient
     of its leaf's largest |g|, placements equal, parameters' max abs
     difference after the steps, the forward's MoE aux loss rel (0 against
     0 without experts)), the card's train-state bytes; the errors on rank
-    0 against ``want`` (the unsharded run on that card)."""
+    0 against ``want`` (the unsharded run on that card). ``draw()`` gives
+    the parameters, dropped once distributed; the gradients and the
+    parameters after the steps wait on the host, and are compared on the
+    card a leaf at a time once the mesh's state is freed."""
     from repro_torch.models import api as mapi
     from repro_torch.models.module import distribute, shardings, tree_items
     from repro_torch.optim.adamw import AdamW
@@ -3148,13 +3311,13 @@ def _train_mesh_gates(rank, cfg, host, batch, mesh, rules, want):
     opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10)
     spec = mapi.spec(cfg)
     with use_sharding(mesh, rules):
-        params = distribute(host, shardings(spec, mesh, rules))
+        params = distribute(draw(), shardings(spec, mesh, rules))
         aux = float(mapi.forward(params, cfg, pin_inputs(batch))[1])
         grads, _, _ = make_grad_fn(cfg)(params, batch)
         placed = all(tuple(g.placements) == tuple(p.placements)
                      for (_, g), (_, p) in zip(tree_items(grads),
                                                tree_items(params)))
-        whole = _whole_tree(grads)
+        whole = _whole_tree(grads, cpu=True)
         del grads
         step = make_train_step(cfg, opt)
         state = init_state(params, opt)
@@ -3165,22 +3328,24 @@ def _train_mesh_gates(rank, cfg, host, batch, mesh, rules, want):
         state_bytes = _local_bytes({"params": state.params,
                                     "opt": state.opt._asdict(),
                                     "step": state.step})
-        final = _whole_tree(state.params)
+        final = _whole_tree(state.params, cpu=True)
     del state, params
     if rank:
         return None, state_bytes
     w_grads, w_metrics, w_params, w_aux = want
     errs = (abs(metrics[0]["loss"] / w_metrics[0]["loss"] - 1),
             abs(metrics[0]["grad_norm"] / w_metrics[0]["grad_norm"] - 1),
-            _tree_rel(whole, w_grads), placed,
-            _tree_max_abs(final, w_params),
+            _tree_rel(whole, w_grads, mesh.device), placed,
+            _tree_max_abs(final, w_params, mesh.device),
             abs(aux - w_aux) / max(abs(w_aux), 1e-30))
     return errs, state_bytes
 
 
-def _train_mesh_timed(cfg, host, batch, mesh, rules, on_card, steps):
-    """``steps`` steps of the full config from ``host``: (metrics a
-    step, wall ms a step, collectives of one step by kind, device ms and
+def _train_mesh_timed(cfg, draw, batch, mesh, rules, on_card, steps):
+    """``steps`` steps of ``cfg`` from ``draw()``'s parameters (dropped once
+    distributed), step 1 under CommDebugMode and step 2 under torch.profiler
+    (each clock still runs; the median leaves both out): (metrics a step,
+    wall ms a step, collectives of one step by kind, device ms and
     NCCL-kernel ms of one step by torch.profiler or None on the CPU, the
     peak bytes above the start, the card's train-state bytes)."""
     import torch
@@ -3192,34 +3357,32 @@ def _train_mesh_timed(cfg, host, batch, mesh, rules, on_card, steps):
     from repro_torch.sharding.ctx import use_sharding
     from repro_torch.train.step import init_state, make_train_step
     base = _peak_from_here(on_card)
-    opt = AdamW(lr=3e-4, warmup_steps=2, total_steps=steps)
+    opt = AdamW(lr=TRAIN_MESH_LR, warmup_steps=2, total_steps=steps)
+    comm = CommDebugMode()
+    prof = profile(activities=[ProfilerActivity.CUDA]) if on_card else None
+    watch = {0: comm, 1: prof}
     with use_sharding(mesh, rules):
-        state = init_state(distribute(host, shardings(mapi.spec(cfg), mesh,
-                                                      rules)), opt)
+        state = init_state(distribute(draw(), shardings(mapi.spec(cfg), mesh,
+                                                        rules)), opt)
         step = make_train_step(cfg, opt)
         metrics, ms = [], []
-        for _ in range(steps):
+        for i in range(steps):
             _mesh_sync(on_card)
             t0 = time.perf_counter()
-            state, m = step(state, batch)
-            m = {k: float(v) for k, v in m.items()}
-            _mesh_sync(on_card)
+            with watch.get(i) or contextlib.nullcontext():
+                state, m = step(state, batch)
+                m = {k: float(v) for k, v in m.items()}
+                _mesh_sync(on_card)
             ms.append((time.perf_counter() - t0) * 1e3)
             metrics.append(m)
         peak = torch.cuda.max_memory_allocated() - base if on_card else 0
-        with CommDebugMode() as comm:
-            state, _ = step(state, batch)
-        busy = nccl = None
-        if on_card:
-            _mesh_sync(on_card)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                state, _ = step(state, batch)
-                _mesh_sync(on_card)
-            dev = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-            busy = sum(e.self_device_time_total for e in dev) / 1e3
-            nccl = sum(e.self_device_time_total for e in dev
-                       if "nccl" in e.key.lower()) / 1e3
+    busy = nccl = None
+    if on_card:
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in dev) / 1e3
+        nccl = sum(e.self_device_time_total for e in dev
+                   if "nccl" in e.key.lower()) / 1e3
     state_bytes = _local_bytes({"params": state.params,
                                 "opt": state.opt._asdict(),
                                 "step": state.step})
@@ -3227,18 +3390,36 @@ def _train_mesh_timed(cfg, host, batch, mesh, rules, on_card, steps):
     return metrics, ms, _comm_kinds(comm), busy, nccl, peak, state_bytes
 
 
-def _train_mesh_runs(rank, device, seed, small, card, arch, shapes,
-                     gate_layers, timed, host_batch):
-    """Every mesh of ``shapes`` for ``arch`` on this rank; rank 0 returns
-    the lines. The f32 gates run at ``gate_layers`` layers, the timed
-    steps (when ``timed``) at the config's depth. The parameters are
-    drawn from the seed on each rank's device (the same values on every
-    rank) and distributed onto each mesh; rank 0 also runs the f32 model
-    with no mesh on its card, the reference."""
+def _train_depth(cfg, cards: int):
+    """``cfg`` on ``cards`` cards: as it is on several; on one, at the
+    deepest whole number of block-program periods whose f32 parameters,
+    gradients, m and v fit ``TRAIN_STATE_LIMIT``."""
     import dataclasses
+    from repro_torch.models import api as mapi
+    from repro_torch.models.lm import build_program
+    from repro_torch.models.module import param_count
+    if cards > 1 or cfg.family == "audio":
+        return cfg
+    period = build_program(cfg).period
+    n = cfg.n_layers
+    while n > period and 16 * param_count(mapi.spec(
+            dataclasses.replace(cfg, n_layers=n))) > TRAIN_STATE_LIMIT:
+        n -= period
+    return dataclasses.replace(cfg, n_layers=n)
+
+
+def _train_mesh_runs(rank, device, seed, small, card, job: MeshArch, shapes,
+                     host_batch):
+    """Every mesh of ``shapes`` for ``job``'s arch on this rank; rank 0
+    returns the lines. The f32 gates run at ``job.gate_layers`` layers with
+    ``job.gate_over``'s config fields on the batch's first ``job.gate_seq``
+    positions (0: all), the timed steps (when ``job.timed``) at the
+    config's depth (on one card ``_train_depth``'s cut). The parameters
+    are drawn from the seed on each rank's device (the same values on
+    every rank) for each use and distributed onto each mesh; rank 0 also
+    runs the f32 model with no mesh on its card, the reference."""
     import torch
     import torch.distributed as dist
-    from repro_torch.configs import get_config, reduced
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import default_rules, make_device_mesh
@@ -3251,32 +3432,33 @@ def _train_mesh_runs(rank, device, seed, small, card, arch, shapes,
         make_train_step
     on_card = device == "cuda"
     dev = torch.device("cuda", rank) if on_card else torch.device("cpu")
-    full = get_config(arch)
-    cfg = dataclasses.replace(reduced(full), remat=full.remat) if small \
-        else full
-    cfg32 = dataclasses.replace(cfg, n_layers=gate_layers,
-                                compute_dtype=torch.float32)
-    batch = device_batch(cfg, host_batch, 1, dev)
+    arch, timed, gate_over = job.arch, job.timed, job.gate_over
+    full, cfg32 = _mesh_cfgs(arch, small, job.gate_layers, gate_over)
+    batch = device_batch(full, host_batch, 1, dev)
     b, s = batch["tokens"].shape
+    gate_batch = batch
+    if job.gate_seq and not small:
+        gate_batch = {k: v[:, :job.gate_seq].contiguous()
+                      for k, v in batch.items()}
+    spec32 = mapi.spec(cfg32)
     t0 = time.perf_counter()
-    host32 = _drawn(mapi.spec(cfg32), seed + 41, dev)
-    host = _drawn(mapi.spec(cfg), seed + 42, dev) if timed else None
+    ref = _drawn(spec32, seed + 41, dev)
     t_init = time.perf_counter() - t0
     want = None
     if rank == 0:
-        ref = tree_map(lambda t: t.to(dev, copy=True), host32)
         opt = AdamW(lr=1e-3, warmup_steps=1, total_steps=10)
-        grads, _, _ = make_grad_fn(cfg32)(ref, batch)
+        grads, _, _ = make_grad_fn(cfg32)(ref, gate_batch)
         grads = tree_map(lambda t: t.cpu(), grads)
-        aux = float(mapi.forward(ref, cfg32, batch)[1])
+        aux = float(mapi.forward(ref, cfg32, gate_batch)[1])
         step = make_train_step(cfg32, opt)
         state, metrics = init_state(ref, opt), []
         for _ in range(TRAIN_MESH_GATE_STEPS):
-            state, m = step(state, batch)
+            state, m = step(state, gate_batch)
             metrics.append({k: float(v) for k, v in m.items()})
         want = (grads, metrics, tree_map(lambda t: t.cpu(), state.params),
                 aux)
-        del ref, state, step
+        del state, step
+    del ref
     lines = []
     for shape in shapes:
         gc.collect()
@@ -3285,16 +3467,17 @@ def _train_mesh_runs(rank, device, seed, small, card, arch, shapes,
         t_mesh = time.perf_counter()
         mesh = make_device_mesh(shape, ("data", "model"), device)
         rules = default_rules(mesh)
-        errs, state_bytes = _train_mesh_gates(rank, cfg32, host32, batch,
-                                              mesh, rules, want)
-        # the MoE arch on one card: fewer timed steps, for the script's
-        # time limit
-        steps = TRAIN_MESH_MOE_ONE_CARD_STEPS if cfg.moe is not None \
-            and not small and math.prod(shape) == 1 else TRAIN_STEPS
+        errs, state_bytes = _train_mesh_gates(
+            rank, cfg32, lambda: _drawn(spec32, seed + 41, dev), gate_batch,
+            mesh, rules, want)
+        cfg = _train_depth(full, math.prod(shape)) if not small else full
+        steps = TRAIN_STEPS if arch == LM_ARCH else TRAIN_MESH_ARCH_STEPS
         if timed:
+            gc.collect()
             metrics, ms, comm, busy, nccl, peak, full_bytes = \
-                _train_mesh_timed(cfg, host, batch, mesh, rules, on_card,
-                                  steps)
+                _train_mesh_timed(
+                    cfg, lambda: _drawn(mapi.spec(cfg), seed + 42, dev),
+                    batch, mesh, rules, on_card, steps)
         else:
             peak, full_bytes = 0, None
         per_rank = [None] * dist.get_world_size()
@@ -3325,14 +3508,19 @@ def _train_mesh_runs(rank, device, seed, small, card, arch, shapes,
         assert all(r == predicted for r, _, _ in per_rank), \
             f"{tag} {arch}: train-state bytes " \
             f"{[r for r, _, _ in per_rank]} != dry run {predicted}"
-        moe = "" if cfg.moe is None else (
-            f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
-            f"{'grouped' if cfg.moe.grouped_dispatch else 'global pool'}")
+        moe = "" if cfg32.moe is None else (
+            f", {cfg32.moe.n_experts} experts top-{cfg32.moe.top_k}, "
+            f"{'grouped' if cfg32.moe.grouped_dispatch else 'global pool'}")
         gate = (
-            f"{tag}: {cfg.arch_id}{moe}, batch {b}, seq {s} (the training "
-            f"phase's packed batch in vocab {cfg.vocab_size}; params drawn "
+            f"{tag}: {cfg32.arch_id}{moe}, batch {b}, seq {s} (the training "
+            f"phase's packed batch in vocab {cfg32.vocab_size}; params drawn "
             f"on {dev.type} in {t_init:.2f} s); "
-            f"f32 at d {cfg32.d_model}, {cfg32.n_layers} layers against the "
+            f"f32 at d {cfg32.d_model}, {cfg32.n_layers} layers"
+            + (f" ({', '.join(f'{k} {v}' for k, v in gate_over)})"
+               if gate_over else "")
+            + (f" on the first {gate_batch['tokens'].shape[1]} positions"
+               if gate_batch is not batch else "")
+            + f" against the "
             f"unsharded port on card 0: loss rel err {e_loss:.2e}, grad norm "
             f"{e_norm:.2e}, aux loss {e_aux:.2e}, gradients {e_grad:.2e} of "
             f"each leaf's largest |g| "
@@ -3355,9 +3543,13 @@ def _train_mesh_runs(rank, device, seed, small, card, arch, shapes,
         assert losses[-1] < losses[0], \
             f"{tag} {arch}: loss did not fall {losses}"
         med = float(np.median(ms[2:]))
+        cut = "" if cfg.n_layers == full.n_layers else (
+            f", cut from {full.n_layers}: the deepest whose f32 params, "
+            f"grads, m and v fit {TRAIN_STATE_LIMIT / 1e9:.0f} GB")
         lines.append(
-            f"{gate}; full config "
-            f"({cfg.n_layers} layers, {str(cfg.compute_dtype)[6:]} compute, "
+            f"{gate}; {'full config' if not cut else 'the config'} "
+            f"({cfg.n_layers} layers{cut}, {str(cfg.compute_dtype)[6:]} "
+            f"compute, "
             f"remat {cfg.remat}; train-state bytes per card "
             f"{[f for _, _, f in per_rank]} == dry run {predicted_full}), "
             f"{steps} steps: loss "
@@ -3375,8 +3567,7 @@ def _train_mesh_runs(rank, device, seed, small, card, arch, shapes,
     return lines
 
 
-def _train_mesh_rank(rank, world, init, device, seed, small, card, jobs,
-                     out):
+def _train_mesh_rank(rank, world, init, device, seed, small, card, jobs):
     import torch
     import torch.distributed as dist
     kw = {}
@@ -3389,56 +3580,48 @@ def _train_mesh_rank(rank, world, init, device, seed, small, card, jobs,
                             init_method=init, rank=rank, world_size=world,
                             **kw)
     try:
-        lines = []
-        for arch, shapes, gate_layers, timed, host_batch in jobs:
+        for job, shapes, host_batch in jobs:
             t0 = time.perf_counter()
-            lines += _train_mesh_runs(rank, device, seed, small, card, arch,
-                                      shapes, gate_layers, timed, host_batch)
-            lines.append(f"train mesh {arch}: "
-                         f"{time.perf_counter() - t0:.1f} s [{card}]")
-        if rank == 0:
-            Path(out).write_text(json.dumps(lines))
+            lines = _train_mesh_runs(rank, device, seed, small, card, job,
+                                     shapes, host_batch)
+            if rank == 0:
+                print("\n".join(lines + [
+                    f"train mesh {job.arch}: "
+                    f"{time.perf_counter() - t0:.1f} s [{card}]"]), flush=True)
     finally:
         dist.destroy_process_group()
 
 
-def train_mesh_phase(device, seed, small, card):
-    """qwen3-1.7b's and the MoE family's train step (``train.step`` under
-    ``sharding.ctx.use_sharding``) on a device mesh, one process a card
-    (``torch.multiprocessing``, spawn; NCCL, or gloo on the CPU
-    rehearsal): on four cards (and the rehearsal's four ranks) qwen3 on
-    the meshes of ``TRAIN_MESH_SHAPES`` and each ``MESH_MOE`` arch on its
-    own, else a 1x1 mesh on one card for qwen3 and granite-moe. Each
-    mesh: the f32 gates at full width, 2 layers (mixtral 1) (loss, grad
-    norm, the MoE aux loss, every gradient and its placements, the
-    parameters after AdamW steps against the unsharded port on card 0;
-    each card's train-state bytes against the dry run's), then the full
-    config timed on the training phase's packed batch in the arch's
-    vocabulary. A failing rank raises here. Returns rank 0's lines, each
-    arch's wall and the phase's last."""
-    import tempfile
-    import torch
+def train_mesh_phase(device, seed, small, card, gates=()):
+    """qwen3-1.7b's, the MoE family's and the recurrent families' train
+    step (``train.step`` under ``sharding.ctx.use_sharding``) on a device
+    mesh, one process a card (``torch.multiprocessing``, spawn; NCCL, or
+    gloo on the CPU rehearsal): on four cards (and the rehearsal's four
+    ranks) qwen3 on the meshes of ``TRAIN_MESH_SHAPES`` and each
+    ``MESH_ARCHS`` arch on its own, else a 1x1 mesh on one card for qwen3
+    and the archs that run on one card. Each mesh: the f32 gates at full
+    width, 2 layers (mixtral 1) (loss, grad norm, the MoE aux loss, every
+    gradient and its placements, the parameters after AdamW steps against
+    the unsharded port on card 0; each card's train-state bytes against
+    the dry run's), then the config timed on the training phase's packed
+    batch in the arch's vocabulary (at full depth, on one card at
+    ``_train_depth``'s cut; with ``gates``, the named archs' gates alone).
+    A failing rank raises here. Rank 0 prints each arch's lines and wall
+    as it ends; returns the phase's wall line."""
     import torch.multiprocessing as tmp
     from repro_torch.configs import get_config
     t0 = time.perf_counter()
-    four = device == "cpu" or torch.cuda.device_count() >= 4
-    qwen3 = train_mesh_batch(seed, small)
-    moe = [(arch, shapes if four else ((1, 1),), layers, timed,
-            train_mesh_batch(seed, small, get_config(arch).vocab_size))
-           for arch, shapes, layers, timed in MESH_MOE if four or timed]
-    jobs = [(LM_ARCH, TRAIN_MESH_SHAPES if four else ((1, 1),), 2, True,
-             qwen3)] + moe
+    qwen3 = MeshArch(LM_ARCH, TRAIN_MESH_SHAPES, 2, True, True)
+    jobs = [(job, shapes, train_mesh_batch(
+                seed, small, get_config(job.arch).vocab_size))
+            for job, shapes in _mesh_jobs(device, qwen3, gates)]
     world = math.prod(jobs[0][1][0])
     sys.stdout.flush()
-    with tempfile.TemporaryDirectory() as d:
-        out = str(Path(d) / "lines.json")
-        tmp.start_processes(
-            _train_mesh_rank, nprocs=world, start_method="spawn",
-            args=(world, f"tcp://localhost:{_free_port()}", device, seed,
-                  small, card, jobs, out))
-        lines = json.loads(Path(out).read_text())
-    return lines + [f"train mesh phase: {time.perf_counter() - t0:.1f} s "
-                    f"[{card}]"]
+    tmp.start_processes(
+        _train_mesh_rank, nprocs=world, start_method="spawn",
+        args=(world, f"tcp://localhost:{_free_port()}", device, seed, small,
+              card, jobs))
+    return [f"train mesh phase: {time.perf_counter() - t0:.1f} s [{card}]"]
 
 
 # ---------------------------------------------------------------------------
@@ -3569,20 +3752,29 @@ def _launcher_run(device, seed, small, card):
             f"{ft or 'none'}; {wall:.1f} s in all [{card}]")
 
 
-def _tree_rel(got, want) -> float:
-    """Largest error over the leaves, each relative to its largest |x|."""
+def _f32_on(t, device):
+    """``t`` on ``device`` in float32 at least (a float32 leaf already
+    there is not copied: float32 differences are ample for the limits
+    they meet)."""
+    import torch
+    return t.to(device).to(torch.promote_types(t.dtype, torch.float32))
+
+
+def _tree_rel(got, want, device="cpu") -> float:
+    """Largest error over the leaves, each relative to its largest |x|,
+    computed on ``device`` a leaf at a time."""
     from repro_torch.models.module import tree_items
     worst = 0.0
     for (_, a), (_, b) in zip(tree_items(got), tree_items(want)):
-        a, b = a.double().cpu(), b.double().cpu()
+        a, b = _f32_on(a, device), _f32_on(b, device)
         worst = max(worst, float((a - b).abs().max()
                                  / (b.abs().max() + 1e-30)))
     return worst
 
 
-def _tree_max_abs(got, want) -> float:
+def _tree_max_abs(got, want, device="cpu") -> float:
     from repro_torch.models.module import tree_items
-    return max(float((a.double().cpu() - b.double().cpu()).abs().max())
+    return max(float((_f32_on(a, device) - _f32_on(b, device)).abs().max())
                for (_, a), (_, b) in zip(tree_items(got), tree_items(want)))
 
 
@@ -3932,40 +4124,73 @@ def train_phase(device, seed, small, card):
     return lines
 
 
-def _dryrun_sweep(small, card):
-    """``launch.dryrun.main`` over every arch, shape and mesh (one block-
-    program period deep; on the CPU rehearsal qwen3-1.7b alone) into a
-    temporary directory, then ``analysis.report``'s tables. Returns
-    (lines, wall s)."""
-    import contextlib
-    import io
-    import os
-    import tempfile
-    from repro_torch.analysis import report
-    from repro_torch.configs import ARCH_IDS, SHAPES, cell_supported, \
-        get_config
-    from repro_torch.launch import dryrun
-    archs = ["qwen3-1.7b"] if small else list(ARCH_IDS)
-    with tempfile.TemporaryDirectory() as tmp:
-        cells_dir = os.path.join(tmp, "cells")
-        saved = os.environ.get("REPRO_HLO_DIR")
-        os.environ["REPRO_HLO_DIR"] = os.path.join(tmp, "hlo")
-        out = io.StringIO()
+class DryrunSweep:
+    """``launch.dryrun`` over every arch, shape and mesh (one block-program
+    period deep; on the CPU rehearsal qwen3-1.7b alone) into a temporary
+    directory, in a process of its own started here: its own session, the
+    last ``DRYRUN_CORES`` of the cores this process may run on, nice
+    ``DRYRUN_NICE`` (its pool's workers inherit both). The sweep traces on
+    ``meta`` and launches nothing, so it runs beside the phases before the
+    dry-run phase, which reads it through ``finish``. ``stop`` (also at
+    exit) kills what is left of it."""
+
+    def __init__(self, small):
+        import atexit
+        import os
+        import tempfile
+        self.small = small
+        self.tmp = tempfile.TemporaryDirectory()
+        self.cells = os.path.join(self.tmp.name, "cells")
+        self.wall_file = os.path.join(self.tmp.name, "wall")
+        self.cores = sorted(os.sched_getaffinity(0))[-DRYRUN_CORES:]
+        argv = ["--arch", "qwen3-1.7b" if small else "all", "--shape",
+                "all", "--mesh", "both", "--out", self.cells, "--blocks",
+                str(DRYRUN_BLOCKS)]
+        code = (f"import os, sys, time; os.sched_setaffinity(0, "
+                f"{self.cores!r}); os.nice({DRYRUN_NICE}); "
+                "t = time.perf_counter(); "
+                "from repro_torch.launch import dryrun; "
+                f"rc = dryrun.main({argv!r}); "
+                f"open({self.wall_file!r}, 'w').write("
+                "repr(time.perf_counter() - t)); sys.exit(rc)")
+        path = os.environ.get("PYTHONPATH")
+        env = dict(os.environ, REPRO_HLO_DIR=os.path.join(self.tmp.name,
+                                                          "hlo"),
+                   PYTHONPATH=os.pathsep.join(
+                       [str(ROOT / "src")] + ([path] if path else [])))
+        self.log = open(os.path.join(self.tmp.name, "out.txt"), "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", code], stdout=self.log,
+            stderr=subprocess.STDOUT, env=env, start_new_session=True)
+        atexit.register(self.stop)
+
+    def stop(self):
+        import os
+        import signal
+        if self.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        self.log.close()
+        self.tmp.cleanup()
+
+    def finish(self, card):
+        """Waits for the sweep, checks every cell, and stops it. Returns
+        (lines: one a cell and the report's tables, the sweep's wall s, the
+        s waited here)."""
+        import io
+        from repro_torch.analysis import report
+        from repro_torch.configs import ARCH_IDS, SHAPES, cell_supported, \
+            get_config
         t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(out):
-                rc = dryrun.main(
-                    ["--arch", archs[0] if small else "all", "--shape", "all",
-                     "--mesh", "both", "--out", cells_dir, "--blocks",
-                     str(DRYRUN_BLOCKS)])
-        finally:
-            if saved is None:
-                os.environ.pop("REPRO_HLO_DIR")
-            else:
-                os.environ["REPRO_HLO_DIR"] = saved
-        wall = time.perf_counter() - t0
-        assert rc == 0, f"dry run exited {rc}:\n{out.getvalue()}"
-        cells = report.load_cells(cells_dir)
+        rc = self.proc.wait()
+        waited = time.perf_counter() - t0
+        self.log.seek(0)
+        out = self.log.read()
+        assert rc == 0, f"dry run exited {rc}:\n{out}"
+        wall = float(Path(self.wall_file).read_text())
+        archs = ["qwen3-1.7b"] if self.small else list(ARCH_IDS)
+        cells = report.load_cells(self.cells)
         assert len(cells) == len(archs) * len(SHAPES) * 2, len(cells)
         for c in cells:
             ok, _ = cell_supported(get_config(c["arch"]), SHAPES[c["shape"]])
@@ -3978,23 +4203,26 @@ def _dryrun_sweep(small, card):
             assert m["argument_bytes"] > 0 and c["hlo"]["op_count"] > 0
         tables = io.StringIO()
         with contextlib.redirect_stdout(tables):
-            report.main([cells_dir])
-    lines = [f"{x} [{card}]" for x in out.getvalue().rstrip().splitlines()]
-    lines.append("dry-run report: the bytes each chip holds at the mesh, "
-                 "and one H100's roofline on its datasheet peaks (no time "
-                 f"in it was measured) [{card}]")
-    lines += tables.getvalue().rstrip().splitlines()
-    return lines, wall
+            report.main([self.cells])
+        self.stop()
+        lines = [f"{x} [{card}]" for x in out.rstrip().splitlines()
+                 if x.startswith("[")]
+        lines.append("dry-run report: the bytes each chip holds at the mesh, "
+                     "and one H100's roofline on its datasheet peaks (no time "
+                     f"in it was measured) [{card}]")
+        lines += tables.getvalue().rstrip().splitlines()
+        return lines, wall, waited
 
 
 def _rel(got, want) -> float:
     return abs(got / want - 1.0)
 
 
-def dryrun_phase(device, seed, small, card):
+def dryrun_phase(device, seed, small, card, sweep: DryrunSweep):
     """The dry run (``launch.dryrun``, ``analysis.{opstats,roofline,
     report}``). (1) The sweep of every cell at both meshes, one period
-    deep: one line a cell, the report's tables and the wall. (2) The
+    deep, from ``sweep`` (started with the script): one line a cell, the
+    report's tables, its wall and the wait for it here. (2) The
     one-H100 estimate of qwen3-1.7b's training step at the training
     phase's configuration (full config, batch 4, seq 256, remat full,
     AdamW), traced on ``meta`` by ``trace_step`` (a second trace names what
@@ -4021,10 +4249,13 @@ def dryrun_phase(device, seed, small, card):
     on_card = device == "cuda"
     dev = torch.device(device)
     import os
-    lines, wall = _dryrun_sweep(small, card)
+    lines, wall, waited = sweep.finish(card)
     lines.append(f"dry run: {len([x for x in lines if x.startswith('[')])} "
-                 f"cells (one block-program period deep) in {wall:.1f} s, a "
-                 f"worker process a core ({os.cpu_count()} cores) [{card}]")
+                 f"cells (one block-program period deep) in {wall:.1f} s, "
+                 f"traced beside the earlier phases by its worker "
+                 f"processes on {len(sweep.cores)} of the host's "
+                 f"{os.cpu_count()} cores at nice {DRYRUN_NICE}; the phase "
+                 f"waited {waited:.1f} s for it [{card}]")
 
     cfg = get_config(LM_ARCH)
     if small:
@@ -4180,6 +4411,19 @@ def demo_phase(device, card):
 
 # ---------------------------------------------------------------------------
 
+def _mesh_only_end(t_start, where, on_card) -> int:
+    import torch
+    print(f"mesh-only run: done, {torch.cuda.device_count()} card(s) "
+          "visible" if on_card else "mesh-only run: done on the CPU")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall "
+          f"[{where}]")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu" if on_card else "cpu",
+        "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4189,7 +4433,14 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="make the data, run the multi-worker, LM mesh "
                     "and train mesh phases over the visible cards and stop")
+    ap.add_argument("--gates", nargs="+", metavar="ARCH",
+                    choices=[LM_ARCH] + [m.arch for m in MESH_ARCHS],
+                    help="with --mesh-only: only these archs' f32 gates in "
+                    "the LM and train mesh phases (no data, no multi-worker "
+                    "phase, nothing timed)")
     args = ap.parse_args(argv)
+    if args.gates and not args.mesh_only:
+        ap.error("--gates goes with --mesh-only")
     t_start = time.perf_counter()
 
     import torch
@@ -4206,6 +4457,13 @@ def main(argv=None) -> int:
              "--format=csv,noheader"], check=True, capture_output=True,
             text=True).stdout.strip().splitlines()[0]
         print(card)
+    if args.gates:
+        where = card if on_card else "CPU rehearsal"
+        for phase in (lm_mesh_phase, train_mesh_phase):
+            print("\n".join(phase(args.device, args.seed, args.small, where,
+                                   args.gates)), flush=True)
+        return _mesh_only_end(t_start, where, on_card)
+    if on_card:
         t0 = time.perf_counter()
         build.library()
         print(f"build: kernels ready in {time.perf_counter() - t0:.2f} s "
@@ -4213,6 +4471,7 @@ def main(argv=None) -> int:
               f"{Path(build.BUILD_INFO['path']).name})")
         for line in ptxas_usage(build.BUILD_INFO["log"] or ""):
             print(line)
+    sweep = None if args.mesh_only else DryrunSweep(args.small)
 
     n = SMALL_N if args.small else FULL_N
     bs = 256
@@ -4245,15 +4504,7 @@ def main(argv=None) -> int:
                                       where)), flush=True)
         print("\n".join(train_mesh_phase(args.device, args.seed,
                                          args.small, where)), flush=True)
-        print(f"mesh-only run: done, {torch.cuda.device_count()} card(s) "
-              "visible" if on_card else "mesh-only run: done on the CPU")
-        print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall "
-              f"[{where}]")
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu" if on_card else "cpu",
-            "kind": torch.cuda.get_device_name(0) if on_card else "cpu",
-            "count": torch.cuda.device_count()}}))
-        return 0
+        return _mesh_only_end(t_start, where, on_card)
 
     backend = "cuda" if on_card else "torch"
     calls, restore = capture_calls(backend)
@@ -4300,7 +4551,7 @@ def main(argv=None) -> int:
         print("\n".join(train_phase(args.device, args.seed, True,
                                     rehearsal)))
         print("\n".join(dryrun_phase(args.device, args.seed, True,
-                                     rehearsal)))
+                                     rehearsal, sweep)))
         print(json.dumps({"ok": True, "device": {
             "platform": "cpu", "kind": "cpu", "count": 0}}))
         return 0
@@ -4383,8 +4634,8 @@ def main(argv=None) -> int:
           flush=True)
     gc.collect()
     torch.cuda.empty_cache()
-    print("\n".join(dryrun_phase(args.device, args.seed, False, card)),
-          flush=True)
+    print("\n".join(dryrun_phase(args.device, args.seed, False, card,
+                                 sweep)), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall [{card}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

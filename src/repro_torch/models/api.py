@@ -13,9 +13,7 @@ as ``nn.Parameter``s.
 
 Under a device mesh (``sharding.ctx.use_sharding`` over a ``DeviceMesh``)
 the parameters, inputs and caches are DTensors and the three entry points
-run the JAX package's sharded program for the families in
-``MESH_FAMILIES``; any other family raises ``NotImplementedError`` before
-it touches a tensor.
+run the JAX package's sharded program, for every family.
 """
 from __future__ import annotations
 
@@ -35,7 +33,6 @@ from repro_torch.models.layers import apply_norm
 from repro_torch.models.module import (
     ParamSpec, init_params, tree_items, tree_map, tree_unbind,
 )
-from repro_torch.sharding.ctx import device_mesh
 from repro_torch.sharding.specs import pin_caches
 
 
@@ -48,25 +45,8 @@ def spec(cfg: ModelConfig) -> Dict:
                     tree)
 
 
-# the families whose blocks run on DTensors (dense attention and MLP:
-# qwen, command-r, stablelm, phi-3-vision's decoder, whisper's
-# encoder-decoder; the MoE dispatch: granite-moe, mixtral); the recurrent
-# scans (rwkv, jamba's mamba) do not yet
-MESH_FAMILIES = ("dense", "vlm", "audio", "moe")
-
-
-def check_mesh_family(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` when a device mesh is installed and
-    ``cfg``'s family has no sharded program in the port."""
-    if device_mesh() is not None and cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family} family has no sharded program "
-            f"in the port; under a device mesh only {MESH_FAMILIES} run")
-
-
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    check_mesh_family(cfg)
     if cfg.family == "audio":
         return encdec_mod.encdec_forward(params, cfg, batch["frames"],
                                          batch["tokens"])
@@ -76,7 +56,6 @@ def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
             max_seq: int) -> Tuple[torch.Tensor, Any]:
-    check_mesh_family(cfg)
     if cfg.family == "audio":
         memory = encdec_mod.encode(params, cfg, batch["frames"])
         logits = encdec_mod.decode_train(params, cfg, batch["tokens"],
@@ -118,7 +97,6 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
 
 
 def decode_step(params, cfg: ModelConfig, caches, token, pos):
-    check_mesh_family(cfg)
     if cfg.family == "audio":
         return encdec_mod.encdec_decode_step(params, cfg, caches, token, pos)
     return lm_mod.lm_decode_step(params, cfg, caches, token, pos)

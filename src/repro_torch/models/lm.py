@@ -10,7 +10,9 @@ package scans over it. Every loop takes the blocks once with
 forward wraps each in ``cfg.remat``'s recompute policy.
 
 Decode writes the stacked caches in place: block i's slice of every cache
-leaf is a view, and each mixer updates its view.
+leaf is a view, and each mixer updates its view (under a device mesh,
+each rank its own shard: ``ctx.write_slot`` for the KV caches,
+``ctx.write_state`` for the recurrent states).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ from repro_torch.models.mlp import apply_mlp, mlp_spec
 from repro_torch.models.moe import apply_moe, moe_spec
 from repro_torch.models.module import ParamSpec, remat, tree_map, \
     tree_unbind
-from repro_torch.sharding.ctx import shard_act, weight
+from repro_torch.sharding.ctx import shard_act, weight, write_state
 from repro_torch.sharding.specs import pin_caches
 
 
@@ -203,7 +205,9 @@ def lm_prefill(params, cfg: ModelConfig, tokens: torch.Tensor, max_seq: int,
     """Full forward that also extracts the decode caches (prefill step).
 
     Returns (logits [B,S,V], caches) where caches match cache_abstract();
-    under a device mesh they are laid out by ``cache_partition_specs``.
+    under a device mesh they are laid out by ``cache_partition_specs``
+    (the recurrent states come out of their mixers in that layout, so
+    ``pin_caches`` moves none of them).
     """
     prog = build_program(cfg)
     x = _embed_inputs(params, cfg, tokens, img_embeds)
@@ -283,8 +287,8 @@ def _decode_position(cfg, ps: PositionSpec, pp, cache_slice, x, pos):
         mx, wkv, sh_t = rwkv_mod.decode_rwkv_time(
             pp["rwkv_t"], cfg, h, cache_slice["wkv"],
             cache_slice["shift_t"])
-        cache_slice["wkv"].copy_(wkv)
-        cache_slice["shift_t"].copy_(sh_t)
+        write_state(cache_slice["wkv"], wkv)
+        write_state(cache_slice["shift_t"], sh_t)
     x = x + mx
     if ps.ffn != "none":
         h = apply_norm(pp["ln2"], x, cfg.norm)
@@ -295,7 +299,7 @@ def _decode_position(cfg, ps: PositionSpec, pp, cache_slice, x, pos):
         else:
             y, sh_c = rwkv_mod.decode_rwkv_channel(
                 pp["rwkv_c"], cfg, h, cache_slice["shift_c"])
-            cache_slice["shift_c"].copy_(sh_c)
+            write_state(cache_slice["shift_c"], sh_c)
         x = x + y
     return x
 

@@ -9,6 +9,17 @@ Train/prefill: a loop over time with an f32 state S [B,H,hd,hd] (the
 matrix-valued WKV state). Decode: the single-step recurrence — O(1) state
 in sequence length. ``cfg.ssm_unroll`` is ignored (it only changes the
 JAX package's scan schedule).
+
+Under a device mesh (``sharding.ctx``) the projections run on DTensors:
+r, k, v, g and the decay w come out cut on ``heads`` over the tensor
+axis. The WKV scan and the per-head group norm run on each rank's batch
+rows and whole heads as plain tensors (``ctx.on_shards``), with the
+rank's rows of ``u`` and ``ln_x``; ``wo``'s contraction over the cut
+heads is the mixer's one all-reduce. The returned and decoded ``wkv``
+[B,H,hd,hd] is cut on heads, the token shifts replicated over the tensor
+axis, as the cache specs lay them out; decode writes them in place on
+each rank's shards (``ctx.write_state``). The token shift runs on each
+rank's shard (the sequence is never cut).
 """
 from __future__ import annotations
 
@@ -19,7 +30,10 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.module import ParamSpec
-from repro_torch.sharding.ctx import shard_act
+from repro_torch.sharding.ctx import (
+    gather_dim, on_shards, per_shard, reduce_partial, shard_act, site_layout,
+    weight,
+)
 
 
 def _dims(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -71,10 +85,15 @@ def _shift(x: torch.Tensor, prev: Optional[torch.Tensor] = None
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
+def _shift_delta(x: torch.Tensor) -> torch.Tensor:
+    """shift(x) - x, the shift on each rank's shard of ``x`` [B,S,d]."""
+    return per_shard(_shift, x, x.shape) - x
+
+
 def _decay(p, cfg: ModelConfig, xw: torch.Tensor) -> torch.Tensor:
     dt = cfg.compute_dtype
-    lo = torch.tanh(xw @ p["w_a"].to(dt))
-    w = p["w0"].float() + (lo @ p["w_b"].to(dt)).float()
+    lo = torch.tanh(xw @ weight(p["w_a"], dt))
+    w = weight(p["w0"], torch.float32) + (lo @ weight(p["w_b"], dt)).float()
     return torch.exp(-torch.exp(w))  # in (0, 1), data-dependent per channel
 
 
@@ -101,45 +120,67 @@ def _mix(x, sx, mu, n):
     return tuple(x + sx * mu[i] for i in range(n))
 
 
+def _head_weights(p):
+    """``u`` and ``ln_x`` in f32, as the WKV core takes them."""
+    return weight(p["u"], torch.float32), weight(p["ln_x"], torch.float32)
+
+
 def apply_rwkv_time(p, cfg: ModelConfig, x: torch.Tensor,
                     return_state: bool = False):
     dt = cfg.compute_dtype
     h, hd, _ = _dims(cfg)
     b, s, d = x.shape
-    sx = _shift(x) - x
-    xr, xk, xv, xw, xg = _mix(x, sx, p["mu"].to(dt), 5)
-    r = shard_act(xr @ p["wr"].to(dt), "batch", None, "act_heads")
-    k = shard_act(xk @ p["wk"].to(dt), "batch", None, "act_heads")
-    v = shard_act(xv @ p["wv"].to(dt), "batch", None, "act_heads")
-    g = shard_act(xg @ p["wg"].to(dt), "batch", None, "act_heads")
+    xr, xk, xv, xw, xg = _mix(x, _shift_delta(x), weight(p["mu"], dt), 5)
+    r = shard_act(xr @ weight(p["wr"], dt), "batch", None, "act_heads")
+    k = shard_act(xk @ weight(p["wk"], dt), "batch", None, "act_heads")
+    v = shard_act(xv @ weight(p["wv"], dt), "batch", None, "act_heads")
+    g = shard_act(xg @ weight(p["wg"], dt), "batch", None, "act_heads")
     w = _decay(p, cfg, xw)                                   # [B,S,d] f32
-    rh, kh, vh, wh = (a.reshape(b, s, h, hd) for a in (r, k, v, w))
-    u = p["u"].float()
-    state = torch.zeros((b, h, hd, hd), dtype=torch.float32, device=x.device)
-    ys = []
-    for i in range(s):
-        state, y_t = _wkv_step(state, u, rh[:, i], kh[:, i], vh[:, i],
-                               wh[:, i])
-        ys.append(y_t)
-    y = torch.stack(ys, dim=1).reshape(b, s, d).to(dt)
-    y = _group_norm(p["ln_x"].float(), y, h)
-    y = y * F.silu(g)
-    out = y @ p["wo"].to(dt)
+    # each rank's rows and whole heads: [B,S,d] cut where [B,S,H,hd] is
+    work = site_layout((b, s, h, hd), "batch", None, "act_heads", None)
+
+    def scan(r, k, v, w, g, u, ln_x):
+        bl, hl = r.shape[0], r.shape[-1] // hd
+        rh, kh, vh, wh = (a.reshape(bl, s, hl, hd) for a in (r, k, v, w))
+        state = torch.zeros((bl, hl, hd, hd), dtype=torch.float32,
+                            device=r.device)
+        ys = []
+        for i in range(s):
+            state, y_t = _wkv_step(state, u, rh[:, i], kh[:, i], vh[:, i],
+                                   wh[:, i])
+            ys.append(y_t)
+        y = torch.stack(ys, dim=1).reshape(bl, s, hl * hd).to(dt)
+        y = _group_norm(ln_x, y, hl)
+        return y * F.silu(g), state
+
+    heads = {0: 0, 1: 1, 2: 2}
+    u, ln_x = _head_weights(p)
+    y, state = on_shards(
+        scan, work, [(r, heads), (k, heads), (v, heads), (w, heads),
+                     (g, heads), (u, {2: 0}), (ln_x, {2: 0})],
+        [(heads, (b, s, d)), ({0: 0, 2: 1}, (b, h, hd, hd))])
+    out = reduce_partial(y @ weight(p["wo"], dt))
     if return_state:
         return out, state, x[:, -1]
     return out
 
 
+def _channel_out(p, dt, xk, xr):
+    """The channel mix's r * v, whole over the tensor axis (the residual
+    stream's layout): v's contraction over the cut ffn all-reduced, the
+    product over r's cut columns gathered."""
+    k = torch.square(F.relu(xk @ weight(p["wk"], dt)))
+    k = shard_act(k, "batch", None, "act_ffn")
+    v = reduce_partial(k @ weight(p["wv"], dt))
+    r = torch.sigmoid(xr @ weight(p["wr"], dt))
+    return gather_dim(r * v, -1)
+
+
 def apply_rwkv_channel(p, cfg: ModelConfig, x: torch.Tensor
                        ) -> torch.Tensor:
     dt = cfg.compute_dtype
-    sx = _shift(x) - x
-    xk, xr = _mix(x, sx, p["mu"].to(dt), 2)
-    k = torch.square(F.relu(xk @ p["wk"].to(dt)))
-    k = shard_act(k, "batch", None, "act_ffn")
-    v = k @ p["wv"].to(dt)
-    r = torch.sigmoid(xr @ p["wr"].to(dt))
-    return r * v
+    xk, xr = _mix(x, _shift_delta(x), weight(p["mu"], dt), 2)
+    return _channel_out(p, dt, xk, xr)
 
 
 # ---------------------------------------------------------------------------
@@ -163,24 +204,35 @@ def rwkv_state_abstract(cfg: ModelConfig, batch: int, n_layers: int
 def decode_rwkv_time(p, cfg: ModelConfig, x: torch.Tensor,
                      wkv: torch.Tensor, shift_prev: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x [B,1,d]; wkv [B,H,hd,hd]; shift_prev [B,d] → (out, wkv', x_t)."""
+    """x [B,1,d]; wkv [B,H,hd,hd]; shift_prev [B,d] → (out, wkv', x_t).
+    Under a device mesh the work is cut as ``wkv`` is (its batch rows and
+    heads) and wkv' comes back in its placements."""
     dt = cfg.compute_dtype
     h, hd, _ = _dims(cfg)
     b, _, d = x.shape
     xt = x[:, 0]
     sx = shift_prev - xt
-    xr, xk, xv, xw, xg = _mix(xt, sx, p["mu"].to(dt), 5)
-    r = xr @ p["wr"].to(dt)
-    k = xk @ p["wk"].to(dt)
-    v = xv @ p["wv"].to(dt)
-    g = xg @ p["wg"].to(dt)
-    w = _decay(p, cfg, xw).reshape(b, h, hd)
-    wkv_new, y = _wkv_step(wkv, p["u"].float(), r.reshape(b, h, hd),
-                           k.reshape(b, h, hd), v.reshape(b, h, hd), w)
-    y = y.reshape(b, d).to(dt)
-    y = _group_norm(p["ln_x"].float(), y, h)
-    y = y * F.silu(g)
-    out = y @ p["wo"].to(dt)
+    xr, xk, xv, xw, xg = _mix(xt, sx, weight(p["mu"], dt), 5)
+    r = xr @ weight(p["wr"], dt)
+    k = xk @ weight(p["wk"], dt)
+    v = xv @ weight(p["wv"], dt)
+    g = xg @ weight(p["wg"], dt)
+    w = _decay(p, cfg, xw)
+
+    def step(r, k, v, w, g, wkv, u, ln_x):
+        bl, hl = r.shape[0], r.shape[-1] // hd
+        wkv, y = _wkv_step(wkv, u, *(a.reshape(bl, hl, hd)
+                                     for a in (r, k, v, w)))
+        y = _group_norm(ln_x, y.reshape(bl, hl * hd).to(dt), hl)
+        return y * F.silu(g), wkv
+
+    heads, whole = {0: 0, 1: 1}, {0: 0, 1: 1, 2: 2, 3: 3}
+    u, ln_x = _head_weights(p)
+    y, wkv_new = on_shards(
+        step, wkv, [(r, heads), (k, heads), (v, heads), (w, heads),
+                    (g, heads), (wkv, whole), (u, {1: 0}), (ln_x, {1: 0})],
+        [(heads, (b, d)), (whole, (b, h, hd, hd))])
+    out = reduce_partial(y @ weight(p["wo"], dt))
     return out[:, None, :], wkv_new, xt
 
 
@@ -189,9 +241,5 @@ def decode_rwkv_channel(p, cfg: ModelConfig, x: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     dt = cfg.compute_dtype
     xt = x[:, 0]
-    sx = shift_prev - xt
-    xk, xr = _mix(xt, sx, p["mu"].to(dt), 2)
-    k = torch.square(F.relu(xk @ p["wk"].to(dt)))
-    v = k @ p["wv"].to(dt)
-    r = torch.sigmoid(xr @ p["wr"].to(dt))
-    return (r * v)[:, None, :], xt
+    xk, xr = _mix(xt, shift_prev - xt, weight(p["mu"], dt), 2)
+    return _channel_out(p, dt, xk, xr)[:, None, :], xt

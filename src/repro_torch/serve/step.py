@@ -56,7 +56,6 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int) -> Callable:
 
     def prefill_step(params, batch: Dict[str, torch.Tensor]):
         check_mesh(where)
-        mapi.check_mesh_family(cfg)
         with _no_grad():
             logits, caches = mapi.prefill(params, cfg, pin_inputs(batch),
                                           max_seq)
@@ -73,7 +72,6 @@ def make_decode_step(cfg: ModelConfig, greedy: bool = True,
 
     def decode_step(params, caches, token: torch.Tensor, pos):
         check_mesh(where)
-        mapi.check_mesh_family(cfg)
         with _no_grad():
             if not donate:
                 caches = tree_map(torch.clone, caches)

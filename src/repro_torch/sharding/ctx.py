@@ -296,6 +296,24 @@ def per_shard(fn, x, shape):
     return from_shard(fn(x.to_local()), x.device_mesh, x.placements, shape)
 
 
+def on_shards(fn, work, args, outs):
+    """``fn`` run on each rank's shards of the work cut as ``work`` (a
+    ``Layout``, or a DTensor laid out as the work): a recurrent scan over
+    the rank's batch rows and channels or heads. ``args`` are ``(x,
+    dims)`` pairs, each handed to ``fn`` as ``local_cut_like(x, work,
+    dims)`` (its gradient labelled by ``grad_placements``: an operand
+    whole on an axis that cuts the work, such as a scan's B_t and C_t
+    over the tensor axis, gets a partial sum there); ``outs`` are ``(dims,
+    shape)`` pairs, one for each tensor ``fn`` returns, which come back
+    as ``from_local_like`` DTensors of global ``shape``. Without a device
+    mesh, ``fn`` on ``args``' tensors as they are. Returns a tuple."""
+    if device_mesh() is None:
+        return tuple(fn(*(x for x, _ in args)))
+    got = fn(*(local_cut_like(x, work, dims) for x, dims in args))
+    return tuple(from_local_like(t, work, dims, shape)
+                 for t, (dims, shape) in zip(got, outs))
+
+
 def axes_where(x, pred) -> tuple:
     """The mesh axes of the DTensor ``x`` whose placement satisfies
     ``pred``."""
@@ -345,18 +363,19 @@ def reduce_over(t, torch_mesh, axes, op: str):
     return t
 
 
-def local_range(x, dim: int):
+def local_range(x, dim: int, whole: Optional[int] = None):
     """(first index, length) of this rank's cut of the DTensor ``x``'s dim
-    ``dim``: mesh axes that shard it cut it in the mesh's order, the first
+    ``dim``, or of a dim of ``whole`` elements laid out by the ``Layout``
+    ``x``: mesh axes that shard it cut it in the mesh's order, the first
     one outermost (DTensor's nesting)."""
     coord = x.device_mesh.get_coordinate()
-    lo, size = 0, x.shape[dim]
+    whole = x.shape[dim] if whole is None else whole
+    lo, size = 0, whole
     for i, p in enumerate(x.placements):
         if p.is_shard(dim):
             n = x.device_mesh.size(i)
             if size % n:
-                raise ValueError(f"dim {dim} of {x.shape[dim]} is cut "
-                                 "unevenly")
+                raise ValueError(f"dim {dim} of {whole} is cut unevenly")
             size //= n
             lo += coord[i] * size
     return lo, size
@@ -449,6 +468,26 @@ def write_slot(cache, slot: int, value) -> None:
     lo, size = local_range(cache, 1)
     if lo <= slot < lo + size:
         cache.to_local()[:, slot - lo] = value
+
+
+def write_state(cache, value) -> None:
+    """``cache.copy_(value)`` (a decode step's recurrent state: a conv
+    window, an SSM or WKV state, a token shift). Under a device mesh both
+    are DTensors and ``value`` must already be laid out as ``cache`` (else
+    ``ValueError``): each rank copies its shard into its own, and nothing
+    is gathered or moved between ranks."""
+    if device_mesh() is None:
+        cache.copy_(value)
+        return
+    cache = _dtensor(cache, "a cache")
+    value = _dtensor(value, "a state")
+    if value.shape != cache.shape or \
+            tuple(value.placements) != tuple(cache.placements):
+        raise ValueError(
+            f"a state of {tuple(value.shape)} {tuple(value.placements)} "
+            f"written into a cache of {tuple(cache.shape)} "
+            f"{tuple(cache.placements)}")
+    cache.to_local().copy_(value.to_local())
 
 
 def weight(w, dtype=None):

@@ -20,9 +20,7 @@ pins its inputs (``pin_inputs``), lays each gradient out in its
 parameter's placements (as GSPMD gives each gradient its parameter's
 sharding), clips by a norm reduced over the cuts, and updates each rank's
 shards in place. It is built for the mesh installed when it is made and
-raises ``RuntimeError`` under another; a family outside
-``models.api.MESH_FAMILIES`` raises ``NotImplementedError`` before any
-launch.
+raises ``RuntimeError`` under another. Every family trains under a mesh.
 """
 from __future__ import annotations
 
@@ -124,7 +122,6 @@ def make_grad_fn(cfg: ModelConfig, grad_accum: int = 1):
     device mesh each is pinned anew)."""
 
     def grad_fn(params, batch):
-        mapi.check_mesh_family(cfg)
         if grad_accum == 1:
             return _value_and_grad(params, cfg, batch)
         n = next(iter(batch.values())).shape[0]
@@ -162,7 +159,6 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, grad_accum: int = 1,
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         check_mesh(where)
-        mapi.check_mesh_family(cfg)
         grads, loss, acc = grad_fn(state.params, batch)
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
         ef = state.ef

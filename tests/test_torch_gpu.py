@@ -2031,25 +2031,24 @@ LM_MESH_CARD_SERVE = (4, 128, 32)      # batch, prompt, new tokens
 LM_MESH_CARD_RTOL = 1e-4               # of the largest |logit|
 
 
-@pytest.fixture(scope="module")
-def lm_mesh_card_runs(tmp_path_factory):
-    """Four ranks, one a card; skips below four cards (decided here)."""
+def _four_card_ranks(target, d, args, timeout, what, extra=()):
+    """``target(rank, 4, store, *args, out, *extra)`` in four processes,
+    one a card (skips below four cards, decided here): rank 0's
+    result."""
     if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
-        pytest.skip("needs four CUDA devices (LM serving across cards)")
+        pytest.skip(f"needs four CUDA devices ({what} across cards)")
     import os
     import pickle
     import time
     import torch.multiprocessing as mp
-    import torch_lm_mesh_worker as worker
-    d = tmp_path_factory.mktemp("lm_mesh_cards")
     spawn = mp.get_context("spawn")
-    procs = [spawn.Process(target=worker.card_main,
-                           args=(r, 4, str(d / "store"), LM_MESH_CARD_RUNS,
-                                 LM_MESH_CARD_SERVE, str(d)))
+    procs = [spawn.Process(target=target,
+                           args=(r, 4, str(d / "store")) + tuple(args)
+                           + (str(d),) + tuple(extra))
              for r in range(4)]
     for p in procs:
         p.start()
-    deadline = time.monotonic() + 900
+    deadline = time.monotonic() + timeout
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
     hung = [p for p in procs if p.is_alive()]
@@ -2059,6 +2058,15 @@ def lm_mesh_card_runs(tmp_path_factory):
     assert not hung and [p.exitcode for p in procs] == [0] * 4
     with open(os.path.join(d, "result.pkl"), "rb") as f:
         return pickle.load(f)
+
+
+@pytest.fixture(scope="module")
+def lm_mesh_card_runs(tmp_path_factory):
+    """Four ranks, one a card; skips below four cards."""
+    import torch_lm_mesh_worker as worker
+    return _four_card_ranks(
+        worker.card_main, tmp_path_factory.mktemp("lm_mesh_cards"),
+        (LM_MESH_CARD_RUNS, LM_MESH_CARD_SERVE), 900, "LM serving")
 
 
 @pytest.mark.parametrize("shape,batch", LM_MESH_CARD_RUNS,
@@ -2090,34 +2098,12 @@ TRAIN_MESH_CARD_ATOL = 5e-3             # the leaf's largest |g|); params
 
 @pytest.fixture(scope="module")
 def train_mesh_card_runs(tmp_path_factory):
-    """Four ranks, one a card; skips below four cards (decided here)."""
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
-        pytest.skip("needs four CUDA devices (LM training across cards)")
-    import os
-    import pickle
-    import time
-    import torch.multiprocessing as mp
+    """Four ranks, one a card; skips below four cards."""
     import torch_train_mesh_worker as worker
-    d = tmp_path_factory.mktemp("train_mesh_cards")
-    spawn = mp.get_context("spawn")
-    procs = [spawn.Process(target=worker.card_main,
-                           args=(r, 4, str(d / "store"),
-                                 TRAIN_MESH_CARD_SHAPES,
-                                 TRAIN_MESH_CARD_OVER, TRAIN_MESH_CARD_DATA,
-                                 str(d)))
-             for r in range(4)]
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + 600
-    for p in procs:
-        p.join(max(0.0, deadline - time.monotonic()))
-    hung = [p for p in procs if p.is_alive()]
-    for p in hung:
-        p.kill()
-        p.join(10)
-    assert not hung and [p.exitcode for p in procs] == [0] * 4
-    with open(os.path.join(d, "result.pkl"), "rb") as f:
-        return pickle.load(f)
+    return _four_card_ranks(
+        worker.card_main, tmp_path_factory.mktemp("train_mesh_cards"),
+        (TRAIN_MESH_CARD_SHAPES, TRAIN_MESH_CARD_OVER, TRAIN_MESH_CARD_DATA),
+        600, "LM training")
 
 
 @pytest.mark.parametrize("shape", TRAIN_MESH_CARD_SHAPES,
@@ -2140,6 +2126,90 @@ def test_train_mesh_on_four_cards_matches_one_card(train_mesh_card_runs,
     assert r["param_abs"] < TRAIN_MESH_CARD_ATOL
     assert r["placed"]
     cfg = worker.port_cfg("qwen3-1.7b", TRAIN_MESH_CARD_OVER)
+    mesh = Mesh(shape, worker.AXES)
+    cell = ShapeConfig("train_mesh", TRAIN_MESH_CARD_DATA[1],
+                       TRAIN_MESH_CARD_DATA[0], "train")
+    want = (dryrun.argument_bytes(cfg, cell, mesh, default_rules(mesh))
+            - dryrun.input_bytes(cfg, cell, mesh, default_rules(mesh)))
+    assert r["bytes"] == [want] * 4
+
+
+# ---------------------------------------------------------------------------
+# The recurrent families sharded over four cards (one process a card,
+# NCCL): rwkv6-7b's block at 4 WKV heads and jamba's 8-layer interleave,
+# ``test_torch_ssm_mesh_serve.py``'s models, f32, against the unsharded
+# port on card 0; the card's torch is another version than the CPU
+# tests', so its DTensor rules run here too.
+# ---------------------------------------------------------------------------
+
+SSM_MESH_CARD_OVER = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                          head_dim=16, d_ff=128)
+SSM_MESH_CARD_MODELS = {
+    "rwkv": ("rwkv6-7b", dict(SSM_MESH_CARD_OVER,
+                              ssm=(("rwkv_head_dim", 16),))),
+    "jamba": ("jamba-v0.1-52b", dict(SSM_MESH_CARD_OVER, n_layers=8)),
+}
+SSM_MESH_CARD_RUNS = (((2, 2), 4), ((1, 4), 4), ((4, 1), 1))
+SSM_MESH_CARD_SERVE = (4, 16, 8)        # batch, prompt, new tokens
+SSM_MESH_CARD_SHAPES = ((2, 2), (1, 4))
+
+
+@pytest.fixture(scope="module", params=sorted(SSM_MESH_CARD_MODELS))
+def ssm_mesh_card_serving(request, tmp_path_factory):
+    """The model's serving runs on four cards; skips below four cards."""
+    import torch_lm_mesh_worker as worker
+    return request.param, _four_card_ranks(
+        worker.card_main,
+        tmp_path_factory.mktemp(f"ssm_mesh_cards_{request.param}"),
+        (SSM_MESH_CARD_RUNS, SSM_MESH_CARD_SERVE), 600, "recurrent serving",
+        (SSM_MESH_CARD_MODELS[request.param],))
+
+
+@pytest.mark.parametrize("shape,batch", SSM_MESH_CARD_RUNS,
+                         ids=["2x2_batch4", "1x4_batch4", "4x1_batch1"])
+def test_ssm_mesh_serving_on_four_cards_matches_one_card(
+        ssm_mesh_card_serving, shape, batch):
+    """Greedy tokens equal the unsharded run's; prefill's logits, and each
+    decode's against the forward pass, within ``LM_MESH_CARD_RTOL``; each
+    card's parameter and cache bytes equal to the dry run's."""
+    _, runs = ssm_mesh_card_serving
+    r = runs[shape, batch]
+    assert r["tokens_equal"]
+    assert r["prefill_rel"] < LM_MESH_CARD_RTOL
+    assert r["decode_rel"] < LM_MESH_CARD_RTOL
+    assert r["bytes"] == [r["predicted"]] * 4
+
+
+@pytest.fixture(scope="module", params=sorted(SSM_MESH_CARD_MODELS))
+def ssm_mesh_card_training(request, tmp_path_factory):
+    """The model's train runs on four cards; skips below four cards."""
+    import torch_train_mesh_worker as worker
+    arch, over = SSM_MESH_CARD_MODELS[request.param]
+    return (arch, over), _four_card_ranks(
+        worker.card_main,
+        tmp_path_factory.mktemp(f"ssm_train_cards_{request.param}"),
+        (SSM_MESH_CARD_SHAPES, over, TRAIN_MESH_CARD_DATA), 600,
+        "recurrent training", (arch,))
+
+
+@pytest.mark.parametrize("shape", SSM_MESH_CARD_SHAPES, ids=["2x2", "1x4"])
+def test_ssm_train_mesh_on_four_cards_matches_one_card(
+        ssm_mesh_card_training, shape):
+    """As ``test_train_mesh_on_four_cards_matches_one_card``, for rwkv's
+    and jamba's blocks."""
+    import torch_train_mesh_worker as worker
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import default_rules
+    from repro_torch.sharding.partition import Mesh
+    (arch, over), runs = ssm_mesh_card_training
+    r = runs[shape]
+    assert r["loss_rel"] < TRAIN_MESH_CARD_RTOL
+    assert r["gnorm_rel"] < TRAIN_MESH_CARD_RTOL
+    assert r["grad_rel"] < TRAIN_MESH_CARD_RTOL
+    assert r["param_abs"] < TRAIN_MESH_CARD_ATOL
+    assert r["placed"]
+    cfg = worker.port_cfg(arch, over)
     mesh = Mesh(shape, worker.AXES)
     cell = ShapeConfig("train_mesh", TRAIN_MESH_CARD_DATA[1],
                        TRAIN_MESH_CARD_DATA[0], "train")

@@ -64,7 +64,6 @@ MODELS = {"dense": "qwen3-1.7b", "vlm": "phi-3-vision-4.2b",
 OVERS = {m: OVER for m in MODELS}
 OVERS["chunked"] = dict(OVER, chunked_attn_threshold=8, attn_chunk_q=4,
                         attn_chunk_kv=4)
-REFUSED = ("rwkv6-7b", "jamba-v0.1-52b")
 B, S, MAX, N_STEPS, N_NEW = 4, 8, 32, 4, 4
 SERVE = {"b4": B, "b1": 1}
 JOIN_S = 240
@@ -94,8 +93,7 @@ def _job(mesh_name, tmp):
                         "batch": batch_np(cfg, b=B, s=S), "serve": serve}
     models["dense"]["generate"] = _serve_inputs("dense", B)[0]["tokens"]
     return {"models": models, "max_seq": MAX,
-            "n_new": N_NEW, "refused_archs": REFUSED,
-            "restore_model": "dense", "restore_shape": RESTORE[mesh_name],
+            "n_new": N_NEW, "restore_model": "dense", "restore_shape": RESTORE[mesh_name],
             "ckpt_dir": os.path.join(tmp, "ckpt")}
 
 
@@ -263,16 +261,8 @@ def test_every_activation_site_takes_the_reference_spec(run):
 
 
 # ---------------------------------------------------------------------------
-# Refusals, restore, mesh construction.
+# Restore, mesh construction.
 # ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("arch", REFUSED)
-def test_families_outside_the_slice_raise_under_a_mesh(run, arch):
-    got = {k[1]: v for k, v in run[2]["refusals"].items() if k[0] == arch}
-    assert got == dict.fromkeys(
-        ("forward", "prefill", "decode_step", "serve_decode"),
-        ("NotImplementedError", True))
-
 
 def test_restore_reshards_onto_another_mesh(run):
     """Saved from this mesh, restored onto ``RESTORE``'s: every leaf takes

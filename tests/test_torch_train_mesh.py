@@ -70,7 +70,6 @@ OVERS = {m: OVER for m in MODELS}
 OVERS["chunked"] = dict(OVER, chunked_attn_threshold=8, attn_chunk_q=4,
                         attn_chunk_kv=4)
 OVERS["loss_chunk"] = dict(OVER, loss_chunk=4)
-REFUSED = ("rwkv6-7b", "jamba-v0.1-52b")
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 B, S = 4, 8
 LOSS_RTOL = 1e-4
@@ -105,7 +104,7 @@ def _job(tmp, name):
                   "params": ref_params_np(MODELS[m], **OVER),
                   "batch": _batch(m)} for m in MODELS}
     return {"models": models, "opt": OPT, "extras_model": "dense",
-            "refused_archs": REFUSED, "restore_shape": RESTORE[name],
+            "restore_shape": RESTORE[name],
             "ckpt_dir": os.path.join(tmp, "ckpt")}
 
 
@@ -364,13 +363,6 @@ def test_a_step_runs_under_the_mesh_it_was_built_for_only(run):
     got = run[2]["restore"]
     assert got["other_mesh"] == "RuntimeError"
     assert got["no_mesh_step"] == "RuntimeError"
-
-
-@pytest.mark.parametrize("arch", REFUSED)
-def test_families_outside_the_slice_refuse_to_train_under_a_mesh(run, arch):
-    got = {k[1]: v for k, v in run[2]["refusals"].items() if k[0] == arch}
-    assert got == dict.fromkeys(("train_step", "grad_fn", "loss_chunk"),
-                                ("NotImplementedError", True))
 
 
 def test_train_step_on_the_multi_pod_mesh_matches_reference(run):

@@ -47,11 +47,14 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _replace(cfg, compute, over):
-    """``cfg`` with ``over`` applied; ``moe=(("field", value), ...)``
-    replaces fields of the MoE config (each package has its own class)."""
+    """``cfg`` with ``over`` applied; ``moe=(("field", value), ...)`` and
+    ``ssm=(...)`` replace fields of the MoE and SSM configs (each package
+    has its own classes)."""
     over = dict(over)
-    if isinstance(over.get("moe"), tuple):
-        over["moe"] = dataclasses.replace(cfg.moe, **dict(over["moe"]))
+    for sub in ("moe", "ssm"):
+        if isinstance(over.get(sub), tuple):
+            over[sub] = dataclasses.replace(getattr(cfg, sub),
+                                            **dict(over[sub]))
     return dataclasses.replace(cfg, compute_dtype=compute, **over)
 
 

@@ -1,13 +1,14 @@
 """One rank of the LM mesh tests: ``main`` for the CPU tests
-(``test_torch_lm_mesh.py``), ``card_main`` for the card tests
+(``test_torch_lm_mesh.py``, ``test_torch_moe_mesh_serve.py``,
+``test_torch_ssm_mesh_serve.py``), ``card_main`` for the card tests
 (``test_torch_gpu.py``, NCCL, one rank a card).
 
 Each test-module fixture starts four of these with ``torch.multiprocessing``
 (spawn), one thread each, joined by gloo through a file store. This module
 imports neither JAX nor the JAX package, so a rank starts in seconds: the
 parent hands it the JAX package's parameters and the inputs as numpy
-arrays, and rank 0 writes what the ranks saw (values, placements, bytes,
-refusals) to a pickle the parent holds against the JAX package.
+arrays, and rank 0 writes what the ranks saw (values, placements, bytes)
+to a pickle the parent holds against the JAX package.
 """
 from __future__ import annotations
 
@@ -24,7 +25,7 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.launch import dryrun
 from repro_torch.launch.mesh import default_rules, make_device_mesh
 from repro_torch.launch.serve import lm_inputs
-from repro_torch.models import api, attention, lm, mlp, moe
+from repro_torch.models import api, attention, lm, mamba, mlp, moe, rwkv
 from repro_torch.models.module import (
     distribute, init_params, shardings, tree_items, tree_map,
 )
@@ -39,11 +40,14 @@ AXES = ("data", "model")
 
 def port_cfg(arch: str, over: dict):
     """The reduced config at ``over``'s widths, f32 compute;
-    ``moe=(("field", value), ...)`` replaces fields of the MoE config."""
+    ``moe=(("field", value), ...)`` and ``ssm=(...)`` replace fields of
+    the MoE and SSM configs."""
     cfg = reduced(get_config(arch))
     over = dict(over)
-    if isinstance(over.get("moe"), tuple):
-        over["moe"] = dataclasses.replace(cfg.moe, **dict(over["moe"]))
+    for sub in ("moe", "ssm"):
+        if isinstance(over.get(sub), tuple):
+            over[sub] = dataclasses.replace(getattr(cfg, sub),
+                                            **dict(over[sub]))
     return dataclasses.replace(cfg, compute_dtype=torch.float32, **over)
 
 
@@ -57,9 +61,9 @@ def _local_bytes(tree) -> int:
 
 
 def _record_sites(sites: list) -> None:
-    """Wrap every ``shard_act`` the blocks call (dense and MoE) so each
-    call under a device mesh records (logical axes, shape, placements it
-    gave)."""
+    """Wrap every ``shard_act`` the blocks call (dense, MoE and the
+    recurrent mixers) so each call under a device mesh records (logical
+    axes, shape, placements it gave)."""
     real = ctx.shard_act
 
     def recording(x, *logical):
@@ -69,17 +73,34 @@ def _record_sites(sites: list) -> None:
                           repr(tuple(out.placements))))
         return out
 
-    for mod in (ctx, attention, mlp, moe, lm):
+    for mod in (ctx, attention, mlp, moe, lm, mamba, rwkv):
         mod.shard_act = recording
 
 
-def _serve(cfg, dp, batch, tokens, first, max_seq, n_steps, mesh, rules):
+def _whole(tree) -> dict:
+    """Each leaf whole, as a copy (a replicated leaf's ``full_tensor`` on
+    the CPU is its own storage, which decode goes on writing)."""
+    return {"/".join(k): t.full_tensor().cpu().numpy().copy()
+            for k, t in tree_items(tree)}
+
+
+def _ptrs(tree) -> dict:
+    return {"/".join(k): t.to_local().data_ptr() for k, t in tree_items(tree)}
+
+
+def _serve(cfg, dp, batch, tokens, first, max_seq, n_steps, mesh, rules,
+           states=None):
     """Prefill on ``batch``, then ``n_steps`` teacher-forced donating decode
     steps fed ``tokens[:, i]`` at ``first + i``: (prefill logits, decode
-    logits, cache placements after prefill and after each step, caches)."""
+    logits, cache placements after prefill and after each step, caches).
+    A dict ``states`` gets every cache leaf whole after prefill and after
+    the last step, and whether each rank's shards stayed where the
+    prefill put them (``data_ptr``)."""
     with ctx.use_sharding(mesh, rules):
         logits, caches = serve_step.compiled_prefill(cfg, max_seq)(dp, batch)
         placed = [_placed(caches)]
+        if states is not None:
+            states["prefill"], ptrs = _whole(caches), _ptrs(caches)
         step = serve_step.compiled_decode(cfg, donate=True)
         out = []
         for i in range(n_steps):
@@ -88,29 +109,10 @@ def _serve(cfg, dp, batch, tokens, first, max_seq, n_steps, mesh, rules):
                 raise AssertionError("a donating decode returned new caches")
             out.append(lg.full_tensor().cpu().numpy())
             placed.append(_placed(caches))
+        if states is not None:
+            states["decode"] = _whole(caches)
+            states["in_place"] = _gather(_ptrs(caches) == ptrs)
     return logits.full_tensor().cpu().numpy(), out, placed, caches
-
-
-def _refusals(mesh, rules, archs) -> dict:
-    out = {}
-    with ctx.use_sharding(mesh, rules):
-        for arch in archs:
-            cfg = reduced(get_config(arch))
-            calls = {
-                "forward": lambda: api.forward({}, cfg, {}),
-                "prefill": lambda: api.prefill({}, cfg, {}, 8),
-                "decode_step": lambda: api.decode_step({}, cfg, {}, None, 0),
-                "serve_decode": lambda: serve_step.compiled_decode(cfg)(
-                    {}, {}, None, 0),
-            }
-            for name, call in calls.items():
-                try:
-                    call()
-                    out[(arch, name)] = "ran"
-                except NotImplementedError as e:
-                    out[(arch, name)] = ("NotImplementedError",
-                                         cfg.family in str(e))
-    return out
 
 
 def _pod_major(rank: int, device: str) -> list:
@@ -161,9 +163,12 @@ def _run(rank: int, shape, job: dict, device: str) -> dict:
             pb = {k: torch.as_tensor(v, device=mesh.device)
                   for k, v in b["batch"].items()}
             toks = torch.as_tensor(b["feed"], device=mesh.device)
+            states = {} if job.get("states") else None
             pre, dec, placed, caches = _serve(
                 cfg, dp, pb, toks, b["first"], job["max_seq"],
-                toks.shape[1], mesh, rules)
+                toks.shape[1], mesh, rules, states)
+            if states is not None:
+                res[name, b_name, "states"] = states
             res[name, b_name, "prefill"] = pre
             res[name, b_name, "decode"] = dec
             res[name, b_name, "caches"] = placed
@@ -179,7 +184,6 @@ def _run(rank: int, shape, job: dict, device: str) -> dict:
         if name == job["restore_model"]:
             res["restore"] = _restore(dp, spec, job, cfg, mesh, rules)
     res["sites"] = sites
-    res["refusals"] = _refusals(mesh, rules, job["refused_archs"])
     res["pod_major"] = _gather(_pod_major(rank, device))
     res["mesh_refusals"] = _mesh_refusals(device)
     return res
@@ -242,12 +246,14 @@ def _rel(got, want) -> float:
     return float((got - want).abs().max() / (want.abs().max() + 1e-9))
 
 
-def _card_runs(rank: int, runs, serve) -> dict:
-    """qwen3-1.7b at its full config, f32 compute, parameters drawn on the
-    host from seed 0: each (mesh, batch) of ``runs`` against the same
-    model with no mesh (run on rank 0)."""
-    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
-                              compute_dtype=torch.float32)
+def _card_runs(rank: int, runs, serve, model=None) -> dict:
+    """qwen3-1.7b at its full config (or ``model``, an (arch, over) pair at
+    ``port_cfg``'s widths), f32 compute, parameters drawn on the host from
+    seed 0: each (mesh, batch) of ``runs`` against the same model with no
+    mesh (run on rank 0)."""
+    cfg = (dataclasses.replace(get_config("qwen3-1.7b"),
+                               compute_dtype=torch.float32)
+           if model is None else port_cfg(*model))
     b, s, n_new = serve
     max_seq = s + n_new
     dev = torch.device("cuda", rank)
@@ -297,14 +303,14 @@ def _card_runs(rank: int, runs, serve) -> dict:
 
 
 def card_main(rank: int, world: int, store: str, runs, serve,
-              out: str) -> None:
+              out: str, model=None) -> None:
     torch.cuda.set_device(rank)
     dist.init_process_group("nccl", init_method=f"file://{store}",
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=300),
                             device_id=torch.device("cuda", rank))
     try:
-        res = _card_runs(rank, runs, serve)
+        res = _card_runs(rank, runs, serve, model)
         if rank == 0:
             with open(os.path.join(out, "result.pkl"), "wb") as f:
                 pickle.dump(res, f)

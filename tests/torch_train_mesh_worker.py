@@ -1,13 +1,14 @@
 """One rank of the sharded training tests: ``main`` for the CPU tests
-(``test_torch_train_mesh.py``, gloo), ``card_main`` for the card test
-(``test_torch_gpu.py``, NCCL, one rank a card).
+(``test_torch_train_mesh.py``, ``test_torch_moe_mesh_train.py``,
+``test_torch_ssm_mesh_train.py``, gloo), ``card_main`` for the card
+tests (``test_torch_gpu.py``, NCCL, one rank a card).
 
 Each test-module fixture starts four of these with ``torch.multiprocessing``
 (spawn), one thread each, joined through a file store. This module imports
 neither JAX nor the JAX package: the parent hands it the JAX package's
 parameters and the batches as numpy arrays, and rank 0 writes what the
-ranks computed (gradients and parameters whole, placements, bytes,
-refusals) to a pickle the parent holds against the JAX package.
+ranks computed (gradients and parameters whole, placements, bytes) to a
+pickle the parent holds against the JAX package.
 """
 from __future__ import annotations
 
@@ -21,7 +22,6 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.checkpoint.ckpt import Checkpointer
-from repro_torch.configs import get_config, reduced
 from repro_torch.launch.mesh import default_rules, make_device_mesh
 from repro_torch.models import api, module
 from repro_torch.models.module import distribute, init_params, shardings, \
@@ -234,26 +234,6 @@ def _restore(cfg, host, batch, job, mesh, rules, opt) -> dict:
     return out
 
 
-def _refusals(mesh, rules, archs, opt) -> dict:
-    out = {}
-    with ctx.use_sharding(mesh, rules):
-        for arch in archs:
-            cfg = reduced(get_config(arch))
-            chunked = dataclasses.replace(cfg, loss_chunk=4)
-            calls = {"train_step": lambda: make_train_step(cfg, opt)({}, {}),
-                     "grad_fn": lambda: make_grad_fn(cfg)({}, {}),
-                     "loss_chunk": lambda: make_train_step(chunked, opt)(
-                         {}, {})}
-            for name, call in calls.items():
-                try:
-                    call()
-                    out[arch, name] = "ran"
-                except NotImplementedError as e:
-                    out[arch, name] = ("NotImplementedError",
-                                       cfg.family in str(e))
-    return out
-
-
 def _psum(rank, device) -> dict:
     """``compressed_psum`` of each rank's values over the data group of a
     (2,2) mesh and over the whole world."""
@@ -305,7 +285,6 @@ def _run(rank: int, shape, job: dict, device: str) -> dict:
             pod = make_device_mesh((2, 2, 1), POD_AXES, device)
             res["pod"], _ = _train(cfg, host, batch, pod,
                                    default_rules(pod), opt)
-    res["refusals"] = _refusals(mesh, rules, job["refused_archs"], opt)
     res["psum"] = _gather(_psum(rank, device))
     return res
 
@@ -336,11 +315,12 @@ def _rel(got, want) -> float:
     return float((got - want).abs().max() / (want.abs().max() + 1e-30))
 
 
-def _card_runs(rank: int, shapes, over: dict, data: tuple) -> dict:
-    """qwen3-1.7b at test widths, f32 compute, parameters drawn on the host
+def _card_runs(rank: int, shapes, over: dict, data: tuple,
+               arch: str = "qwen3-1.7b") -> dict:
+    """``arch`` at test widths, f32 compute, parameters drawn on the host
     from seed 0: one step's gradients and three steps on each mesh of
     ``shapes``, against the same model with no mesh (run on rank 0)."""
-    cfg = port_cfg("qwen3-1.7b", over)
+    cfg = port_cfg(arch, over)
     b, s = data
     dev = torch.device("cuda", rank)
     spec = api.spec(cfg)
@@ -383,14 +363,14 @@ def _card_runs(rank: int, shapes, over: dict, data: tuple) -> dict:
 
 
 def card_main(rank: int, world: int, store: str, shapes, over, data,
-              out: str) -> None:
+              out: str, arch: str = "qwen3-1.7b") -> None:
     torch.cuda.set_device(rank)
     dist.init_process_group("nccl", init_method=f"file://{store}",
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=300),
                             device_id=torch.device("cuda", rank))
     try:
-        res = _card_runs(rank, shapes, over, data)
+        res = _card_runs(rank, shapes, over, data, arch)
         if rank == 0:
             with open(os.path.join(out, "result.pkl"), "wb") as f:
                 pickle.dump(res, f)
